@@ -18,11 +18,35 @@
              the serving step (``ea_step`` with a live mask) for a few
              generations.  Launch counts are zeroed before each of the two
              and read after: each kernel must have run on its path.
-6. the ``kernels`` line, the card's name and power limit, and the result
+6. K3      — ``megakernel_var_or`` against ``index_select`` plus the
+             plain OR-choice variation: lambda 1e6 x dim 100 in float32 /
+             bfloat16 / int8, and the NSGA-II slice's 1e5 x 12;
+7. K4      — ``rows_dominate_counts`` against the plain counts, C = 1024
+             and C = n rows against n = 2e5 DTLZ2 points of a real pool
+             (with -inf sentinel rows and duplicated points): equal counts;
+8. reference — one NSGA-II generation at mu = lambda = 1024: the card's
+             ``var_or`` offspring against the CPU's bit for bit, then
+             ``sel_nsga2`` on the card, given the CPU pool's values,
+             against the CPU's indices, and the ``ea_step`` head's
+             offspring bit for bit;
+9. main path — NSGA-II ``ea_mu_plus_lambda`` (DTLZ2, 3 objectives, 12
+             variables, mu = lambda = 1e5, ``sel_nsga2(nd="peel",
+             front_chunk=1024)``, megakernel engine): N and 2N
+             generations, three pairs (median marginal time per
+             generation), K3 once and K4 at least once per generation,
+             and DTLZ2's distance to the front (mean of |f| - 1) must
+             fall; an untimed replay of the N-generation run counts the
+             fronts peeled per generation;
+10. the NSGA-II ``ea_step`` head (``sel_nsga2`` then K1): K1 against its
+             plain version on one generation's parents (1e5 x 12, the
+             head's knobs, float32 / bfloat16 / int8), then a few
+             generations at full width with K1's launches counted;
+11. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
-``python3 chip_smoke.py --profile`` adds, after phase 5, a
-``torch.profiler`` breakdown of a main-path generation.
+``python3 chip_smoke.py --profile`` adds, after phases 5 and 9, a
+per-stage and ``torch.profiler`` breakdown of a main-path generation of
+each path.
 
 Tolerance: every kernel must equal its plain version bit for bit (the
 stated ulp bound is 0); a mismatch prints the measured bound and fails.
@@ -45,14 +69,23 @@ POP, DIM = 1_000_000, 100
 NGEN = 30
 TIMING_PAIRS = 5
 LIVE_GENS = 3
+# the NSGA-II slice: bench_nsga2.py's DTLZ2 sub-config at BENCH_POP
+MO_POP, MO_NOBJ, MO_DIM = 100_000, 3, 12
+MO_NGEN = 3
+MO_PAIRS = 3
+MO_HEAD_GENS = 3
+MO_CXPB, MO_MUTPB, MO_SIGMA, MO_INDPB = 0.6, 0.3, 0.1, 1.0 / 12
+FRONT_CHUNK = 1024
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # Instruction rates of the H100 SXM: 132 SMs at the 1.98 GHz that the
 # data sheet's 67 TFLOP/s float32 peak implies (132 x 128 lanes x 2 x
-# 1.98e9).  Per SM and clock: 128 float32 instructions (an FMA is one,
-# hence half the FLOP rate), 64 INT32 instructions (Hopper whitepaper),
-# and 128 instructions issued in all.
+# 1.98e9).  Per SM and clock: 128 float32 add/multiply/FMA (an FMA is one
+# instruction, hence half the FLOP rate); 64 of 32-bit integer add, shift
+# and logic, and 64 compares (float32 compares included: "compare,
+# minimum, maximum", CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0); 128 instructions issued in all.
 FP32_INSTR_PER_S = 67e12 / 2
-INT32_INSTR_PER_S = 67e12 / 4
+INT32_INSTR_PER_S = 67e12 / 4      # integer and compare instructions
 ISSUE_PER_S = 67e12 / 2
 ULP_BOUND = 0                      # kernels equal their plain versions
 CXPB, MUTPB, MU, SIGMA, INDPB = 0.9, 0.5, 0.0, 0.3, 0.05
@@ -169,6 +202,29 @@ def tile_ops(c: dict, n: int, dim: int, dtype: str):
     return ints, flts
 
 
+def vary_check(kernels, G, parents, seed, knobs, dim: int, st):
+    """K1 on stored ``parents`` against its plain version (widen, tile,
+    narrow) on the same inputs: ``(ulp_gap, max_abs_err, ms,
+    plain_ms)``."""
+    import torch
+
+    def plain_vary():
+        return G._narrow(G._vary_tile_plain(
+            G._widen(parents, st.dtype, st.scale), seed, knobs, dim),
+            st.dtype, st.scale)
+
+    k1 = kernels.launch_vary(parents, seed, knobs, dim=dim, dtype=st.dtype,
+                             scale=st.scale)
+    p1 = plain_vary()
+    torch.cuda.synchronize()
+    gap = ulp_gap(k1, p1)
+    err = float((k1.float() - p1.float()).abs().max().item())
+    ms = cuda_ms(lambda: kernels.launch_vary(
+        parents, seed, knobs, dim=dim, dtype=st.dtype, scale=st.scale))
+    plain = cuda_ms(plain_vary, reps=3, warm=1)
+    return gap, err, ms, plain
+
+
 def _wall_ms(fn, reps: int = 5) -> float:
     """Host-clock ms per call of ``fn`` over synchronized repeats: the
     larger of its launch cost and its device time."""
@@ -251,6 +307,436 @@ def profile_main_path(ea_step, key, pop, tb, card_line, gens=5) -> None:
                     "calls": e.count / gens} for e in top])
 
 
+# ---------------------------------------------------------------------------
+# the NSGA-II slice: K3, K4 and the (mu + lambda) loop
+# ---------------------------------------------------------------------------
+
+
+def var_or_counts(ia, i2, code, seed, knobs, dim: int) -> dict:
+    """The data-dependent work of K3 under this run's draws: crossover and
+    mutation rows, partner genes taken, genes mutated."""
+    import torch
+    from deap_tpu_torch.ops.generation import (M32, _cut_points,
+                                               _uniform_at)
+    useed = seed.reshape(()).to(torch.int64) & M32
+    rows = torch.arange(code.numel(), dtype=torch.int64, device=code.device)
+    cx = rows[code == 0]
+    u0 = _uniform_at(useed, 4, cx, 0)
+    u1 = _uniform_at(useed, 4, cx, 1)
+    lo, hi = _cut_points(u0, u1, dim)
+    mut = rows[code == 1]
+    lanes = torch.arange(dim, dtype=torch.int64, device=code.device)
+    mutated = 0
+    for s in range(0, mut.numel(), 1 << 17):     # bounded temporaries
+        u = _uniform_at(useed, 5, mut[s:s + (1 << 17), None], lanes[None, :])
+        mutated += int((u < knobs[2]).sum().item())
+    return {"rows": int(code.numel()), "cx_rows": int(cx.numel()),
+            "mut_rows": int(mut.numel()),
+            "partner_genes": int((hi - lo).sum().item()),
+            "mutated_genes": mutated}
+
+
+def var_or_bound(c: dict, dim: int, elt: int, dtype: str):
+    """K3's least time: parent rows read and children written once, the
+    partner genes it takes, the three index/code words per row; the cut
+    pair (two draws and the cut law) per crossover row, the swap test per
+    gene of a crossover row, the gene draw per gene of a mutation row,
+    ``erf_inv`` and the conversions per mutated gene."""
+    hi, hf = _HASH
+    n = c["rows"]
+    n_bytes = 2 * n * dim * elt + c["partner_genes"] * elt + 12 * n + 16
+    ints = (n + c["cx_rows"] * (2 * hi + 10) + 3 * c["cx_rows"] * dim
+            + c["mut_rows"] * dim * hi
+            + c["mutated_genes"] * (_MUTATE[0] + _WIDEN_NARROW[dtype][0]))
+    flts = (c["cx_rows"] * (2 * hf + 4) + c["mut_rows"] * dim * (hf + 1)
+            + c["mutated_genes"] * (_MUTATE[1] + _WIDEN_NARROW[dtype][1]))
+    return bound_ms(n_bytes, (ints, flts))
+
+
+def counts_bound(C: int, n: int, m: int):
+    """K4's least time: every (row, column) pair is 2m float compares
+    (``>=`` and ``>`` per objective, each chain folded through the
+    compare's predicate input) and at least one instruction to count it,
+    all at the compare/integer rate; the rows, the points and the counts
+    move once.  ``python -m deap_tpu_torch.kernels.sass`` counts what
+    the compiled loop spends per pair (it also joins the two chains,
+    counts in two instructions, and loads and loops)."""
+    return bound_ms(4 * (C * m + n * m + n), (C * n * (2 * m + 1), 0))
+
+
+def dtlz2_values(genome):
+    import torch
+    from deap_tpu_torch import benchmarks
+    return torch.func.vmap(lambda g: torch.stack(
+        benchmarks.dtlz2(g, MO_NOBJ)))(genome)
+
+
+def front_distance(values) -> float:
+    """DTLZ2's distance to its front: the mean of ``|f|_2 - 1``."""
+    return float((values.double().norm(dim=1) - 1.0).mean().item())
+
+
+def nsga2_toolbox():
+    from deap_tpu_torch import base, benchmarks
+    from deap_tpu_torch.ops import crossover, emo, mutation
+    tb = base.Toolbox()
+    tb.register("evaluate", benchmarks.dtlz2, obj=MO_NOBJ)
+    tb.register("mate", crossover.cx_two_point)
+    tb.register("mutate", mutation.mut_gaussian, mu=0.0, sigma=MO_SIGMA,
+                indpb=MO_INDPB)
+    tb.register("select", emo.sel_nsga2, nd="peel", front_chunk=FRONT_CHUNK)
+    tb.generation_engine = "megakernel"
+    return tb
+
+
+def k3_phase(kernels, G, genome, key, card_line, n: int, dim: int,
+             knobs_vals, storages) -> dict:
+    """K3 against its plain version at ``(n, dim)``; returns per dtype
+    ``(max_abs_err, ms, plain_ms, bound_ms, bound_by)``."""
+    import torch
+    ia, i2, code, seed = G._var_or_draws(key, n, n, MO_CXPB, MO_MUTPB)
+    knobs = torch.tensor(knobs_vals, dtype=torch.float32,
+                         device=genome.device)
+    counts = var_or_counts(ia, i2, code, seed, knobs, dim)
+    out = {}
+    for st in storages:
+        gs = st.to_storage(genome)
+        before = kernels.LAUNCHES["megakernel_var_or"]
+        k3 = kernels.launch_var_or(gs, ia, i2, code, seed, knobs, dim=dim,
+                                   dtype=st.dtype, scale=st.scale)
+        p3 = G._var_or_plain(gs, ia, i2, code, seed, knobs, dim, st)
+        torch.cuda.synchronize()
+        gap = ulp_gap(k3, p3)
+        err = float((k3.float() - p3.float()).abs().max().item())
+        ms = cuda_ms(lambda: kernels.launch_var_or(
+            gs, ia, i2, code, seed, knobs, dim=dim, dtype=st.dtype,
+            scale=st.scale))
+        plain = cuda_ms(lambda: G._var_or_plain(gs, ia, i2, code, seed,
+                                                knobs, dim, st),
+                        reps=3, warm=1)
+        b, by = var_or_bound(counts, dim, gs.element_size(), st.dtype)
+        phase("K3 megakernel_var_or vs plain", card_line, storage=st.dtype,
+              shape=[n, dim], ulp_gap=gap, ulp_bound=ULP_BOUND,
+              max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+              bound_by=by, work=counts,
+              launches=kernels.LAUNCHES["megakernel_var_or"] - before)
+        if gap > ULP_BOUND:
+            fail(f"K3 {st.dtype} at {n}x{dim}: {gap} ulp from its plain "
+                 f"version (bound {ULP_BOUND})")
+        out[st.dtype] = (err, ms, plain, b, by)
+        del gs, k3, p3
+        torch.cuda.empty_cache()
+    return out
+
+
+def k4_phase(kernels, D, key, card_line) -> dict:
+    """K4 against its plain counts on the DTLZ2 values of a real pool:
+    a front chunk of C = 1024 rows and the initial counts' C = n, with
+    -inf sentinel rows and duplicated points."""
+    import torch
+    from deap_tpu_torch import random
+    n = 2 * MO_POP
+    genome = random.uniform(key, (n, MO_DIM))
+    w = -dtlz2_values(genome)
+    w[:256] = w[256:512]                               # duplicated points
+    active = torch.ones(n, dtype=torch.bool, device=w.device)
+    active[::9] = False                                # -inf rows below
+    out = {}
+    for C in (FRONT_CHUNK, n):
+        if C == n:
+            rows = torch.where(active[:, None], w, float("-inf"))
+        else:
+            rows = w[torch.arange(0, n, n // C, device=w.device)[:C]].clone()
+            rows[-24:] = float("-inf")                 # a padded chunk
+        rows = rows.contiguous()
+        before = kernels.LAUNCHES["rows_dominate_counts"]
+        k4 = kernels.launch_rows_dominate_counts(rows, w)
+        p4 = D._rows_dominate_counts_plain(rows, w)
+        torch.cuda.synchronize()
+        equal = torch.equal(k4, p4)
+        err = float((k4 - p4).abs().max().item())
+        ms = cuda_ms(lambda: kernels.launch_rows_dominate_counts(rows, w),
+                     reps=10 if C < n else 3, warm=1)
+        plain = cuda_ms(lambda: D._rows_dominate_counts_plain(rows, w),
+                        reps=3 if C < n else 1, warm=1 if C < n else 0)
+        b, by = counts_bound(C, n, MO_NOBJ)
+        phase("K4 rows_dominate_counts vs plain", card_line, rows=C,
+              points=n, nobj=MO_NOBJ, counts_equal=equal, max_abs_err=err,
+              ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+              count_sum=int(k4.sum().item()),
+              launches=kernels.LAUNCHES["rows_dominate_counts"] - before)
+        if not equal:
+            fail(f"K4 at C={C}: counts differ from the plain version")
+        out[C] = (err, ms, plain, b, by)
+    return out
+
+
+def nsga2_reference_phase(card_line, key) -> None:
+    """One NSGA-II generation at mu = lambda = 1024, card against CPU:
+    the offspring bitwise, then the card's selection on the CPU pool's
+    values against the CPU's indices, then the ``ea_step`` head's
+    offspring (``sel_nsga2`` and K1) bitwise."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import ea_ask, evaluate_population, var_or
+    n = 1024
+    tb = nsga2_toolbox()
+    k_g, k_var, k_sel = random.split(key.cpu(), 3)
+    genome = random.uniform(k_g, (n, MO_DIM))
+    pop = evaluate_population(tb, base.Population(
+        genome, base.Fitness.empty(n, (-1.0,) * MO_NOBJ, device="cpu")))[0]
+    dev = torch.device("cuda")
+    pop_dev = base.Population(genome.to(dev), base.Fitness(
+        pop.fitness.values.to(dev), pop.fitness.valid.to(dev),
+        pop.fitness.weights))
+    off_cpu = var_or(k_var, pop, tb, n, MO_CXPB, MO_MUTPB)
+    off_dev = var_or(k_var.to(dev), pop_dev, tb, n, MO_CXPB, MO_MUTPB)
+    same_off = torch.equal(off_cpu.genome.view(torch.int32),
+                           off_dev.genome.cpu().view(torch.int32))
+    pool = pop.concat(evaluate_population(tb, off_cpu)[0])
+    idx_cpu = tb.select(k_sel, pool.fitness, n)
+    idx_dev = tb.select(k_sel.to(dev), base.Fitness(
+        pool.fitness.values.to(dev), pool.fitness.valid.to(dev),
+        pool.fitness.weights), n)
+    same_idx = torch.equal(idx_cpu, idx_dev.cpu())
+    # the ea_step head (sel_nsga2, then K1) on the same parents
+    head_cpu = ea_ask(k_var, pop, tb, MO_CXPB, MO_MUTPB)[1].genome
+    head_dev = ea_ask(k_var.to(dev), pop_dev, tb, MO_CXPB, MO_MUTPB)[1].genome
+    same_head = torch.equal(head_cpu.view(torch.int32),
+                            head_dev.cpu().view(torch.int32))
+    phase("reference: NSGA-II generation card vs CPU", card_line, mu=n,
+          lam=n, dim=MO_DIM, offspring_bitwise=same_off,
+          selection_equal=same_idx, head_offspring_bitwise=same_head)
+    if not (same_off and same_idx and same_head):
+        fail("NSGA-II generation on the card differs from the CPU path: "
+             f"offspring equal {same_off}, selection equal {same_idx}, "
+             f"ea_step head offspring equal {same_head}")
+
+
+def fronts_per_generation(key, pop0, ngen: int):
+    """Replay the first ``ngen`` generations of an ``ea_mu_plus_lambda``
+    run, untimed, with a ``select`` that also ranks each pool by
+    ``nondominated_ranks`` and keeps its number of fronts.  Returns the
+    fronts per generation and the final population."""
+    from deap_tpu_torch.algorithms import ea_mu_plus_lambda
+    from deap_tpu_torch.ops import emo
+    tb = nsga2_toolbox()
+    fronts = []
+
+    def select(k_sel, fitness, k):
+        fronts.append(emo.nondominated_ranks(
+            fitness.masked_wvalues(), method="peel",
+            front_chunk=FRONT_CHUNK, stop_at_k=k)[1])
+        return emo.sel_nsga2(k_sel, fitness, k, nd="peel",
+                             front_chunk=FRONT_CHUNK)
+
+    tb.register("select", select)
+    pop, _ = ea_mu_plus_lambda(key, pop0, tb, MO_POP, MO_POP, MO_CXPB,
+                               MO_MUTPB, ngen)
+    return fronts, pop
+
+
+def nsga2_main_path(kernels, card_line, key):
+    """The NSGA-II ``ea_mu_plus_lambda`` at full width; returns the launch
+    counts of its first timed run."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import ea_mu_plus_lambda
+    from deap_tpu_torch.utils.support import Statistics
+    tb = nsga2_toolbox()
+    stats = Statistics(lambda p: p.fitness.values)
+    stats.register("dist", lambda v: (v.double().norm(dim=1) - 1.0).mean())
+    k_init, k_run = random.split(key)
+    genome = random.uniform(k_init, (MO_POP, MO_DIM))
+
+    def fresh():
+        return base.Population(genome.clone(), base.Fitness.empty(
+            MO_POP, (-1.0,) * MO_NOBJ, device=genome.device))
+
+    def run(ngen):
+        pop0 = fresh()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pop, log = ea_mu_plus_lambda(k_run, pop0, tb, MO_POP, MO_POP,
+                                     MO_CXPB, MO_MUTPB, ngen, stats=stats)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, pop, log
+
+    run(1)                                     # warm the allocator
+    kernels.reset_launches()
+    t1, pop1, _ = run(MO_NGEN)
+    launches = dict(kernels.LAUNCHES)
+    fronts, replay = fronts_per_generation(k_run, fresh(), MO_NGEN)
+    if not torch.equal(replay.genome, pop1.genome):
+        fail("the untimed replay that counts fronts left another "
+             "population than the timed run")
+    del pop1, replay
+    t2, pop2, log2 = run(2 * MO_NGEN)
+    pairs = [(t1, t2)]
+    for i in range(MO_PAIRS - 1):
+        if i % 2:
+            a, b = run(MO_NGEN)[0], run(2 * MO_NGEN)[0]
+        else:
+            b, a = run(2 * MO_NGEN)[0], run(MO_NGEN)[0]
+        pairs.append((a, b))
+    marginals = sorted((b - a) / MO_NGEN for a, b in pairs)
+    per_gen = marginals[len(marginals) // 2]
+    dist = log2.select("dist")
+    final = pop2.fitness.values
+    ok_shape = (tuple(pop2.genome.shape) == (MO_POP, MO_DIM)
+                and tuple(final.shape) == (MO_POP, MO_NOBJ)
+                and bool(torch.isfinite(pop2.genome).all())
+                and bool(torch.isfinite(final).all())
+                and bool(pop2.fitness.valid.all()))
+    phase("main path: NSGA-II ea_mu_plus_lambda dtlz2", card_line,
+          mu=MO_POP, lam=MO_POP, dim=MO_DIM, nobj=MO_NOBJ,
+          ngen=[MO_NGEN, 2 * MO_NGEN], seconds=[list(p) for p in pairs],
+          marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
+          linearity=[b / a for a, b in pairs],
+          launches=launches,
+          launches_per_gen={k: v / MO_NGEN for k, v in launches.items()},
+          fronts_per_gen=fronts, distance_start=dist[0],
+          distance_end=dist[-1], finite_and_shaped=ok_shape)
+    if launches["megakernel_var_or"] != MO_NGEN:
+        fail(f"K3 ran {launches['megakernel_var_or']} times in {MO_NGEN} "
+             "NSGA-II generations (once per generation expected)")
+    if launches["rows_dominate_counts"] < MO_NGEN:
+        fail(f"K4 ran {launches['rows_dominate_counts']} times in "
+             f"{MO_NGEN} NSGA-II generations (at least once each expected)")
+    if not dist[-1] < dist[0]:
+        fail(f"DTLZ2 distance did not fall: {dist[0]} -> {dist[-1]}")
+    if not ok_shape:
+        fail("final NSGA-II population is not finite, valid and shaped")
+    return launches, pop2, tb
+
+
+def nsga2_head_phase(kernels, G, card_line, key, pop, tb) -> tuple:
+    """The NSGA-II head of ``ea_step`` (``sel_nsga2`` of ``pop`` parents,
+    then K1).  First K1 on one generation's parents and knobs against
+    its plain version in the three storage dtypes; then a few generations
+    at full width with the launches counted.  Returns the launches and
+    the per-dtype ``(max_abs_err, ms, plain_ms)`` of K1 at this shape."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.algorithms import ea_step
+    k_sel, k_var = random.split(key, 3)[1:]
+    idx = tb.select(k_sel, pop.fitness, MO_POP)
+    params = G.megakernel_variation_params(tb)
+    seed = G._seed_from_key(k_var)
+    knobs = G._knobs((MO_CXPB, MO_MUTPB, params["mut_mu"],
+                      params["mut_sigma"], params["indpb"]), pop.genome.device)
+    counts = tile_counts(seed, knobs, MO_POP, MO_DIM)
+    checks = {}
+    for st in (G.GenomeStorage("float32"), G.GenomeStorage("bfloat16"),
+               G.GenomeStorage("int8", 1.0)):       # DTLZ2 genes: [0, 1]
+        parents = st.to_storage(pop.genome[idx.long()]).contiguous()
+        gap, err, ms, plain = vary_check(kernels, G, parents, seed, knobs,
+                                         MO_DIM, st)
+        b, by = bound_ms(2 * MO_POP * MO_DIM * parents.element_size() + 24,
+                         tile_ops(counts, MO_POP, MO_DIM, st.dtype))
+        phase("K1 megakernel_vary vs plain, NSGA-II head inputs", card_line,
+              storage=st.dtype, shape=[MO_POP, MO_DIM], ulp_gap=gap,
+              ulp_bound=ULP_BOUND, max_abs_err=err, ms=ms, plain_ms=plain,
+              bound_ms=b, bound_by=by, work=counts)
+        if gap > ULP_BOUND:
+            fail(f"K1 {st.dtype} on the NSGA-II head's parents: {gap} ulp "
+                 f"from its plain version (bound {ULP_BOUND})")
+        checks[st.dtype] = (err, ms, plain)
+
+    d0 = front_distance(pop.fitness.values)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(MO_HEAD_GENS):
+        key, pop, _ = ea_step(key, pop, tb, MO_CXPB, MO_MUTPB)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    ok = bool(torch.isfinite(pop.fitness.values).all()
+              and pop.fitness.valid.all())
+    phase("NSGA-II ea_step head (sel_nsga2 + K1)", card_line, pop=MO_POP,
+          dim=MO_DIM, gens=MO_HEAD_GENS,
+          ms_per_gen=secs / MO_HEAD_GENS * 1e3, launches=launches,
+          distance_start=d0, distance_end=front_distance(pop.fitness.values),
+          finite_and_valid=ok)
+    if launches["megakernel_vary"] != MO_HEAD_GENS:
+        fail(f"K1 ran {launches['megakernel_vary']} times in "
+             f"{MO_HEAD_GENS} NSGA-II head generations")
+    if launches["rows_dominate_counts"] < MO_HEAD_GENS or not ok:
+        fail("the NSGA-II head did not count dominance through K4 or left "
+             "an invalid population")
+    return launches, checks
+
+
+def profile_nsga2(key, pop, tb, card_line, gens=2) -> None:
+    """``--profile`` for the NSGA-II path: the wall cost of each stage of
+    a generation called alone, then ``torch.profiler`` over ``gens``
+    generations of the loop."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deap_tpu_torch import random
+    from deap_tpu_torch.algorithms import (ea_mu_plus_lambda,
+                                           evaluate_population, var_or)
+    from deap_tpu_torch.base import lexsort
+    from deap_tpu_torch.ops import emo
+
+    k_var, k_sel = random.split(key)
+    off = evaluate_population(tb, var_or(k_var, pop, tb, MO_POP, MO_CXPB,
+                                         MO_MUTPB))[0]
+    pool = pop.concat(off)
+    w, values = emo._wv_values(pool.fitness)
+    n = w.shape[0]
+    ones = torch.ones(n, dtype=torch.bool, device=w.device)
+    counts = emo._dominator_counts(w, ones)
+    ranks, _ = emo._peel_from_counts(w, counts, MO_POP, FRONT_CHUNK)
+    dist = emo.assign_crowding_dist(values, ranks)
+    stages = {
+        "split key (3)": lambda: random.split(key, 3),
+        "var_or (draws + K3)": lambda: var_or(k_var, pop, tb, MO_POP,
+                                              MO_CXPB, MO_MUTPB),
+        "evaluate (vmap dtlz2)": lambda: evaluate_population(tb, off),
+        "concat": lambda: pop.concat(off),
+        "initial counts (K4, C = n)": lambda: emo._dominator_counts(w, ones),
+        "peel (host-read rounds, K4 chunks)": lambda: emo._peel_from_counts(
+            w, counts, MO_POP, FRONT_CHUNK),
+        "crowding distance": lambda: emo.assign_crowding_dist(values, ranks),
+        "final sort": lambda: lexsort([-dist, ranks]),
+        "whole sel_nsga2": lambda: tb.select(k_sel, pool.fitness, MO_POP),
+    }
+    phase("profile: NSGA-II stage wall ms (synchronized, alone)", card_line,
+          stages={k: _wall_ms(f, reps=3) for k, f in stages.items()})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        ea_mu_plus_lambda(key, pop, tb, MO_POP, MO_POP, MO_CXPB, MO_MUTPB,
+                          gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    avgs = prof.key_averages()
+    kernels_ = [e for e in avgs if e.device_type == DeviceType.CUDA
+                and dev_us(e) > 0]
+    busy_us = sum(dev_us(e) for e in kernels_)
+    top = sorted(kernels_, key=dev_us, reverse=True)[:12]
+    phase("profile: NSGA-II ea_mu_plus_lambda, per generation", card_line,
+          gens=gens, wall_ms=wall / gens * 1e3,
+          device_busy_ms=(busy_us / gens / 1e3 if busy_us
+                          else "not measured"),
+          device_idle_share=(1.0 - busy_us / 1e6 / wall if busy_us
+                             else "not measured"),
+          kernel_launches=sum(e.count for e in kernels_) / gens,
+          top_kernels=[{"kernel": e.key[:60], "ms": dev_us(e) / gens / 1e3,
+                        "calls": e.count / gens} for e in top])
+
+
 def main() -> int:
     try:
         import torch
@@ -299,21 +785,8 @@ def main() -> int:
         gs = st.to_storage(genome)
         elt = gs.element_size()
         parents = gs[widx.long()].contiguous()
-
-        def plain_vary():
-            return G._narrow(G._vary_tile_plain(
-                G._widen(parents, st.dtype, st.scale), seed, knobs, DIM),
-                st.dtype, st.scale)
-
-        k1 = kernels.launch_vary(parents, seed, knobs, dim=DIM,
-                                 dtype=st.dtype, scale=st.scale)
-        p1 = plain_vary()
-        torch.cuda.synchronize()
-        gap1 = ulp_gap(k1, p1)
-        err1 = float((k1.float() - p1.float()).abs().max().item())
-        ms1 = cuda_ms(lambda: kernels.launch_vary(
-            parents, seed, knobs, dim=DIM, dtype=st.dtype, scale=st.scale))
-        plain1 = cuda_ms(plain_vary, reps=3, warm=1)
+        gap1, err1, ms1, plain1 = vary_check(kernels, G, parents, seed,
+                                             knobs, DIM, st)
         ops = tile_ops(counts, POP, DIM, st.dtype)
         b1, by1 = bound_ms(2 * POP * DIM * elt + 4 + 20, ops)
         phase("K1 megakernel_vary vs plain", card_line, storage=st.dtype,
@@ -348,7 +821,7 @@ def main() -> int:
                  f"(bound {ULP_BOUND})")
         report[st.dtype] = {"K1": (err1, ms1, plain1, b1, by1),
                             "K2": (err2, ms2, plain2, b2, by2)}
-        del gs, parents, k1, p1, k2, p2
+        del gs, parents, k2, p2
         torch.cuda.empty_cache()
 
     # ---- 4. a whole generation on a small input, card against CPU --------
@@ -464,8 +937,36 @@ def main() -> int:
 
     if "--profile" in sys.argv[1:]:
         profile_main_path(ea_step, k_run, pop1, tb, card_line)
+    del pop1, pop2, pop, genome, values
+    torch.cuda.empty_cache()
 
-    # ---- 6. the kernels line and the result --------------------------------
+    # ---- 6./7. K3 and K4 against their plain versions ---------------------
+    from deap_tpu_torch.ops import dominance as D
+    k_k3, k_k3s, k_k4, k_ref, k_mo, k_head = random.split(
+        random.fold_in(key, 2), 6)
+    g_big = random.uniform(k_k3, (POP, DIM), minval=-5.12, maxval=5.12)
+    k3_big = k3_phase(kernels, G, g_big, k_k3, card_line, POP, DIM,
+                      (MU, SIGMA, INDPB), storages)
+    del g_big
+    g_mo = random.uniform(k_k3s, (MO_POP, MO_DIM))
+    k3_mo = k3_phase(kernels, G, g_mo, k_k3s, card_line, MO_POP, MO_DIM,
+                     (0.0, MO_SIGMA, MO_INDPB), storages)
+    del g_mo
+    k4 = k4_phase(kernels, D, k_k4, card_line)
+
+    # ---- 8. an NSGA-II generation on a small input, card against CPU ------
+    nsga2_reference_phase(card_line, k_ref)
+
+    # ---- 9./10. the NSGA-II main path and the ea_step head ----------------
+    launches_mo, mo_pop, mo_tb = nsga2_main_path(kernels, card_line, k_mo)
+    launches_head, k1_head = nsga2_head_phase(kernels, G, card_line, k_head,
+                                              mo_pop, mo_tb)
+    if "--profile" in sys.argv[1:]:
+        profile_nsga2(k_head, mo_pop, mo_tb, card_line)
+
+    # ---- 11. the kernels line and the result -------------------------------
+    # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
+    # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
     rows = []
     for name, tag, replaces, launches in (
@@ -476,12 +977,37 @@ def main() -> int:
              "deap_tpu/ops/generation_pallas.py:441",
              launches_main["megakernel_gather_vary"])):
         err, ms, plain, b, by = report["float32"][tag]
+        errs = [report[d][tag][0] for d in report]
+        if tag == "K1":
+            errs += [v[0] for v in k1_head.values()]
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max(report[d][tag][0] for d in report),
+            "max_abs_err": max(errs),
             "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
             "library_ms": None})
+    rows[0]["launches_by_path"] = {
+        "ea_step live-mask": launches_live["megakernel_vary"],
+        "NSGA-II ea_step head": launches_head["megakernel_vary"]}
+    # K3 at the main path's shape (1e5 x 12 float32), K4 at its C = n call
+    err, ms, plain, b, by = k3_mo["float32"]
+    rows.append({
+        "name": "megakernel_var_or", "route": "cuda", "source": src,
+        "replaces": "deap_tpu/ops/generation_pallas.py:566",
+        "launches": launches_mo["megakernel_var_or"],
+        "max_abs_err": max(v[0] for d in (k3_big, k3_mo) for v in d.values()),
+        "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+        "library_ms": None})
+    err, ms, plain, b, by = k4[2 * MO_POP]
+    rows.append({
+        "name": "rows_dominate_counts", "route": "cuda",
+        "source": "deap_tpu_torch/kernels/dominance.cu",
+        "replaces": "deap_tpu/ops/dominance_pallas.py:77",
+        "launches": launches_mo["rows_dominate_counts"],
+        "max_abs_err": max(v[0] for v in k4.values()),
+        "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+        "library_ms": None})
+    phase("total", card_line, seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,15 @@
 
 The JAX package stays the reference; this package runs the same
 evolutionary algorithms on an NVIDIA card with PyTorch tensors, and the
-fused GA generation of the JAX package's Pallas megakernel as
-hand-written CUDA kernels (``deap_tpu_torch/kernels``).  It imports
+JAX package's Pallas kernels on their paths — the fused GA generation,
+the fused ``var_or`` and the dominance counts of the NSGA-II front peel
+— as hand-written CUDA kernels (``deap_tpu_torch/kernels``).  It imports
 neither JAX nor anything of ``deap_tpu``.
 
 Module names follow the JAX package (``base``, ``random``,
 ``algorithms``, ``engines``, ``benchmarks``, ``ops.selection``,
-``ops.crossover``, ``ops.mutation``, ``ops.generation`` for
+``ops.crossover``, ``ops.mutation``, ``ops.emo``, ``ops.dominance`` for
+``ops/dominance_pallas.py``, ``ops.generation`` for
 ``ops/generation_pallas.py``, ``utils.support``), so each counterpart
 is easy to find.  Entry points that create tensors take ``device=`` and
 default to ``"cuda"``; without a card they raise rather than run on the

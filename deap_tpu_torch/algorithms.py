@@ -1,11 +1,13 @@
 """Canonical evolutionary loops — the PyTorch counterparts of
-``deap_tpu/algorithms.py`` for the GA flagship: ``evaluate_population``,
-``vary_genome``/``var_and``, the ``ea_ask``/``ea_tell``/``ea_step``
-generation and ``ea_simple``.
+``deap_tpu/algorithms.py``: ``evaluate_population``,
+``vary_genome``/``var_and``, ``var_or``, the ``ea_ask``/``ea_tell``/
+``ea_step`` generation, ``ea_simple`` and the (mu + lambda) / (mu,
+lambda) loops.
 
 The JAX package runs the whole loop as one ``lax.scan``; here it is a
 Python loop over eager tensor code (and, under ``generation_engine =
-"megakernel"``, one hand-written CUDA kernel per generation).  The
+"megakernel"``, hand-written CUDA kernels: K2 for the GA, K3 for
+``var_or``, K1 for the NSGA-II head of ``ea_ask``).  The
 per-generation records stay on the device and are stacked once at the
 end, so no generation waits on a host copy.
 
@@ -18,10 +20,9 @@ The ``live`` contract of the serving layer is kept: a bool ``(pop,)``
 prefix mask whose pad rows never win selection (indices remap
 ``% live_n``), are never varied or evaluated, and are not counted.
 
-Not ported yet: ``var_or`` and the mu±lambda loops, the hall of fame,
-telemetry and streaming callbacks, quarantine, and the sharded and
-streamed engines (they raise :class:`~deap_tpu_torch.engines.
-EngineNotPorted`).
+Not ported yet: ``ea_generate_update``, the hall of fame, telemetry
+and streaming callbacks, quarantine, and the sharded and streamed
+engines (they raise :class:`~deap_tpu_torch.engines.EngineNotPorted`).
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ from .base import Fitness, Population, _leaves, _map
 from .engines import require_ported, resolve_engine
 from .utils.support import Logbook
 
-__all__ = ["var_and", "vary_genome", "evaluate_population", "ea_ask",
-           "ea_tell", "ea_step", "ea_simple", "varAnd", "eaSimple"]
+__all__ = ["var_and", "vary_genome", "var_or", "evaluate_population",
+           "ea_ask", "ea_tell", "ea_step", "ea_simple", "ea_mu_plus_lambda",
+           "ea_mu_comma_lambda", "varAnd", "varOr", "eaSimple",
+           "eaMuPlusLambda", "eaMuCommaLambda"]
 
 
 def _where_rows(mask, new, old):
@@ -45,6 +48,14 @@ def _where_rows(mask, new, old):
         return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)),
                            a, b)
     return _map(w, new, old)
+
+
+def _is_nsga2_select(toolbox) -> bool:
+    """Does the toolbox select with ``sel_nsga2``?  Picks the NSGA-II
+    head of the megakernel engine in :func:`ea_ask`."""
+    sel = getattr(toolbox, "select", None)
+    from .ops.emo import sel_nsga2
+    return getattr(sel, "func", sel) is sel_nsga2
 
 
 def _genome_storage(toolbox):
@@ -173,14 +184,51 @@ def vary_genome(key, g, toolbox, cxpb: float, mutpb: float):
     return _narrow_genome(storage, g, g_ref), touched | do_mut
 
 
+def var_or(key, population: Population, toolbox, lambda_: int,
+           cxpb: float, mutpb: float) -> Population:
+    """varOr: each of ``lambda_`` children comes from crossover (p =
+    ``cxpb``, the first child of two random distinct parents), mutation
+    (p = ``mutpb``, of a random parent) or reproduction; all come back
+    unevaluated.  ``generation_engine = "megakernel"`` routes to the
+    fused OR-choice kernel (:func:`deap_tpu_torch.ops.generation.
+    fused_var_or`), with the same choices and parent indices."""
+    assert cxpb + mutpb <= 1.0, (
+        "The sum of the crossover and mutation probabilities must be smaller "
+        "or equal to 1.0.")
+    from .ops.generation import _var_or_law, fused_var_or
+    if resolve_engine(toolbox) in ("megakernel", "megakernel_sharded"):
+        return fused_var_or(key, population, toolbox, lambda_, cxpb, mutpb)
+    g = population.genome
+    use_cx, use_mut, i1, i2, im, ir, k_cx, k_mut = _var_or_law(
+        key, population.size, lambda_, cxpb, mutpb)
+
+    def take(idx):
+        return _map(lambda x: x[idx.long()], g)
+
+    child_cx, _ = _apply_op(toolbox.mate, k_cx, lambda_, take(i1), take(i2))
+    child_mut = _apply_op(toolbox.mutate, k_mut, lambda_, take(im))
+    child = _where_rows(use_cx, child_cx,
+                        _where_rows(use_mut, child_mut, take(ir)))
+    old = population.fitness
+    return Population(child, Fitness.empty(lambda_, old.weights,
+                                           old.values.dtype,
+                                           old.values.device))
+
+
 def ea_ask(key, population: Population, toolbox, cxpb: float, mutpb: float,
            *, live=None):
     """Selection + variation half of one :func:`ea_simple` generation:
     ``(key, offspring)`` with touched rows invalid and nothing evaluated.
     ``generation_engine = "megakernel"`` routes the whole half through
     the fused generation (:func:`deap_tpu_torch.ops.generation.
-    fused_ea_step`) — the one routing point for every loop."""
+    fused_ea_step`) — the one routing point for every loop — and a
+    megakernel toolbox whose ``select`` is ``sel_nsga2`` to the NSGA-II
+    head (:func:`~deap_tpu_torch.ops.generation.fused_nsga2_step`)."""
     engine = require_ported(resolve_engine(toolbox))
+    if engine == "megakernel" and _is_nsga2_select(toolbox):
+        from .ops.generation import fused_nsga2_step
+        return fused_nsga2_step(key, population, toolbox, cxpb, mutpb,
+                                live=live)
     if engine == "megakernel":
         from .ops.generation import fused_ea_step
         return fused_ea_step(key, population, toolbox, cxpb, mutpb,
@@ -247,24 +295,7 @@ def _scalar(v):
     return v.item() if isinstance(v, torch.Tensor) and v.ndim == 0 else v
 
 
-def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
-              ngen: int, stats=None, halloffame=None, verbose=False):
-    """The simplest GA (reference eaSimple): per generation select, vary
-    (:func:`var_and`) and evaluate — ``ngen`` calls of :func:`ea_step`.
-    Returns ``(population, logbook)``.  Records stay on the device until
-    the run ends."""
-    require_ported(resolve_engine(toolbox))
-    if halloffame is not None:
-        raise NotImplementedError("HallOfFame is not ported to "
-                                  "deap_tpu_torch yet")
-    key, _ = random.split(key)
-    population, nevals0 = evaluate_population(toolbox, population)
-    rec0 = _record(stats, population, nevals0)
-    records = []
-    for _ in range(ngen):
-        key, population, nevals = ea_step(key, population, toolbox, cxpb,
-                                          mutpb)
-        records.append(_record(stats, population, nevals))
+def _logbook(stats, rec0, records, ngen: int, verbose: bool) -> Logbook:
     logbook = Logbook()
     logbook.header = ["gen", "nevals"] + (stats.fields if stats else [])
     logbook.record(gen=0, **{k: _scalar(v) for k, v in rec0.items()})
@@ -273,8 +304,72 @@ def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
                                **_stack_records(records))
     if verbose:
         print(logbook.stream)
-    return population, logbook
+    return logbook
+
+
+def _no_halloffame(halloffame):
+    if halloffame is not None:
+        raise NotImplementedError("HallOfFame is not ported to "
+                                  "deap_tpu_torch yet")
+
+
+def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
+              ngen: int, stats=None, halloffame=None, verbose=False):
+    """The simplest GA (reference eaSimple): per generation select, vary
+    (:func:`var_and`) and evaluate — ``ngen`` calls of :func:`ea_step`.
+    Returns ``(population, logbook)``.  Records stay on the device until
+    the run ends."""
+    require_ported(resolve_engine(toolbox))
+    _no_halloffame(halloffame)
+    key, _ = random.split(key)
+    population, nevals0 = evaluate_population(toolbox, population)
+    rec0 = _record(stats, population, nevals0)
+    records = []
+    for _ in range(ngen):
+        key, population, nevals = ea_step(key, population, toolbox, cxpb,
+                                          mutpb)
+        records.append(_record(stats, population, nevals))
+    return population, _logbook(stats, rec0, records, ngen, verbose)
+
+
+def _ea_mu_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb, ngen,
+                  stats, halloffame, verbose, plus: bool):
+    require_ported(resolve_engine(toolbox))
+    _no_halloffame(halloffame)
+    key, _ = random.split(key)
+    population, nevals0 = evaluate_population(toolbox, population)
+    rec0 = _record(stats, population, nevals0)
+    records = []
+    for _ in range(ngen):
+        key, k_var, k_sel = random.split(key, 3)
+        off = var_or(k_var, population, toolbox, lambda_, cxpb, mutpb)
+        off, nevals = evaluate_population(toolbox, off)
+        pool = population.concat(off) if plus else off
+        population = pool.take(toolbox.select(k_sel, pool.fitness, mu))
+        records.append(_record(stats, population, nevals))
+    return population, _logbook(stats, rec0, records, ngen, verbose)
+
+
+def ea_mu_plus_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb,
+                      ngen, stats=None, halloffame=None, verbose=False):
+    """(mu + lambda) strategy (reference eaMuPlusLambda): offspring by
+    :func:`var_or`, the next generation selected from parents and
+    offspring.  Returns ``(population, logbook)``."""
+    return _ea_mu_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb,
+                         ngen, stats, halloffame, verbose, plus=True)
+
+
+def ea_mu_comma_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb,
+                       ngen, stats=None, halloffame=None, verbose=False):
+    """(mu , lambda) strategy (reference eaMuCommaLambda): the next
+    generation selected from the offspring only (``lambda_ >= mu``)."""
+    assert lambda_ >= mu, ("lambda must be greater or equal to mu.")
+    return _ea_mu_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb,
+                         ngen, stats, halloffame, verbose, plus=False)
 
 
 varAnd = var_and
+varOr = var_or
 eaSimple = ea_simple
+eaMuPlusLambda = ea_mu_plus_lambda
+eaMuCommaLambda = ea_mu_comma_lambda

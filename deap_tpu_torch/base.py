@@ -166,6 +166,16 @@ class Population:
         return Population(_map(lambda g: g[idx], self.genome),
                           self.fitness.take(idx))
 
+    def concat(self, other: "Population") -> "Population":
+        """Rows of ``self`` then rows of ``other`` (the (mu + lambda)
+        pool); weights are ``self``'s."""
+        a, b = self.fitness, other.fitness
+        return Population(
+            _map(lambda x, y: torch.cat([x, y], 0), self.genome, other.genome),
+            Fitness(values=torch.cat([a.values, b.values], 0),
+                    valid=torch.cat([a.valid, b.valid], 0),
+                    weights=a.weights))
+
     def with_genome(self, genome: Any,
                     invalidate_where: torch.Tensor | None = None
                     ) -> "Population":

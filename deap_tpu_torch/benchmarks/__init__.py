@@ -9,7 +9,7 @@ import math
 
 import torch
 
-__all__ = ["sphere", "rastrigin"]
+__all__ = ["sphere", "rastrigin", "dtlz2"]
 
 
 def sphere(individual):
@@ -22,3 +22,22 @@ def rastrigin(individual):
     n = individual.shape[-1]
     return 10.0 * n + torch.sum(individual ** 2 - 10.0 * torch.cos(
         2.0 * math.pi * individual)),
+
+
+def _dtlz_spherical(individual, obj, g, transform=lambda x: x):
+    xc = transform(individual[:obj - 1])
+    cos_t = torch.cos(0.5 * math.pi * xc)
+    f = [(1.0 + g) * torch.prod(cos_t)]
+    for m in range(obj - 2, -1, -1):
+        f.append((1.0 + g) * torch.prod(cos_t[:m])
+                 * torch.sin(0.5 * math.pi * xc[m]))
+    return tuple(f)
+
+
+def dtlz2(individual, obj):
+    """DTLZ2, ``obj`` objectives; spherical front ``sum f_i^2 = 1`` at
+    ``g = 0``.  Written with torch's own ``cos``/``sin``, which differ
+    from XLA's by a few ulp (the tests state rtol 1e-6)."""
+    xm = individual[obj - 1:]
+    g = torch.sum((xm - 0.5) ** 2)
+    return _dtlz_spherical(individual, obj, g)

@@ -1,6 +1,7 @@
 """Launch wrappers of the port's hand-written CUDA kernels.
 
-The library is built from ``megakernel.cu`` at first use
+The library is built from ``megakernel.cu`` and ``dominance.cu`` at first
+use
 (:mod:`deap_tpu_torch.kernels.build`) and bound with ``ctypes``.  A
 launcher checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches on PyTorch's current stream, and
@@ -8,7 +9,8 @@ raises :class:`KernelLaunchError` if ``cudaGetLastError`` reports one.
 Only then does it add one to its entry of :data:`LAUNCHES` — the count a
 run reads to show that its path really went through the kernel.  Nothing
 here falls back to a plain version: that choice is made from the
-tensor's device by the callers in ``deap_tpu_torch/ops/generation.py``.
+tensor's device by the callers in ``deap_tpu_torch/ops/generation.py``
+and ``deap_tpu_torch/ops/dominance.py``.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ import numpy as np
 import torch
 
 __all__ = ["LAUNCHES", "KernelLaunchError", "reset_launches", "load",
-           "launch_vary", "launch_gather_vary"]
+           "launch_vary", "launch_gather_vary", "launch_var_or",
+           "launch_rows_dominate_counts"]
 
 #: launches of each kernel since the last :func:`reset_launches`
-LAUNCHES = {"megakernel_vary": 0, "megakernel_gather_vary": 0}
+LAUNCHES = {"megakernel_vary": 0, "megakernel_gather_vary": 0,
+            "megakernel_var_or": 0, "rows_dominate_counts": 0}
 _DTYPES = {"float32": (0, torch.float32), "bfloat16": (1, torch.bfloat16),
            "int8": (2, torch.int8)}
 _lib = None
@@ -53,6 +57,11 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.megakernel_gather_vary.argtypes = [p, p, p, p, p, ll, i, i,
                                                    f, f, p, p, ll, p]
             lib.megakernel_gather_vary.restype = i
+            lib.megakernel_var_or.argtypes = [p, p, p, p, p, ll, i, i, f, p,
+                                              p, p]
+            lib.megakernel_var_or.restype = i
+            lib.rows_dominate_counts.argtypes = [p, p, p, ll, ll, i, p]
+            lib.rows_dominate_counts.restype = i
             lib.megakernel_error_string.argtypes = [i]
             lib.megakernel_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -129,3 +138,47 @@ def launch_gather_vary(order, pos, genome, seed, knobs, *, dim: int,
     _raise_on(lib, rc, "megakernel_gather_vary")
     LAUNCHES["megakernel_gather_vary"] += 1
     return out, widx
+
+
+def launch_var_or(genome, ia, i2, code, seed, knobs, *, dim: int, dtype: str,
+                  scale: float) -> torch.Tensor:
+    """K3 on the card: per row ``r`` the OR choice ``code[r]`` over
+    parents ``genome[ia[r]]`` / ``genome[i2[r]]`` → ``(lambda, dim)`` in
+    the storage dtype."""
+    dt_code, tdt, s, _ = _storage_args(dtype, scale)
+    n = genome.shape[0]
+    lam = code.shape[0]
+    _check(genome, "genome", tdt, (n, dim))
+    for t, name in ((ia, "ia"), (i2, "i2"), (code, "code")):
+        _check(t, name, torch.int32, (lam,))
+    _check(seed, "seed", torch.int32, (1,) if seed.ndim else ())
+    _check(knobs, "knobs", torch.float32, (3,))
+    out = torch.empty((lam, dim), dtype=tdt, device=genome.device)
+    lib = load()
+    stream = torch.cuda.current_stream(genome.device).cuda_stream
+    with torch.cuda.device(genome.device):
+        rc = lib.megakernel_var_or(
+            genome.data_ptr(), ia.data_ptr(), i2.data_ptr(), code.data_ptr(),
+            out.data_ptr(), lam, dim, dt_code, s, seed.data_ptr(),
+            knobs.data_ptr(), stream)
+    _raise_on(lib, rc, "megakernel_var_or")
+    LAUNCHES["megakernel_var_or"] += 1
+    return out
+
+
+def launch_rows_dominate_counts(rows, w) -> torch.Tensor:
+    """K4 on the card: ``out[j] = #{r : rows[r] dominates w[j]}`` for
+    float32 ``rows`` ``(C, m)`` and ``w`` ``(n, m)`` → ``(n,)`` int32."""
+    n, m = w.shape
+    _check(w, "w", torch.float32)
+    _check(rows, "rows", torch.float32, (rows.shape[0], m))
+    out = torch.empty((n,), dtype=torch.int32, device=w.device)
+    lib = load()
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    with torch.cuda.device(w.device):
+        rc = lib.rows_dominate_counts(rows.data_ptr(), w.data_ptr(),
+                                      out.data_ptr(), rows.shape[0], n, m,
+                                      stream)
+    _raise_on(lib, rc, "rows_dominate_counts")
+    LAUNCHES["rows_dominate_counts"] += 1
+    return out

@@ -1,11 +1,11 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
-``nvcc`` compiles ``megakernel.cu`` (a plain C interface, no PyTorch
-headers: seconds, not minutes) for ``sm_90a`` into a shared library under
-``deap_tpu_torch/_build/``, named by a hash of the source and flags so an
-edited source is rebuilt and an unchanged one is reused.  Any failure
-raises :class:`KernelBuildError` with the compiler's output; nothing
-falls back.
+One ``nvcc`` call compiles every file of :data:`SOURCES` (plain C
+interfaces, no PyTorch headers: seconds, not minutes) for ``sm_90a``
+into one shared library under ``deap_tpu_torch/_build/``.  The library
+is named by a hash of every source and the flags, so an edited source is
+rebuilt and an unchanged tree is reused.  Any failure raises
+:class:`KernelBuildError` with the compiler's output; nothing falls back.
 
     python -m deap_tpu_torch.kernels.build      # build and print -Xptxas -v
 """
@@ -20,10 +20,10 @@ import sys
 import tempfile
 from pathlib import Path
 
-__all__ = ["KernelBuildError", "build", "SOURCE", "BUILD_DIR"]
+__all__ = ["KernelBuildError", "build", "digest", "SOURCES", "BUILD_DIR"]
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "megakernel.cu"
+SOURCES = (_HERE / "megakernel.cu", _HERE / "dominance.cu")
 BUILD_DIR = _HERE.parent / "_build"
 ARCH = "sm_90a"
 #: --fmad=false: no multiply-add contraction beyond the explicit
@@ -51,25 +51,33 @@ def nvcc_path() -> str:
     return found
 
 
+def digest(sources=SOURCES) -> str:
+    """Hash of every source's bytes and the flags: the library's name."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile ``megakernel.cu`` if its library is not built yet and
-    return the shared library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libmegakernel-{digest}.so"
+    """Compile :data:`SOURCES` into one library if it is not built yet
+    and return its path."""
+    lib = BUILD_DIR / f"libdeap_kernels-{digest()}.so"
     if lib.exists():
         return lib
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise KernelBuildError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE}:\n{proc.stdout}")
+                               f"{', '.join(s.name for s in SOURCES)}:\n"
+                               f"{proc.stdout}")
     if verbose:
         print(proc.stdout, file=sys.stderr)
     os.replace(tmp, lib)

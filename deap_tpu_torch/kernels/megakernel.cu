@@ -1,33 +1,41 @@
-// Fused GA generation kernels for Hopper (sm_90a): the CUDA counterparts of
-// the two Pallas kernels of deap_tpu/ops/generation_pallas.py.
+// Fused generation kernels for Hopper (sm_90a): the CUDA counterparts of
+// the three Pallas kernels of deap_tpu/ops/generation_pallas.py.
 //
 //   megakernel_vary         (K1) replaces _megakernel_host: variation of
 //                                parents already gathered.
 //   megakernel_gather_vary  (K2) replaces _megakernel_dma: per output row the
 //                                winner order[pos[r]], the gather of its
 //                                genome row, then K1's variation.
+//   megakernel_var_or       (K3) replaces _var_or_pallas: per output row the
+//                                OR choice of var_or (crossover with a
+//                                partner, first child; Gaussian mutation; or
+//                                a copy) over parent rows gathered in-kernel.
 //
-// Both run one __device__ function per output element (r, c) of the
-// unpadded (n, dim) layout: own row r and partner row r ^ 16 (the 32-row
-// mating quantum), the pair draw hashed at the a-row min(r, r ^ 16), the
-// row gate and the gene draw hashed at (r, c), swap, mutate, narrow, store.
-// Every draw is the JAX package's counter hash of (seed, draw, row, lane), so
-// the kernel computes what _vary_tile computes, not its tile structure.
+// All run one __device__ function per output element (r, c) of the
+// unpadded (n, dim) layout.  K1/K2: own row r and partner row r ^ 16 (the
+// 32-row mating quantum), the pair draw hashed at the a-row min(r, r ^ 16),
+// the row gate and the gene draw hashed at (r, c), swap, mutate, narrow,
+// store.  K3: the row's choice code, the cut pair (draw 4) only in crossover
+// rows and the gene draw (draw 5) only in mutation rows.  Every draw is the
+// JAX package's counter hash of (seed, draw, row, lane), so the kernels
+// compute what _vary_tile and _var_or_tile compute, not their tile
+// structure.
 //
 // Bound on the card: bytes.  Each element is read once from the parents (K1)
-// or the winner row (K2) and written once; K2 adds the order/pos/widx words.
-// At pop 1e6 x dim 100 in float32 that is about 0.8 GB a generation, against
-// a handful of integer ops per element for the hash.  This first version
-// keeps one thread per element with coalesced row reads (the partner row is
-// the neighbour block's and is served from cache); TMA row gathers, 16-byte
-// vector accesses and a block-level hash are later work.
+// or the parent row (K2, K3) and written once; K2 adds the order/pos/widx
+// words, K3 the ia/i2/code words and, in crossover rows, the partner's
+// swapped genes.  At 1e6 x 100 in float32 that is about 0.8 GB a call,
+// against a handful of integer ops per element for the hash.  This first
+// version keeps one thread per element with coalesced row reads (K1/K2's
+// partner row is the neighbour block's and is served from cache); TMA row
+// gathers, 16-byte vector accesses and a block-level hash are later work.
 //
 // Arithmetic: uint32 wrap-around hashing, (bits >> 8) * 2^-24 uniforms,
 // floor(u * dim) cut points, and XLA's float32 erf_inv (Giles' polynomial
 // over XLA's Cephes log1p/log), with __fmaf_rn exactly where XLA's CPU
 // backend fuses a multiply into an add and explicitly rounded operations
-// everywhere else.  Built with --fmad=false, the kernel equals the plain
-// PyTorch version bit for bit (deap_tpu_torch/ops/generation.py).
+// everywhere else.  Built with --fmad=false, the kernels equal their plain
+// PyTorch versions bit for bit (deap_tpu_torch/ops/generation.py).
 //
 // A plain C interface (no PyTorch headers): the wrapper in
 // deap_tpu_torch/kernels/__init__.py passes device pointers and the stream,
@@ -242,6 +250,77 @@ __global__ void gather_vary_kernel(const int* __restrict__ order,
   }
 }
 
+// ---- K3: the OR-choice variation of var_or ---------------------------------
+// Per output row r: code[r] 0 = crossover (first child of genome[ia[r]] with
+// partner genome[i2[r]]), 1 = Gaussian mutation of genome[ia[r]], 2 = copy.
+// The parent rows are gathered here, so no (lambda, dim) copy of either
+// parent is materialised; the partner is read only where it is taken.  The
+// cut pair is draw 4 at lanes 0 and 1 of the row, the gene grid draw 5, both
+// at absolute row coordinates.  knobs: [mu, sigma, indpb].  The narrowing is
+// GenomeStorage.to_storage's (int8: round(v / scale)), not K1's multiply by
+// the reciprocal.
+
+template <typename T>
+__device__ __forceinline__ T store_narrow(float v, const Storage& s);
+template <> __device__ __forceinline__ float store_narrow<float>(
+    float v, const Storage&) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+store_narrow<__nv_bfloat16>(float v, const Storage&) {
+  return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ int8_t store_narrow<int8_t>(
+    float v, const Storage& s) {
+  float q = rintf(__fdiv_rn(v, s.scale));          // round half to even
+  q = fminf(fmaxf(q, -127.0f), 127.0f);
+  return (int8_t)q;
+}
+
+template <typename T>
+__global__ void var_or_kernel(const T* __restrict__ genome,
+                              const int* __restrict__ ia,
+                              const int* __restrict__ i2,
+                              const int* __restrict__ code,
+                              T* __restrict__ out, long long lam, int dim,
+                              Storage st, const int* __restrict__ seed,
+                              const float* __restrict__ knobs) {
+  const uint32_t s = (uint32_t)seed[0];
+  const float mu = knobs[0], sigma = knobs[1], indpb = knobs[2];
+  const long long total = lam * (long long)dim;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    long long r = i / dim;
+    int c = (int)(i - r * dim);
+    const int cr = code[r];
+    float v = widen(genome[(long long)ia[r] * dim + c], st);
+    if (cr == 0) {
+      // two-point crossover, first child: cut pair from draw 4, lanes 0, 1
+      float u0 = uniform_at(s, 4u, (uint32_t)r, 0u);
+      float u1 = uniform_at(s, 4u, (uint32_t)r, 1u);
+      int c1 = 1 + (int)floorf(__fmul_rn(u0, (float)dim));
+      c1 = c1 < dim ? c1 : dim;
+      int c2 = 1 + (int)floorf(__fmul_rn(u1, (float)(dim - 1)));
+      c2 = c2 < dim - 1 ? c2 : dim - 1;
+      if (c2 >= c1) c2 += 1;
+      int lo = c1 < c2 ? c1 : c2, hi = c1 < c2 ? c2 : c1;
+      if (c >= lo && c < hi)
+        v = widen(genome[(long long)i2[r] * dim + c], st);
+    } else if (cr == 1) {
+      // Gaussian mutation: mask and noise from one gene draw (draw 5)
+      float u = uniform_at(s, 5u, (uint32_t)r, (uint32_t)c);
+      if (u < indpb) {
+        float un = __fmul_rn(u, __fdiv_rn(1.0f, indpb));
+        un = fminf(fmaxf(un, 2.9802322387695312e-08f), 1.0f);
+        float e = xla_erf_inv(__fadd_rn(__fmul_rn(2.0f, un), -1.0f));
+        v = __fadd_rn(v, __fmaf_rn(e, __fmul_rn(sigma, 1.4142135381698608f),
+                                   mu));
+      }
+    }
+    out[i] = store_narrow<T>(v, st);
+  }
+}
+
 constexpr int kThreads = 256;
 
 int grid_for(long long total) {
@@ -315,6 +394,38 @@ extern "C" int megakernel_gather_vary(const int* order, const int* pos,
       gather_vary_kernel<int8_t><<<grid, kThreads, 0, st>>>(
           order, pos, (const int8_t*)genome, (int8_t*)out, widx, out_n, dim, s,
           seed, knobs, row_base0);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int megakernel_var_or(const void* genome, const int* ia,
+                                 const int* i2, const int* code, void* out,
+                                 long long lam, int dim, int dtype,
+                                 float scale, const int* seed,
+                                 const float* knobs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Storage s{scale, 0.0f};
+  long long total = lam * (long long)dim;
+  if (total == 0) return 0;
+  int grid = grid_for(total);
+  switch (dtype) {
+    case 0:
+      var_or_kernel<float><<<grid, kThreads, 0, st>>>(
+          (const float*)genome, ia, i2, code, (float*)out, lam, dim, s, seed,
+          knobs);
+      break;
+    case 1:
+      var_or_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+          (const __nv_bfloat16*)genome, ia, i2, code, (__nv_bfloat16*)out,
+          lam, dim, s, seed, knobs);
+      break;
+    case 2:
+      var_or_kernel<int8_t><<<grid, kThreads, 0, st>>>(
+          (const int8_t*)genome, ia, i2, code, (int8_t*)out, lam, dim, s,
+          seed, knobs);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-"""Fused select→mate→mutate generation for the fixed-shape GA, and the
-mixed-precision genome storage it rides on — the PyTorch counterpart of
+"""Fused select→mate→mutate generation for the fixed-shape GA, the fused
+``var_or`` of the mu±lambda loops and the NSGA-II head, and the
+mixed-precision genome storage they ride on — the PyTorch counterpart of
 ``deap_tpu/ops/generation_pallas.py``.
 
 The generation is the JAX package's, step for step:
@@ -27,8 +28,17 @@ is a pure function of global coordinates.  The port works on the
 unpadded ``(pop, dim)`` layout (the hash uses coordinates, so lane
 padding never changed a value) and needs ``pop % 32 == 0``.
 
+``var_or``'s fused form (:func:`fused_var_or`) keeps ``var_or``'s key
+law for the per-row choice and parent indices and runs the operators in
+K3 (:func:`megakernel_var_or`, the JAX tile function ``_var_or_tile``:
+the first child of a two-point crossover with a partner row, or
+Gaussian mutation from one gene grid, draw ids 4 and 5).  The NSGA-II
+head (:func:`fused_nsga2_step`) selects with the registered
+``sel_nsga2`` and varies with K1.
+
 Each kernel has its plain PyTorch version beside it
-(:func:`_vary_tile_plain`, :func:`_gather_vary_plain`).  A wrapper runs
+(:func:`_vary_tile_plain`, :func:`_gather_vary_plain`,
+:func:`_var_or_plain`).  A wrapper runs
 the plain version only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.  The arithmetic is the JAX package's to the bit:
 integer hashing, masks and cut points exactly, the mutation noise
@@ -51,9 +61,10 @@ from ..random import M32, mul32
 from .selection import tournament_positions
 
 __all__ = ["GenomeStorage", "STORAGE_DTYPES", "HardwareRngUnavailable",
-           "fused_generation", "fused_ea_step", "megakernel_params",
+           "fused_generation", "fused_ea_step", "fused_var_or",
+           "fused_nsga2_step", "megakernel_params",
            "megakernel_variation_params", "megakernel_vary",
-           "megakernel_gather_vary", "storage_of"]
+           "megakernel_gather_vary", "megakernel_var_or", "storage_of"]
 
 STORAGE_DTYPES = ("float32", "bfloat16", "int8")
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -109,7 +120,12 @@ class GenomeStorage:
         """float32 compute values → storage representation."""
         x = x.to(torch.float32)
         if self.dtype == "int8":
-            q = torch.round(x / float(np.float32(self.scale)))
+            # a true division, as in the JAX package: on the card PyTorch
+            # turns a division by a Python scalar into a multiply by its
+            # reciprocal, so the divisor is a tensor on x's device
+            scale = torch.tensor(float(np.float32(self.scale)),
+                                 device=x.device)
+            q = torch.round(x / scale)
             return torch.clamp(q, -127.0, 127.0).to(torch.int8)
         return x.to(self.torch_dtype)
 
@@ -235,6 +251,55 @@ def _vary_tile_plain(v: torch.Tensor, seed: torch.Tensor,
     return out
 
 
+def _var_or_tile_plain(a: torch.Tensor, b: torch.Tensor, code: torch.Tensor,
+                       seed: torch.Tensor, knobs: torch.Tensor,
+                       dim: int) -> torch.Tensor:
+    """The OR-choice variation on float32 rows (the JAX package's
+    ``_var_or_tile`` at absolute row coordinates): row ``r`` with
+    ``code[r] == 0`` takes the first child of a two-point crossover of
+    ``a[r]`` with ``b[r]`` (cut pair: draw 4 at lanes 0 and 1), with
+    ``code[r] == 1`` Gaussian mutation of ``a[r]`` (mask and noise from
+    the gene grid of draw 5), else a copy of ``a[r]``.  ``knobs`` is
+    float32 ``[mu, sigma, indpb]``."""
+    n, width = a.shape
+    if width != dim or b.shape != a.shape:
+        raise ValueError(f"var_or rows {tuple(a.shape)}/{tuple(b.shape)}: "
+                         f"need two (n, {dim})")
+    dev = a.device
+    useed = seed.reshape(()).to(torch.int64) & M32
+    mu, sigma, indpb = knobs.to(torch.float32).unbind()
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    lanes = torch.arange(width, dtype=torch.int64, device=dev)
+    code = code.reshape(n, 1)
+
+    # --- two-point crossover, first child kept ----------------------------
+    u_cut = _uniform_at(useed, 4, rows[:, None],
+                        torch.arange(2, dtype=torch.int64, device=dev)[None])
+    lo, hi = _cut_points(u_cut[:, 0:1], u_cut[:, 1:2], dim)
+    v = torch.where((code == 0) & (lanes >= lo) & (lanes < hi), b, a)
+
+    # --- Gaussian mutation (mask and noise from one gene grid) ------------
+    u_gene = _uniform_at(useed, 5, rows[:, None], lanes[None, :])
+    mask = (code == 1) & (u_gene < indpb)
+    un = torch.clamp(u_gene[mask] * (1.0 / indpb), _UN_LO, _UN_HI)
+    noise = fma(erf_inv(2.0 * un - 1.0), sigma * _SQRT2, mu)
+    out = v.clone()
+    out[mask] = v[mask] + noise
+    return out
+
+
+def _var_or_plain(genome, ia, i2, code, seed, knobs, dim: int,
+                  storage: GenomeStorage):
+    """K3's plain version: gather both parents, widen, vary
+    (:func:`_var_or_tile_plain`), narrow with ``to_storage``'s law."""
+    a = _widen(genome.index_select(0, ia.long()), storage.dtype,
+               storage.scale)
+    b = _widen(genome.index_select(0, i2.long()), storage.dtype,
+               storage.scale)
+    return storage.to_storage(_var_or_tile_plain(a, b, code, seed, knobs,
+                                                 dim))
+
+
 def _gather_vary_plain(order, pos, genome, seed, knobs, dim: int,
                        storage: GenomeStorage, row_base0: int = 0):
     """K2's plain version: ``widx = order[pos]``, gather the winners'
@@ -290,6 +355,22 @@ def megakernel_gather_vary(order, pos, genome, seed, knobs, *, dim: int,
                                           row_base0=row_base0)
     return _gather_vary_plain(order, pos, genome, seed, knobs, dim, storage,
                               row_base0)
+
+
+def megakernel_var_or(genome, ia, i2, code, seed, knobs, *, dim: int,
+                      storage: GenomeStorage):
+    """K3: per output row the OR choice ``code`` over parent rows
+    ``genome[ia]`` (and partner ``genome[i2]``), in the storage dtype.
+    CUDA tensors launch ``megakernel_var_or`` (replacing
+    ``_var_or_pallas``, ``deap_tpu/ops/generation_pallas.py``), which
+    gathers the parent rows itself."""
+    _check_same_device(genome, ia, i2, code, seed, knobs)
+    if genome.is_cuda:
+        from .. import kernels
+        return kernels.launch_var_or(genome, ia, i2, code, seed, knobs,
+                                     dim=dim, dtype=storage.dtype,
+                                     scale=storage.scale)
+    return _var_or_plain(genome, ia, i2, code, seed, knobs, dim, storage)
 
 
 # ---------------------------------------------------------------------------
@@ -440,10 +521,7 @@ def fused_ea_step(key, population, toolbox, cxpb, mutpb, *, live=None,
     declares ``generation_engine = "megakernel"``).  Every produced row
     comes back invalid (reevaluate-all); the key splits three ways as in
     the JAX package.  ``live`` selects ``gather="host"`` (K1)."""
-    genome = population.genome
-    if not isinstance(genome, torch.Tensor) or genome.ndim != 2:
-        raise ValueError("megakernel generation needs a single 2-D tensor "
-                         "genome (pop, dim)")
+    genome = _two_d_genome(population, "megakernel generation")
     params = megakernel_params(toolbox)
     storage = storage_of(toolbox) or GenomeStorage()
     pop, dim = genome.shape
@@ -461,9 +539,115 @@ def fused_ea_step(key, population, toolbox, cxpb, mutpb, *, live=None,
         mut_sigma=params["mut_sigma"], indpb=params["indpb"],
         live_n=live_n, gather=gather, hw_rng=hw_rng)
 
+    return key, Population(new_genome, _fresh_fitness(population, live))
+
+
+def _fresh_fitness(population, live=None) -> Fitness:
+    """All-invalid fitness for the new rows; with ``live``, pad rows keep
+    their old (invalid) values."""
     old = population.fitness
-    fit = Fitness.empty(pop, old.weights, old.values.dtype, genome.device)
+    fit = Fitness.empty(population.size, old.weights, old.values.dtype,
+                        old.values.device)
     if live is not None:
         fit = dataclasses.replace(fit, values=torch.where(
             live[:, None], fit.values, old.values))
-    return key, Population(new_genome, fit)
+    return fit
+
+
+def _two_d_genome(population, what: str) -> torch.Tensor:
+    genome = population.genome
+    if not isinstance(genome, torch.Tensor) or genome.ndim != 2:
+        raise ValueError(f"{what} needs a single 2-D tensor genome "
+                         "(pop, dim)")
+    return genome
+
+
+def fused_var_or(key, population, toolbox, lambda_: int, cxpb, mutpb):
+    """The megakernel form of :func:`deap_tpu_torch.algorithms.var_or`,
+    behind ``ea_mu_plus_lambda``/``ea_mu_comma_lambda`` when the toolbox
+    declares ``generation_engine = "megakernel"``.
+
+    The key splits seven ways in ``var_or``'s order, and the choice of
+    each row (crossover, mutation or copy) and its parent indices come
+    from the same draws, so they equal the traced path's; the operator
+    arithmetic is K3's own counter stream (:func:`megakernel_var_or`),
+    seeded from ``k_cx`` and ``k_mut``."""
+    assert cxpb + mutpb <= 1.0, (
+        "The sum of the crossover and mutation probabilities must be smaller "
+        "or equal to 1.0.")
+    genome = _two_d_genome(population, "megakernel var_or")
+    params = megakernel_variation_params(toolbox)
+    storage = storage_of(toolbox) or GenomeStorage()
+    if genome.dtype != storage.torch_dtype:
+        raise ValueError(f"genome dtype {genome.dtype} != declared "
+                         f"storage {storage.dtype}")
+    n, dim = genome.shape
+
+    ia, i2, code, seed = _var_or_draws(key, n, lambda_, cxpb, mutpb)
+    knobs = _knobs((params["mut_mu"], params["mut_sigma"], params["indpb"]),
+                   genome.device)
+    child = megakernel_var_or(genome, ia, i2, code, seed, knobs, dim=dim,
+                              storage=storage)
+    old = population.fitness
+    return Population(child, Fitness.empty(lambda_, old.weights,
+                                           old.values.dtype, genome.device))
+
+
+def _var_or_law(key, n: int, lambda_: int, cxpb, mutpb):
+    """``var_or``'s key law, shared by both engines: the seven-way split,
+    the choice masks (crossover where ``u < cxpb``, mutation where
+    ``cxpb <= u < cxpb + mutpb``, bounds rounded to float32), the parent
+    indices ``i1``, ``i2`` (a distinct partner), ``im``, ``ir`` and the
+    operator keys.  Returns ``(use_cx, use_mut, i1, i2, im, ir, k_cx,
+    k_mut)``."""
+    k_choice, k_p1, k_p2, k_cx, k_pm, k_mut, k_pr = random.split(key, 7)
+    u = random.uniform(k_choice, (lambda_,))
+    cx = float(np.float32(cxpb))
+    use_cx = u < cx
+    use_mut = (u >= cx) & (u < float(np.float32(cxpb + mutpb)))
+    i1 = random.randint(k_p1, (lambda_,), 0, n)
+    off = random.randint(k_p2, (lambda_,), 1, n)
+    i2 = (i1 + off) % n
+    im = random.randint(k_pm, (lambda_,), 0, n)
+    ir = random.randint(k_pr, (lambda_,), 0, n)
+    return use_cx, use_mut, i1, i2, im, ir, k_cx, k_mut
+
+
+def _var_or_draws(key, n: int, lambda_: int, cxpb, mutpb):
+    """K3's inputs under :func:`_var_or_law`: each row's parent ``ia``,
+    partner ``i2``, choice ``code`` (0 crossover, 1 mutation, 2 copy) and
+    the seed folded from ``k_cx`` and ``k_mut``."""
+    use_cx, use_mut, i1, i2, im, ir, k_cx, k_mut = _var_or_law(
+        key, n, lambda_, cxpb, mutpb)
+    code = torch.where(use_cx, 0, torch.where(use_mut, 1, 2)).to(torch.int32)
+    ia = torch.where(use_cx, i1, torch.where(use_mut, im, ir))
+    return ia, i2, code, _seed_from_key(k_cx) ^ _seed_from_key(k_mut)
+
+
+def fused_nsga2_step(key, population, toolbox, cxpb, mutpb, *, live=None):
+    """The megakernel form of an NSGA-II generation: ``ea_ask`` routes
+    here when ``generation_engine = "megakernel"`` and ``select`` is
+    ``sel_nsga2``.  The registered selection picks ``pop`` parents (its
+    dominance counts through K4 on the card), and K1 varies them with
+    the GA flagship's pairing, knobs and draw stream.  Every produced
+    row comes back invalid; the key splits three ways as in
+    :func:`fused_ea_step`, and ``live`` keeps the serving contract."""
+    genome = _two_d_genome(population, "megakernel generation")
+    params = megakernel_variation_params(toolbox)
+    storage = storage_of(toolbox) or GenomeStorage()
+    pop, dim = genome.shape
+
+    key, k_sel, k_var = random.split(key, 3)
+    idx = toolbox.select(k_sel, population.fitness, pop)
+    if live is not None:
+        live_n = torch.clamp(live.to(idx.dtype).sum(), min=1)
+        idx = torch.where(idx < live_n, idx, idx % live_n)
+    seed = _seed_from_key(k_var)
+    knobs = _knobs((cxpb, mutpb, params["mut_mu"], params["mut_sigma"],
+                    params["indpb"]), genome.device)
+    varied = megakernel_vary(genome[idx.long()], seed, knobs, dim=dim,
+                             storage=storage)
+    if live is not None:
+        rows = torch.arange(pop, device=genome.device)[:, None]
+        varied = torch.where(rows < live_n, varied, genome)
+    return key, Population(varied, _fresh_fitness(population, live))

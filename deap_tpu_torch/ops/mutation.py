@@ -16,10 +16,12 @@ __all__ = ["mut_gaussian"]
 
 def mut_gaussian(key, ind, mu, sigma, indpb):
     """Add N(mu, sigma) noise to each gene with probability ``indpb``
-    (``mu + sigma * z`` is one FMA, as XLA computes it)."""
+    (``mu + sigma * z`` is one FMA, as XLA computes it).  The noise is
+    drawn in the genome's dtype, as in the JAX package; only float32
+    normals are ported, so a narrow genome raises ``TypeError``."""
     k_mask, k_noise = random.split(key)
     mask = random.bernoulli(k_mask, indpb, ind.shape)
-    noise = fma(random.normal(k_noise, ind.shape), sigma, mu)
+    noise = fma(random.normal(k_noise, ind.shape, ind.dtype), sigma, mu)
     return torch.where(mask, ind + noise, ind)
 
 

@@ -36,7 +36,8 @@ def _forbidden_imports(source: str):
 
 def test_port_sources_exist():
     assert len(_port_files()) >= 15
-    assert (ROOT / "deap_tpu_torch" / "kernels" / "megakernel.cu").exists()
+    for cu in ("megakernel.cu", "dominance.cu"):
+        assert (ROOT / "deap_tpu_torch" / "kernels" / cu).exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -54,7 +55,9 @@ def test_scan_catches_a_forbidden_import():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import deap_tpu_torch, deap_tpu_torch.algorithms, "
             "deap_tpu_torch.interop, deap_tpu_torch.kernels, "
-            "deap_tpu_torch.kernels.build, deap_tpu_torch.ops.generation; "
+            "deap_tpu_torch.kernels.build, deap_tpu_torch.ops.generation, "
+            "deap_tpu_torch.ops.emo, deap_tpu_torch.ops.dominance, "
+            "deap_tpu_torch.benchmarks; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -12,12 +12,16 @@ tensors take the plain version and count no launch, the launchers refuse
 CPU tensors, and a missing compiler raises instead of falling back.
 """
 
+import json
+import sys
+
 import pytest
 import torch
 
-from deap_tpu_torch import kernels, random
+from deap_tpu_torch import benchmarks, kernels, random
+from deap_tpu_torch.base import Fitness
 from deap_tpu_torch.kernels import build
-from deap_tpu_torch.ops import generation as G
+from deap_tpu_torch.ops import dominance as D, emo as E, generation as G
 
 # the tensors here are small: extra intra-op threads would only contend
 # with the suite's other test workers
@@ -67,7 +71,9 @@ def test_kernels_equal_plain_versions_on_card(st):
     p2, pw = G._gather_vary_plain(order, pos, g, seed, knobs, DIM, st)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"megakernel_vary": 1,
-                                "megakernel_gather_vary": 1}
+                                "megakernel_gather_vary": 1,
+                                "megakernel_var_or": 0,
+                                "rows_dominate_counts": 0}
     assert _same(k1, p1) and _same(k2, p2) and torch.equal(w2, pw)
 
 
@@ -86,6 +92,81 @@ def test_generation_on_card_equals_cpu(gather):
     assert torch.equal(outs[0][1].cpu().long(), outs[1][1].long())
 
 
+def _var_or_inputs(dev, n, lam, st, dim=DIM):
+    key = random.PRNGKey(6, device=dev)
+    k_g, k_a, k_b, k_c, k_s = random.split(key, 5)
+    g = st.to_storage(random.uniform(k_g, (n, dim), minval=-5.12,
+                                     maxval=5.12))
+    ia = random.randint(k_a, (lam,), 0, n)
+    i2 = random.randint(k_b, (lam,), 0, n)
+    code = random.randint(k_c, (lam,), 0, 3)
+    knobs = torch.tensor([0.0, 0.1, 1.0 / 12], device=dev)
+    return g, ia, i2, code, G._seed_from_key(k_s), knobs
+
+
+def _dtlz2_w(dev, n, seed=7):
+    x = random.uniform(random.PRNGKey(seed, device=dev), (n, 12))
+    v = torch.func.vmap(lambda g: torch.stack(benchmarks.dtlz2(g, 3)))(x)
+    return -v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("st", STORAGES, ids=lambda s: s.dtype)
+@pytest.mark.parametrize("shape", [(100_000, 100_000, 12),
+                                   (1_000_000, 1_000_000, DIM)])
+def test_var_or_kernel_equals_plain_on_card(st, shape):
+    dev = _cuda()
+    n, lam, dim = shape
+    g, ia, i2, code, seed, knobs = _var_or_inputs(dev, n, lam, st, dim)
+    kernels.reset_launches()
+    k3 = G.megakernel_var_or(g, ia, i2, code, seed, knobs, dim=dim,
+                             storage=st)
+    p3 = G._var_or_plain(g, ia, i2, code, seed, knobs, dim, st)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["megakernel_var_or"] == 1
+    assert _same(k3, p3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1024, 200_000])
+def test_dominance_kernel_equals_plain_on_card(C):
+    dev = _cuda()
+    w = _dtlz2_w(dev, 200_000)
+    w[:64] = w[64:128]                                  # duplicated points
+    rows = w[:C].clone()
+    rows[::7] = float("-inf")                           # sentinel rows
+    kernels.reset_launches()
+    k4 = D.rows_dominate_counts(rows, w)
+    p4 = D._rows_dominate_counts_plain(rows, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rows_dominate_counts"] == 1
+    assert torch.equal(k4, p4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 3, 5, 9])
+def test_dominance_kernel_any_width_on_card(m):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(m)
+    w = torch.randint(0, 4, (3001, m), generator=gen, device=dev).float()
+    rows = w[:333].contiguous()
+    assert torch.equal(D.rows_dominate_counts(rows, w),
+                       D._rows_dominate_counts_plain(rows, w))
+
+
+@pytest.mark.gpu
+def test_sel_nsga2_on_card_equals_cpu():
+    dev = _cuda()
+    values = -_dtlz2_w(dev, 2048, seed=3)
+    out = []
+    for d in (dev, "cpu"):
+        f = Fitness(values=values.to(d),
+                    valid=torch.ones(2048, dtype=torch.bool, device=d),
+                    weights=(-1.0,) * 3)
+        out.append(E.sel_nsga2(None, f, 1024, nd="peel", front_chunk=256))
+    assert torch.equal(out[0].cpu(), out[1])
+
+
 def test_cpu_tensors_take_the_plain_version():
     st = G.GenomeStorage()
     g, order, pos, seed, knobs = _inputs("cpu", 256, st)
@@ -93,8 +174,7 @@ def test_cpu_tensors_take_the_plain_version():
     out = G.megakernel_vary(g, seed, knobs, dim=DIM, storage=st)
     new, widx = G.megakernel_gather_vary(order, pos, g, seed, knobs,
                                          dim=DIM, storage=st)
-    assert kernels.LAUNCHES == {"megakernel_vary": 0,
-                                "megakernel_gather_vary": 0}
+    assert not any(kernels.LAUNCHES.values())
     assert out.shape == new.shape == (256, DIM)
     assert torch.equal(widx, order[pos.long()])
 
@@ -108,7 +188,49 @@ def test_launchers_refuse_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.launch_gather_vary(order, pos, g, seed, knobs, dim=DIM,
                                    dtype="float32", scale=1.0)
+    _, ia, i2, code, _, k3 = _var_or_inputs("cpu", 64, 32, st)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.launch_var_or(g, ia, i2, code, seed, k3, dim=DIM,
+                              dtype="float32", scale=1.0)
+    w = torch.zeros((16, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.launch_rows_dominate_counts(w, w)
 
+
+def test_cpu_var_or_and_counts_take_the_plain_version():
+    st = G.GenomeStorage()
+    g, ia, i2, code, seed, knobs = _var_or_inputs("cpu", 64, 96, st)
+    kernels.reset_launches()
+    out = G.megakernel_var_or(g, ia, i2, code, seed, knobs, dim=DIM,
+                              storage=st)
+    w = torch.randn(50, 3)
+    counts = D.rows_dominate_counts(w[:7], w)
+    assert kernels.LAUNCHES["megakernel_var_or"] == 0
+    assert kernels.LAUNCHES["rows_dominate_counts"] == 0
+    assert out.shape == (96, DIM) and counts.shape == (50,)
+    copy = code == 2
+    assert torch.equal(out[copy], g[ia[copy].long()])
+
+
+def test_build_digest_covers_every_source_and_flag(monkeypatch, tmp_path):
+    """The library's name changes when either source or the flags do."""
+    srcs = []
+    for src in build.SOURCES:
+        copy = tmp_path / src.name
+        copy.write_bytes(src.read_bytes())
+        srcs.append(copy)
+    base = build.digest(srcs)
+    assert base == build.digest(srcs)
+    for copy in srcs:
+        old = copy.read_bytes()
+        copy.write_bytes(old + b"\n// edit\n")
+        assert build.digest(srcs) != base
+        copy.write_bytes(old)
+    assert build.digest(srcs) == base
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build.digest(srcs) != base
+    assert [s.name for s in build.SOURCES] == ["megakernel.cu",
+                                               "dominance.cu"]
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -120,3 +242,79 @@ def test_missing_compiler_raises(monkeypatch, tmp_path):
         build.build()
     assert not (tmp_path / "build").exists() or not any(
         (tmp_path / "build").iterdir())
+
+
+def _fake_nvcc(tmp_path, body: str):
+    script = tmp_path / "nvcc"
+    script.write_text(f"#!{sys.executable}\nimport json, sys\n{body}\n")
+    script.chmod(0o755)
+    return str(script)
+
+
+def test_build_is_one_compiler_call_over_every_source(monkeypatch,
+                                                      tmp_path):
+    """Both sources go to one nvcc call that writes one library, named by
+    the digest; a second build reuses it without calling nvcc again."""
+    log = tmp_path / "calls.jsonl"
+    nvcc = _fake_nvcc(tmp_path, (
+        f"open({str(log)!r}, 'a').write(json.dumps(sys.argv[1:]) + '\\n')\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'wb').write(b'lib')"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    lib = build.build()
+    assert lib.name == f"libdeap_kernels-{build.digest()}.so"
+    assert lib.read_bytes() == b"lib"
+    assert build.build() == lib
+    calls = [json.loads(line) for line in log.read_text().splitlines()]
+    assert len(calls) == 1
+    assert "-shared" in calls[0]
+    assert calls[0][-2:] == [str(s) for s in build.SOURCES]
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
+        lib.name]
+
+
+def test_compile_error_raises_and_leaves_no_library(monkeypatch, tmp_path):
+    nvcc = _fake_nvcc(tmp_path, (
+        "print('dominance.cu(1): error: expected a declaration')\n"
+        "sys.exit(2)"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(build.KernelBuildError,
+                       match="expected a declaration"):
+        build.build()
+    assert not any((tmp_path / "build").iterdir())
+
+
+_SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_127rows_dominate_counts_kernelILi3EEEvPKfS2_Pixxii
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x000 */
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   LDS R4, [R2] ;
+        /*0030*/                   FSETP.GE.AND P0, PT, R4, R5, PT ;
+        /*0040*/                   FSETP.GT.AND P1, PT, R4, R5, PT ;
+        /*0050*/              @P0 IADD3 R6, R6, 0x1, RZ ;
+        /*0060*/              @!P2 BRA 0x20 ;
+        /*0070*/                   ISETP.GE.AND P3, PT, R7, R8, PT ;
+        /*0080*/              @!P3 BRA 0x10 ;
+        /*0090*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_114var_or_kernelEv
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_finds_the_innermost_compare_loop():
+    from deap_tpu_torch.kernels import sass
+    funcs = sass.functions(_SASS)
+    assert len(funcs) == 2
+    name = next(k for k in funcs if "rows_dominate_counts_kernelILi3E" in k)
+    assert [i[1] for i in funcs[name]][:3] == [
+        "LDC", "BAR.SYNC.DEFER_BLOCKING", "LDS"]
+    loop = sass.innermost_compare_loop(funcs[name])
+    assert [i[1] for i in loop] == [
+        "LDS", "FSETP.GE.AND", "FSETP.GT.AND", "IADD3", "BRA"]
+    assert [i[3] for i in loop] == ["", "", "", "@P0", "@!P2"]
+    assert sass.innermost_compare_loop(
+        funcs["_ZN12_GLOBAL__N_114var_or_kernelEv"]) is None
