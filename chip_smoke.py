@@ -41,15 +41,30 @@
              plain version on one generation's parents (1e5 x 12, the
              head's knobs, float32 / bfloat16 / int8), then a few
              generations at full width with K1's launches counted;
-11. the ``kernels`` line, the card's name and power limit, and the result
+11. reference — one GP bench generation (``bench_gp.py``: symbolic
+             regression, pop 256 here) on the card against the CPU path:
+             selection indices equal, trees bitwise after ``var_and``,
+             MSE within rtol 1e-5;
+12. main path — ``bench_gp.py``'s generation at full width (pop 4096,
+             tree capacity 64, 1024 points): N = 10 and 2N generations,
+             three pairs (median marginal time per generation), K6 once
+             per generation, the best MSE must fall, mean tree length at
+             the start and the end; then ``ea_simple`` on the same
+             toolbox for a few generations with K6's launches counted;
+13. K6        — ``gp_interp`` against the plain interpreter, bitwise, on
+             the initial population, the population after 2N generations,
+             the same with every other row skipped, and a set with every
+             opcode of the table (4096 x 64 x 1024, 2 arguments);
+14. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
-``python3 chip_smoke.py --profile`` adds, after phases 5 and 9, a
+``python3 chip_smoke.py --profile`` adds, after phases 5, 9 and 12, a
 per-stage and ``torch.profiler`` breakdown of a main-path generation of
 each path.
 
 Tolerance: every kernel must equal its plain version bit for bit (the
-stated ulp bound is 0); a mismatch prints the measured bound and fails.
+stated ulp bound is 0; K6's NaNs compare equal whatever their payload); a
+mismatch prints the measured bound and fails.
 Any failed phase exits non-zero without the result line.  No JAX, and
 nothing of the JAX package, is imported.
 """
@@ -737,6 +752,414 @@ def profile_nsga2(key, pop, tb, card_line, gens=2) -> None:
                         "calls": e.count / gens} for e in top])
 
 
+# ---------------------------------------------------------------------------
+# the GP slice: K6 and bench_gp.py's symbolic regression
+# ---------------------------------------------------------------------------
+
+# bench_gp.py's configuration at full width
+GP_POP, GP_CAP, GP_NPOINTS = 4096, 64, 1024
+GP_CXPB, GP_MUTPB = 0.5, 0.1
+GP_NGEN, GP_PAIRS = 10, 3
+GP_EA_GENS = 3
+GP_REF_POP = 256
+GP_FITNESS_RTOL = 1e-5     # the user's MSE mean reduces in another order
+# Instructions each executed token needs per point, as (integer and
+# compare, float32, float64), counted from gp_interp.cu's algorithm and
+# charged at the cheapest path: a push moves a value and needs none;
+# the protected division a compare and a correctly rounded division
+# (reciprocal, two Newton steps, residual and correction: 8); sin and
+# cos the |y| < 0.75 path (3 integer for the path test, the double
+# polynomial 9 / 11 and the two conversions); log, sqrt and logistic
+# XLA's float32 forms; the boolean ops compares and a select.
+GP_OP_COST = {
+    "arg": (0, 0, 0), "const": (0, 0, 0), "add": (0, 1, 0),
+    "sub": (0, 1, 0), "mul": (0, 1, 0), "div": (1, 8, 0), "neg": (0, 1, 0),
+    "sin": (3, 0, 11), "cos": (3, 0, 13), "log": (6, 18, 0),
+    "sqrt": (1, 5, 0), "lf": (4, 23, 0), "and": (4, 0, 0), "or": (4, 0, 0),
+    "xor": (4, 0, 0), "not": (2, 0, 0), "if": (2, 0, 0)}
+FP64_INSTR_PER_S = 67e12 / 4       # 64 float64 lanes per SM and clock
+
+
+def gp_toolbox(dev, pset_kind: str = "bench"):
+    """bench_gp.py's primitive set, data and toolbox on ``dev``: the GP
+    operators are registered with their ``rowwise_op`` mark.  ``"all"``
+    is a second set with every opcode of K6's table."""
+    import torch
+    from deap_tpu_torch import base, gp, random
+    from deap_tpu_torch.ops import selection
+    if pset_kind == "bench":
+        ps = gp.PrimitiveSet("MAIN", 1)
+        ops = {k: gp.safe_ops[k] for k in ("add", "sub", "mul", "div",
+                                           "neg", "cos", "sin")}
+    else:
+        ps = gp.PrimitiveSet("ALL", 2)
+        ops = {**gp.safe_ops, **gp.bool_ops}
+        ps.add_terminal(1.0, name="one")
+    for name, (f, a) in ops.items():
+        ps.add_primitive(f, a, name=name)
+    ps.add_ephemeral_constant(
+        "rand101", lambda keys: random.randint(keys, (), -1, 2).float())
+    X = torch.linspace(-1, 1, GP_NPOINTS, dtype=torch.float32,
+                       device=dev)[None, :]
+    x = X[0]
+    target = x ** 4 + x ** 3 + x ** 2 + x
+    pop_ev = gp.make_population_evaluator(ps, GP_CAP)
+    gen_mut = gp.make_generator(ps, GP_CAP, "full")
+
+    def evaluate_all(genome, skip=None):
+        codes, consts, lengths = genome
+        if skip is not None:
+            # skipped rows run no stack-machine step (length 0)
+            lengths = torch.where(skip, 0, lengths)
+        out = pop_ev(codes, consts, lengths, X)
+        mse = ((out - target[None, :]) ** 2).mean(dim=1)
+        return torch.where(torch.isfinite(mse), mse, 1e6)[:, None]
+
+    tb = base.Toolbox()
+    tb.register("evaluate_population", evaluate_all)
+    tb.register("mate", gp.cx_one_point, pset=ps)
+    tb.register("mutate", gp.mut_uniform,
+                expr=lambda kk: gen_mut(kk, 0, 2), pset=ps)
+    tb.register("select", selection.sel_tournament, tournsize=3)
+    gen_init = gp.make_generator(ps, GP_CAP, "half_and_half")
+    return ps, tb, pop_ev, gen_init, X
+
+
+def gp_initial(tb, gen_init, key, n: int):
+    """``n`` half-and-half trees of depth 1-3, evaluated."""
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import evaluate_population
+    genome = gen_init(random.split(key, n), 1, 3)
+    pop = base.Population(genome, base.Fitness.empty(
+        n, (-1.0,), device=key.device))
+    return evaluate_population(tb, pop)[0]
+
+
+def gp_generation(tb, key, pop):
+    """bench_gp.py's generation: select, ``var_and(pairing="halves")``,
+    evaluate the rows it touched.  Returns ``(key, offspring, idx)``."""
+    from deap_tpu_torch import random
+    from deap_tpu_torch.algorithms import evaluate_population, var_and
+    key, k_sel, k_var = random.split(key, 3)
+    idx = tb.select(k_sel, pop.fitness, pop.size)
+    off = var_and(k_var, pop.take(idx), tb, GP_CXPB, GP_MUTPB,
+                  pairing="halves")
+    off, _ = evaluate_population(tb, off)
+    return key, off, idx
+
+
+def gp_token_work(frozen, codes, lengths, n_points: int):
+    """The tokens K6 executes on this input: per opcode, the tokens of
+    the rows it runs (``length > 0``) times ``n_points``; and the bytes
+    it must move (those tokens' codes and constants, the lengths, ``X``
+    and the output)."""
+    import torch
+    from deap_tpu_torch.gp.interp_cuda import OPCODES
+    t = frozen.tables(codes.device)
+    p = torch.arange(codes.shape[1], device=codes.device)
+    live = p[None, :] < lengths[:, None]
+    ops = t["op_kind"][codes.long()][live].long()
+    hist = torch.bincount(ops, minlength=len(OPCODES)).tolist()
+    names = {v: k for k, v in OPCODES.items()}
+    tokens = {names[i]: int(c) for i, c in enumerate(hist) if c}
+    n_tok = sum(tokens.values())
+    pop = codes.shape[0]
+    n_bytes = (8 * n_tok + 4 * pop
+               + 4 * n_points * len(frozen.pset.arguments)
+               + 4 * pop * n_points)
+    return tokens, n_bytes
+
+
+def gp_bound(tokens: dict, n_bytes: int, n_points: int):
+    """K6's least time: the larger of its bytes over the memory rate and
+    its tokens' instructions over the integer, float32 and float64
+    rates and the issue slots."""
+    ints = sum(GP_OP_COST[k][0] * v for k, v in tokens.items()) * n_points
+    flts = sum(GP_OP_COST[k][1] * v for k, v in tokens.items()) * n_points
+    dbls = sum(GP_OP_COST[k][2] * v for k, v in tokens.items()) * n_points
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ints / INT32_INSTR_PER_S, flts / FP32_INSTR_PER_S,
+                dbls / FP64_INSTR_PER_S,
+                (ints + flts + dbls) / ISSUE_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nan_gap(a, b):
+    """``(bitwise equal with NaN == NaN, max |a - b| elsewhere)``."""
+    import torch
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan()
+                                                           & b.isnan())
+    diff = torch.where(same, 0.0, (a - b).abs().nan_to_num(float("inf")))
+    return bool(same.all()), float(diff.max().item()) if diff.numel() else 0.0
+
+
+def k6_check(kernels, card_line, label: str, frozen, genome, X) -> dict:
+    """K6 against the plain interpreter on one input: bitwise, times and
+    bound; fails on a mismatch."""
+    import torch
+    from deap_tpu_torch import gp
+    codes, consts, lengths = (g.contiguous() for g in genome)
+    t = frozen.tables(X.device)
+
+    def kernel():
+        return kernels.launch_gp_interp(codes, consts, lengths, X,
+                                        t["op_kind"], t["arg_index"])
+
+    def plain():
+        return gp.run_stack_machine(codes, consts, lengths, X, frozen,
+                                    GP_CAP)
+
+    k6, p6 = kernel(), plain()
+    torch.cuda.synchronize()
+    equal, err = nan_gap(k6, p6)
+    ms = cuda_ms(kernel, reps=20, warm=2)
+    plain_ms = cuda_ms(plain, reps=1, warm=0)
+    tokens, n_bytes = gp_token_work(frozen, codes, lengths, X.shape[1])
+    b, by = gp_bound(tokens, n_bytes, X.shape[1])
+    run = lengths > 0
+    phase(f"K6 gp_interp vs plain: {label}", card_line,
+          shape=[codes.shape[0], GP_CAP, X.shape[1]], n_args=X.shape[0],
+          bitwise_equal=equal, ulp_bound=ULP_BOUND, max_abs_err=err, ms=ms,
+          plain_ms=plain_ms, bound_ms=b, bound_by=by,
+          rows_run=int(run.sum().item()),
+          mean_length_run=float(lengths[run].float().mean().item())
+          if bool(run.any()) else 0.0,
+          tokens=tokens, nan_share=float(k6.isnan().float().mean().item()))
+    if not equal:
+        fail(f"K6 on {label}: differs from the plain interpreter "
+             f"(max abs err {err})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by}
+
+
+def gp_reference_phase(card_line, key, dev) -> None:
+    """One bench generation at pop 256, card against CPU: the trees after
+    ``var_and`` bitwise, the selection indices equal (the card is given
+    the CPU's fitness), the fitness within ``GP_FITNESS_RTOL``."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import var_and
+    cpu = torch.device("cpu")
+    _, tb_cpu, ev_cpu, gen_cpu, _ = gp_toolbox(cpu)
+    _, tb_dev, ev_dev, _, _ = gp_toolbox(dev)
+    k_init, k_gen = random.split(key.cpu())
+    pop = gp_initial(tb_cpu, gen_cpu, k_init, GP_REF_POP)
+    for _ in range(3):          # a few generations: longer, varied trees
+        k_gen, pop, _ = gp_generation(tb_cpu, k_gen, pop)
+    pop_dev = base.Population(tuple(g.to(dev) for g in pop.genome),
+                              base.Fitness(pop.fitness.values.to(dev),
+                                           pop.fitness.valid.to(dev),
+                                           pop.fitness.weights))
+    _, off_cpu, idx_cpu = gp_generation(tb_cpu, k_gen, pop)
+    _, off_dev, idx_dev = gp_generation(tb_dev, k_gen.to(dev), pop_dev)
+    same_idx = torch.equal(idx_cpu, idx_dev.cpu())
+    # var_and alone on the same parents
+    k_var = random.split(k_gen, 3)[2]
+    v_cpu = var_and(k_var, pop.take(idx_cpu), tb_cpu, GP_CXPB, GP_MUTPB,
+                    pairing="halves")
+    v_dev = var_and(k_var.to(dev), pop_dev.take(idx_cpu.to(dev)), tb_dev,
+                    GP_CXPB, GP_MUTPB, pairing="halves")
+    same_trees = all(torch.equal(a, b.cpu())
+                     for a, b in zip(v_cpu.genome, v_dev.genome))
+    same_off = all(torch.equal(a, b.cpu())
+                   for a, b in zip(off_cpu.genome, off_dev.genome))
+    fc, fd = off_cpu.fitness.values, off_dev.fitness.values.cpu()
+    rel = float(((fc - fd).abs() / fc.abs().clamp(min=1e-30)).max().item())
+    ok_fit = bool(torch.allclose(fd, fc, rtol=GP_FITNESS_RTOL, atol=0.0))
+    phase("reference: GP bench generation card vs CPU", card_line,
+          pop=GP_REF_POP, cap=GP_CAP, points=GP_NPOINTS,
+          selection_equal=same_idx, var_and_trees_bitwise=same_trees,
+          offspring_trees_bitwise=same_off, fitness_max_rel_err=rel,
+          fitness_rtol=GP_FITNESS_RTOL, backends=[ev_cpu.last_backend,
+                                                  ev_dev.last_backend])
+    if not (same_idx and same_trees and same_off and ok_fit):
+        fail("the GP generation on the card differs from the CPU path: "
+             f"selection {same_idx}, trees {same_trees}/{same_off}, "
+             f"fitness rel err {rel}")
+    if ev_dev.last_backend != ev_dev.resolve(pop_dev.genome[1]):
+        fail("the card's evaluator did not take its device's route")
+
+
+def gp_main_path(kernels, card_line, key, dev):
+    """bench_gp.py's generation at full width, N and 2N generations in
+    GP_PAIRS pairs; then ``ea_simple`` on the same toolbox.  Returns the
+    launches of the first timed run, the population after 2N
+    generations, the initial one and the toolbox."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.algorithms import ea_simple
+    from deap_tpu_torch.utils.support import Statistics
+    ps, tb, pop_ev, gen_init, X = gp_toolbox(dev)
+    k_init, k_run, k_ea = random.split(key, 3)
+    pop0 = gp_initial(tb, gen_init, k_init, GP_POP)
+
+    def run(ngen):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        k, pop, bests = k_run, pop0, []
+        for _ in range(ngen):
+            k, pop, _ = gp_generation(tb, k, pop)
+            bests.append(pop.fitness.values.min())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, pop, torch.stack(bests).tolist()
+
+    run(1)                                     # warm the allocator
+    kernels.reset_launches()
+    t1, _, _ = run(GP_NGEN)
+    launches = dict(kernels.LAUNCHES)
+    t2, pop2, best2 = run(2 * GP_NGEN)
+    pairs = [(t1, t2)]
+    for i in range(GP_PAIRS - 1):
+        if i % 2:
+            a, b = run(GP_NGEN)[0], run(2 * GP_NGEN)[0]
+        else:
+            b, a = run(2 * GP_NGEN)[0], run(GP_NGEN)[0]
+        pairs.append((a, b))
+    marginals = sorted((b - a) / GP_NGEN for a, b in pairs)
+    per_gen = marginals[len(marginals) // 2]
+    best0 = float(pop0.fitness.values.min().item())
+    len0 = float(pop0.genome[2].float().mean().item())
+    len2 = float(pop2.genome[2].float().mean().item())
+    ok = (tuple(pop2.genome[0].shape) == (GP_POP, GP_CAP)
+          and bool(pop2.fitness.valid.all())
+          and bool(torch.isfinite(pop2.fitness.values).all()))
+    phase("main path: GP bench generation (bench_gp.py)", card_line,
+          pop=GP_POP, cap=GP_CAP, points=GP_NPOINTS,
+          ngen=[GP_NGEN, 2 * GP_NGEN], seconds=[list(p) for p in pairs],
+          marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
+          linearity=[b / a for a, b in pairs], launches=launches,
+          launches_per_gen={k: v / GP_NGEN for k, v in launches.items()},
+          best_mse_start=best0, best_mse_end=best2[-1],
+          best_mse_per_gen=best2, mean_length_start=len0,
+          mean_length_end=len2, evaluator_backend=pop_ev.last_backend,
+          finite_and_shaped=ok)
+    if launches["gp_interp"] != GP_NGEN:
+        fail(f"K6 ran {launches['gp_interp']} times in {GP_NGEN} GP "
+             "generations (once per generation expected)")
+    if not best2[-1] < best0:
+        fail(f"best MSE did not fall: {best0} -> {best2[-1]}")
+    if not ok:
+        fail("final GP population is not finite, valid and shaped")
+
+    # the library's loop on the same toolbox
+    stats = Statistics(lambda p: p.fitness.values[:, 0])
+    stats.register("min", torch.min)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    final, log = ea_simple(k_ea, pop0, tb, GP_CXPB, GP_MUTPB, GP_EA_GENS,
+                           stats=stats)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    ea_launches = dict(kernels.LAUNCHES)
+    mins = log.select("min")
+    phase("main path: GP ea_simple", card_line, pop=GP_POP,
+          gens=GP_EA_GENS, ms_per_gen=secs / GP_EA_GENS * 1e3,
+          launches=ea_launches, best_mse=[float(m) for m in mins],
+          valid=bool(final.fitness.valid.all()))
+    # one evaluation before the loop (every row valid: all skipped), then
+    # one per generation
+    if ea_launches["gp_interp"] != GP_EA_GENS + 1:
+        fail(f"K6 ran {ea_launches['gp_interp']} times in ea_simple's "
+             f"{GP_EA_GENS} generations (expected {GP_EA_GENS + 1})")
+    if not bool(final.fitness.valid.all()):
+        fail("ea_simple left invalid GP fitness")
+    return launches, ea_launches, pop2, pop0, tb
+
+
+def gp_k6_phase(kernels, card_line, key, pop0, pop2, dev) -> dict:
+    """K6 against the plain interpreter at the bench's shapes: the
+    initial population, the population after 2N generations, the same
+    with every other row skipped, and the every-opcode set."""
+    import torch
+    from deap_tpu_torch import random
+    ps, _, _, _, X = gp_toolbox(dev)
+    frozen = ps.freeze()
+    out = {"initial": k6_check(kernels, card_line, "initial population",
+                               frozen, pop0.genome, X),
+           "evolved": k6_check(kernels, card_line,
+                               f"population after {2 * GP_NGEN} generations",
+                               frozen, pop2.genome, X)}
+    codes, consts, lengths = pop2.genome
+    half = torch.where(torch.arange(GP_POP, device=dev) % 2 == 0, 0, lengths)
+    out["skipped"] = k6_check(kernels, card_line,
+                              "evolved, every other row skipped", frozen,
+                              (codes, consts, half), X)
+    ps_all, _, _, gen_all, _ = gp_toolbox(dev, "all")
+    X2 = torch.stack([torch.linspace(-1, 1, GP_NPOINTS, device=dev),
+                      torch.linspace(3, -2, GP_NPOINTS, device=dev)])
+    trees = gen_all(random.split(key, GP_POP), 2, 6)
+    out["all_ops"] = k6_check(kernels, card_line,
+                              "every opcode (safe_ops + bool_ops, 2 args)",
+                              ps_all.freeze(), trees, X2)
+    return out
+
+
+def profile_gp(key, pop, tb, card_line, gens=3) -> None:
+    """``--profile`` for the GP path: the wall cost of each stage of a
+    bench generation called alone, then ``torch.profiler`` over
+    ``gens`` generations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deap_tpu_torch import random
+    from deap_tpu_torch.algorithms import _apply_op, evaluate_population
+
+    n = pop.size
+    k_sel, k_var = random.split(key, 3)[1:]
+    idx = tb.select(k_sel, pop.fitness, n)
+    parents = pop.take(idx)
+    n2 = n // 2
+    ga = tuple(g[:n2] for g in parents.genome)
+    gb = tuple(g[n2:2 * n2] for g in parents.genome)
+    stages = {
+        "split key (3)": lambda: random.split(key, 3),
+        "sel_tournament(3, random ties)": lambda: tb.select(
+            k_sel, pop.fitness, n),
+        "cx_one_point (n/2 pairs)": lambda: _apply_op(tb.mate, k_var, n2,
+                                                      ga, gb),
+        "mut_uniform (n rows, full 0-2 generator)": lambda: _apply_op(
+            tb.mutate, k_var, n, parents.genome),
+        "evaluate (K6, all rows)": lambda: evaluate_population(
+            tb, parents.with_genome(parents.genome,
+                                    torch.ones(n, dtype=torch.bool,
+                                               device=idx.device))),
+        "whole generation": lambda: gp_generation(tb, key, pop),
+    }
+    phase("profile: GP stage wall ms (synchronized, alone)", card_line,
+          stages={k: _wall_ms(f, reps=3) for k, f in stages.items()})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        k = key
+        for _ in range(gens):
+            k, pop, _ = gp_generation(tb, k, pop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    avgs = prof.key_averages()
+    kernels_ = [e for e in avgs if e.device_type == DeviceType.CUDA
+                and dev_us(e) > 0]
+    busy_us = sum(dev_us(e) for e in kernels_)
+    top = sorted(kernels_, key=dev_us, reverse=True)[:10]
+    phase("profile: GP bench generation, per generation", card_line,
+          gens=gens, wall_ms=wall / gens * 1e3,
+          device_busy_ms=(busy_us / gens / 1e3 if busy_us
+                          else "not measured"),
+          device_idle_share=(1.0 - busy_us / 1e6 / wall if busy_us
+                             else "not measured"),
+          kernel_launches=sum(e.count for e in kernels_) / gens,
+          top_kernels=[{"kernel": e.key[:60], "ms": dev_us(e) / gens / 1e3,
+                        "calls": e.count / gens} for e in top])
+
+
 def main() -> int:
     try:
         import torch
@@ -964,7 +1387,18 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_nsga2(k_head, mo_pop, mo_tb, card_line)
 
-    # ---- 11. the kernels line and the result -------------------------------
+    # ---- 11.-13. the GP slice: reference, main path, K6 -------------------
+    del mo_pop
+    torch.cuda.empty_cache()
+    k_gp_ref, k_gp, k_gp_k6 = random.split(random.fold_in(key, 3), 3)
+    gp_reference_phase(card_line, k_gp_ref, dev)
+    launches_gp, launches_gp_ea, gp_pop2, gp_pop0, gp_tb = gp_main_path(
+        kernels, card_line, k_gp, dev)
+    if "--profile" in sys.argv[1:]:
+        profile_gp(k_gp, gp_pop2, gp_tb, card_line)
+    k6 = gp_k6_phase(kernels, card_line, k_gp_k6, gp_pop0, gp_pop2, dev)
+
+    # ---- 14. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -1007,6 +1441,20 @@ def main() -> int:
         "max_abs_err": max(v[0] for v in k4.values()),
         "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
         "library_ms": None})
+    # K6 on the population after 2N generations of the main path (its
+    # other inputs are in the K6 phases above)
+    ev = k6["evolved"]
+    rows.append({
+        "name": "gp_interp", "route": "cuda",
+        "source": "deap_tpu_torch/kernels/gp_interp.cu",
+        "replaces": "deap_tpu/gp/interp_pallas.py:201",
+        "launches": launches_gp["gp_interp"],
+        "max_abs_err": max(v["max_abs_err"] for v in k6.values()),
+        "ms": ev["ms"], "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
+        "bound_by": ev["bound_by"], "library_ms": None,
+        "launches_by_path": {"bench generation": launches_gp["gp_interp"],
+                             "ea_simple": launches_gp_ea["gp_interp"]},
+        "ms_by_input": {k: v["ms"] for k, v in k6.items()}})
     phase("total", card_line, seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line, flush=True)

@@ -186,3 +186,115 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     for a, b in zip(_ERFINV_LT[1:], _ERFINV_GE[1:]):
         p = fma(p, w, torch.where(lt, a, b))
     return x * torch.where(x.abs() == 1.0, _INF, p)
+
+
+# XLA's CPU backend calls the C library's sinf/cosf; glibc's are ARM's
+# optimized routines: the argument is reduced and the polynomial evaluated
+# in double precision, then rounded to float32 once.  Abstop12 thresholds
+# (exponent and top three mantissa bits of |y|): 2^-12, 0.75, 120, inf.
+_TOP_TINY, _TOP_POLY, _TOP_FAST, _TOP_INF = 0x398, 0x3F4, 0x42F, 0x7F8
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")    # 2/pi * 2^24
+_HPI = float.fromhex("0x1.921FB54442D18p0")          # pi/2
+_PI63 = float.fromhex("0x1.921FB54442D18p-62")       # 2pi * 2^-64
+# cosine c0..c4 (negated in the second table), sine s1..s3
+_COS_POLY = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SIN_POLY = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+# 4/pi to 192 bits, 8 new bits per word
+_INV_PIO4 = (0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44,
+             0x6e4e4415, 0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757,
+             0xfc2757d1, 0x2757d1f5, 0x57d1f534, 0xd1f534dd, 0xf534ddc0,
+             0x34ddc0db, 0xddc0db62, 0xc0db6295, 0xdb629599, 0x6295993c,
+             0x95993c43, 0x993c4390, 0x3c439041)
+_M32 = 0xFFFFFFFF
+
+
+def _mul_32x32(a, b):
+    """``a * b`` for uint32 words (int64 tensors) as the (hi, lo) uint32
+    words of the 64-bit product, in 16-bit halves so nothing overflows."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    b_lo, b_hi = b & 0xFFFF, b >> 16
+    lo_lo = a_lo * b_lo
+    mid = a_hi * b_lo + a_lo * b_hi                 # < 2^33
+    hi_hi = a_hi * b_hi
+    lo = lo_lo + ((mid & 0xFFFF) << 16)
+    hi = hi_hi + (mid >> 16) + (lo >> 32)
+    return hi & _M32, lo & _M32
+
+
+def _reduce_large(bits: torch.Tensor):
+    """glibc's ``reduce_large``: the float's bits (as int64, |y| >= 120)
+    times 4/pi in a 32 x 96 -> 128-bit product; returns the reduced
+    argument (float64) and the quadrant (int64)."""
+    table = torch.tensor(_INV_PIO4, dtype=torch.int64, device=bits.device)
+    base = (bits >> 26) & 15
+    shift = (bits >> 23) & 7
+    xi = ((bits & 0xFFFFFF) | 0x800000) << shift
+    a0, a4, a8 = table[base], table[base + 4], table[base + 8]
+    r0 = (xi * (a0 & 0xFFFF) + (((xi * (a0 >> 16)) & 0xFFFF) << 16)) & _M32
+    r1_hi, r1_lo = _mul_32x32(xi, a4)
+    r2_hi, _ = _mul_32x32(xi, a8)
+    # res0 = ((r2 >> 32) | (r0 << 32)) + r1, modulo 2^64, as (hi, lo)
+    lo = r2_hi + r1_lo
+    hi = (r0 + r1_hi + (lo >> 32)) & _M32
+    lo = lo & _M32
+    n = ((hi + (1 << 29)) & _M32) >> 30             # (res0 + 2^61) >> 62
+    hi = (hi - (n << 30)) & _M32                    # res0 -= n << 62
+    signed_hi = torch.where(hi >= (1 << 31), hi - (1 << 32), hi)
+    res = signed_hi * (1 << 32) + lo                # (int64_t) res0
+    return res.double() * _PI63, n
+
+
+def _sincos(y: torch.Tensor, want_cos: bool) -> torch.Tensor:
+    y = y.float()
+    bits = y.view(torch.int32).to(torch.int64) & _M32
+    top = (bits >> 20) & 0x7FF
+    negative = bits >> 31
+    x = y.double()
+    # |y| < 120: one multiply-subtract by pi/2
+    r = x * _HPI_INV
+    n_fast = (r.to(torch.int32).to(torch.int64) + 0x800000) >> 24
+    x_fast = x - n_fast.double() * _HPI
+    x_large, n_large = _reduce_large(bits)
+    fast = top < _TOP_FAST
+    xr = torch.where(fast, x_fast, x_large)
+    n = torch.where(fast, n_fast, n_large)
+    quadrant = torch.where(fast, n, n + negative)
+    sign = torch.where((quadrant & 3 == 1) | (quadrant & 3 == 2), -1.0, 1.0)
+    negate_cos = (quadrant & 2) != 0
+    poly = top < _TOP_POLY                          # no reduction below 0.75
+    xs = torch.where(poly, x, xr * sign)
+    x2 = torch.where(poly, x * x, xr * xr)
+    negate_cos = negate_cos & ~poly
+    n = torch.where(poly, 0, n) ^ int(want_cos)
+    # sine polynomial
+    x3 = xs * x2
+    s1 = _SIN_POLY[1] + x2 * _SIN_POLY[2]
+    x7 = x3 * x2
+    s = xs + x3 * _SIN_POLY[0]
+    sin_val = s + x7 * s1
+    # cosine polynomial (its coefficients negated in the second table)
+    c = torch.where(negate_cos, -1.0, 1.0).double()
+    x4 = x2 * x2
+    c2 = c * _COS_POLY[3] + x2 * (c * _COS_POLY[4])
+    c1 = c * _COS_POLY[0] + x2 * (c * _COS_POLY[1])
+    x6 = x4 * x2
+    cc = c1 + x4 * (c * _COS_POLY[2])
+    cos_val = cc + x6 * c2
+    out = torch.where((n & 1) == 0, sin_val, cos_val).float()
+    tiny = top < _TOP_TINY
+    out = torch.where(tiny, torch.ones_like(y) if want_cos else y, out)
+    return torch.where(top >= _TOP_INF, float("nan"), out)
+
+
+def sin(y: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 sine (glibc's ``sinf``), through float64."""
+    return _sincos(y, False)
+
+
+def cos(y: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 cosine (glibc's ``cosf``), through float64."""
+    return _sincos(y, True)

@@ -12,9 +12,11 @@ per-generation records stay on the device and are stacked once at the
 end, so no generation waits on a host copy.
 
 Toolbox protocol (as in the JAX package): ``evaluate(genome) -> tuple``
-per individual (vmapped with ``torch.func.vmap``), ``mate(key, g1, g2)``,
+per individual (vmapped with ``torch.func.vmap``) or a population-level
+``evaluate_population(genome, skip=...)``, ``mate(key, g1, g2)``,
 ``mutate(key, g)`` and ``select(key, fitness, k) -> indices``; operators
-that advertise a ``.batched`` form get one key for the whole batch.
+that advertise a ``.batched`` form get one key for the whole batch, and
+``rowwise_op`` operators (the GP ones) one key per row in one call.
 
 The ``live`` contract of the serving layer is kept: a bool ``(pop,)``
 prefix mask whose pad rows never win selection (indices remap
@@ -28,6 +30,7 @@ engines (they raise :class:`~deap_tpu_torch.engines.EngineNotPorted`).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from functools import partial
 
 import torch
@@ -103,12 +106,15 @@ def _stack_rows(outs):
 
 def _apply_op(tool, key, n: int, *operands):
     """Apply a variation operator to an ``n``-row batch: its batched form
-    with one key, else one call per row under ``split(key, n)`` (the JAX
-    package's vmap over per-row keys, as a loop)."""
+    with one key; a ``rowwise_op`` once with ``split(key, n)``; else one
+    call per row under ``split(key, n)`` (the JAX package's vmap over
+    per-row keys, as a loop)."""
     batched = _batched_form(tool)
     if batched is not None:
         return batched(key, *operands)
     keys = random.split(key, n)
+    if getattr(tool, "rowwise", False):
+        return tool(keys, *operands)
     return _stack_rows([tool(keys[i], *(_map(lambda x: x[i], o)
                                         for o in operands))
                         for i in range(n)])
@@ -132,29 +138,57 @@ def _no_quarantine(toolbox):
                                   "deap_tpu_torch yet")
 
 
+def _accepts_skip(fn) -> bool:
+    try:
+        return "skip" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 def evaluate_population(toolbox, population: Population):
-    """Evaluate every row with ``toolbox.evaluate`` (vmapped) and assign
-    the values where the fitness was invalid.  Returns ``(population,
-    nevals)``."""
+    """Evaluate every row and assign the values where the fitness was
+    invalid.  Returns ``(population, nevals)``.
+
+    A registered ``toolbox.evaluate_population(genome)`` evaluates the
+    whole population at once (a 1-D result becomes ``(n, 1)``); when its
+    signature has ``skip`` it gets ``skip=fitness.valid`` and may skip
+    those rows, whose values are discarded (the GP evaluator gives them
+    length 0, so the stack machine runs no step for them).  Otherwise
+    ``toolbox.evaluate`` is vmapped over the rows."""
     _no_quarantine(toolbox)
     invalid = ~population.fitness.valid
     genome = _widen_genome(_genome_storage(toolbox), population.genome)
-    values = torch.func.vmap(_norm_eval(toolbox.evaluate))(genome)
+    if hasattr(toolbox, "evaluate_population"):
+        tool = toolbox.evaluate_population
+        if _accepts_skip(tool):
+            values = tool(genome, skip=population.fitness.valid)
+        else:
+            values = tool(genome)
+        if values.ndim == 1:
+            values = values[:, None]
+    else:
+        values = torch.func.vmap(_norm_eval(toolbox.evaluate))(genome)
     nevals = invalid.sum()
     return population.evaluated(values, where=invalid), nevals
 
 
 def var_and(key, population: Population, toolbox, cxpb: float,
-            mutpb: float) -> Population:
+            mutpb: float, pairing: str = "adjacent") -> Population:
     """varAnd: pairs mate with probability ``cxpb``, every row mutates
     with probability ``mutpb``; touched rows lose their fitness."""
-    g, touched = vary_genome(key, population.genome, toolbox, cxpb, mutpb)
+    g, touched = vary_genome(key, population.genome, toolbox, cxpb, mutpb,
+                             pairing=pairing)
     return population.with_genome(g, invalidate_where=touched)
 
 
-def vary_genome(key, g, toolbox, cxpb: float, mutpb: float):
+def vary_genome(key, g, toolbox, cxpb: float, mutpb: float,
+                pairing: str = "adjacent"):
     """Genome-level core of :func:`var_and`: ``(new_genome, touched)``.
-    Rows ``(0,1), (2,3), ...`` mate."""
+    ``pairing="adjacent"`` mates rows ``(0,1), (2,3), ...``;
+    ``"halves"`` mates row ``i`` with row ``n//2 + i`` and writes the
+    children back in half-blocks."""
+    if pairing not in ("adjacent", "halves"):
+        raise ValueError(f"unknown pairing {pairing!r}")
     n = _leaves(g)[0].shape[0]
     n2 = n // 2
     storage = _genome_storage(toolbox)
@@ -162,15 +196,23 @@ def vary_genome(key, g, toolbox, cxpb: float, mutpb: float):
     g = _widen_genome(storage, g)
     k_cx, k_cxkeys, k_mut, k_mutkeys = random.split(key, 4)
 
-    ga = _map(lambda x: x[0:2 * n2:2], g)
-    gb = _map(lambda x: x[1:2 * n2:2], g)
+    if pairing == "adjacent":
+        ga = _map(lambda x: x[0:2 * n2:2], g)
+        gb = _map(lambda x: x[1:2 * n2:2], g)
+    else:
+        ga = _map(lambda x: x[:n2], g)
+        gb = _map(lambda x: x[n2:2 * n2], g)
     do_cx = random.bernoulli(k_cx, cxpb, (n2,))
     ca, cb = _apply_op(toolbox.mate, k_cxkeys, n2, ga, gb)
     ga = _where_rows(do_cx, ca, ga)
     gb = _where_rows(do_cx, cb, gb)
-    paired = _map(lambda a, b: torch.stack([a, b], 1).reshape(
-        (2 * n2,) + a.shape[1:]), ga, gb)
-    touched = torch.repeat_interleave(do_cx, 2)
+    if pairing == "adjacent":
+        paired = _map(lambda a, b: torch.stack([a, b], 1).reshape(
+            (2 * n2,) + a.shape[1:]), ga, gb)
+        touched = torch.repeat_interleave(do_cx, 2)
+    else:
+        paired = _map(lambda a, b: torch.cat([a, b], 0), ga, gb)
+        touched = torch.cat([do_cx, do_cx])
     if n % 2:
         g = _map(lambda p, orig: torch.cat([p, orig[2 * n2:]], 0), paired, g)
         touched = torch.cat([touched, torch.zeros(n - 2 * n2, dtype=torch.bool,

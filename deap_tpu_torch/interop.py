@@ -3,7 +3,8 @@
 Neither package imports the other; the tests hand numpy arrays across:
 a raw ``uint32[2]`` key, a genome in any storage dtype (bfloat16 as its
 ``uint16`` bit pattern, or as an ``ml_dtypes.bfloat16`` array, which is
-what ``np.asarray`` of a JAX bfloat16 array gives), fitness
+what ``np.asarray`` of a JAX bfloat16 array gives) or a tuple of such
+arrays (a GP genome: codes, consts, lengths), fitness
 ``values``/``valid``/``weights``, and a genome storage declaration given
 by its ``dtype`` and ``bound`` fields.
 
@@ -37,8 +38,13 @@ def key_to_numpy(key: torch.Tensor) -> np.ndarray:
     return key.detach().cpu().numpy().astype(np.uint32)
 
 
-def genome_to_torch(genome, device=None) -> torch.Tensor:
+def genome_to_torch(genome, device=None):
+    """A genome array → a tensor; a tuple of arrays (a GP genome ``(codes
+    int32 (pop, cap), consts float32 (pop, cap), lengths int32 (pop,))``)
+    → a tuple of tensors."""
     device = resolve_device(device)
+    if isinstance(genome, (tuple, list)):
+        return tuple(genome_to_torch(g, device) for g in genome)
     g = np.asarray(genome)
     if g.dtype.name == "bfloat16":
         g = g.view(np.uint16)
@@ -48,9 +54,12 @@ def genome_to_torch(genome, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(g, copy=True)).to(device)
 
 
-def genome_to_numpy(genome: torch.Tensor) -> np.ndarray:
-    """The port's genome → numpy; bfloat16 comes back as its ``uint16``
-    bit pattern (numpy has no bfloat16)."""
+def genome_to_numpy(genome):
+    """The port's genome → numpy (a tuple genome → a tuple of arrays);
+    bfloat16 comes back as its ``uint16`` bit pattern (numpy has no
+    bfloat16)."""
+    if isinstance(genome, (tuple, list)):
+        return tuple(genome_to_numpy(g) for g in genome)
     g = genome.detach().cpu()
     if g.dtype == torch.bfloat16:
         return g.view(torch.int16).numpy().view(np.uint16)

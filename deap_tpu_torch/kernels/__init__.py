@@ -1,7 +1,7 @@
 """Launch wrappers of the port's hand-written CUDA kernels.
 
-The library is built from ``megakernel.cu`` and ``dominance.cu`` at first
-use
+The library is built from ``megakernel.cu``, ``dominance.cu`` and
+``gp_interp.cu`` at first use
 (:mod:`deap_tpu_torch.kernels.build`) and bound with ``ctypes``.  A
 launcher checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches on PyTorch's current stream, and
@@ -9,8 +9,8 @@ raises :class:`KernelLaunchError` if ``cudaGetLastError`` reports one.
 Only then does it add one to its entry of :data:`LAUNCHES` — the count a
 run reads to show that its path really went through the kernel.  Nothing
 here falls back to a plain version: that choice is made from the
-tensor's device by the callers in ``deap_tpu_torch/ops/generation.py``
-and ``deap_tpu_torch/ops/dominance.py``.
+tensor's device by the callers in ``deap_tpu_torch/ops/generation.py``,
+``deap_tpu_torch/ops/dominance.py`` and ``deap_tpu_torch/gp/interp.py``.
 """
 
 from __future__ import annotations
@@ -23,11 +23,12 @@ import torch
 
 __all__ = ["LAUNCHES", "KernelLaunchError", "reset_launches", "load",
            "launch_vary", "launch_gather_vary", "launch_var_or",
-           "launch_rows_dominate_counts"]
+           "launch_rows_dominate_counts", "launch_gp_interp"]
 
 #: launches of each kernel since the last :func:`reset_launches`
 LAUNCHES = {"megakernel_vary": 0, "megakernel_gather_vary": 0,
-            "megakernel_var_or": 0, "rows_dominate_counts": 0}
+            "megakernel_var_or": 0, "rows_dominate_counts": 0,
+            "gp_interp": 0}
 _DTYPES = {"float32": (0, torch.float32), "bfloat16": (1, torch.bfloat16),
            "int8": (2, torch.int8)}
 _lib = None
@@ -62,6 +63,8 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.megakernel_var_or.restype = i
             lib.rows_dominate_counts.argtypes = [p, p, p, ll, ll, i, p]
             lib.rows_dominate_counts.restype = i
+            lib.gp_interp.argtypes = [p, p, p, p, p, p, i, p, ll, i, i, i, p]
+            lib.gp_interp.restype = i
             lib.megakernel_error_string.argtypes = [i]
             lib.megakernel_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -181,4 +184,33 @@ def launch_rows_dominate_counts(rows, w) -> torch.Tensor:
                                       stream)
     _raise_on(lib, rc, "rows_dominate_counts")
     LAUNCHES["rows_dominate_counts"] += 1
+    return out
+
+
+def launch_gp_interp(codes, consts, lengths, X, op_kind,
+                     arg_index) -> torch.Tensor:
+    """K6 on the card: ``(pop, n_points)`` float32 values of the prefix
+    programs ``codes``/``consts`` ``(pop, cap)`` with ``lengths``
+    ``(pop,)`` over ``X`` ``(n_args, n_points)``; ``op_kind`` and
+    ``arg_index`` ``(n_nodes,)`` int32 map a node code to its opcode and
+    its argument row."""
+    pop, cap = codes.shape
+    n_args, n_points = X.shape
+    n_nodes = op_kind.shape[0]
+    _check(codes, "codes", torch.int32, (pop, cap))
+    _check(consts, "consts", torch.float32, (pop, cap))
+    _check(lengths, "lengths", torch.int32, (pop,))
+    _check(X, "X", torch.float32, (n_args, n_points))
+    _check(op_kind, "op_kind", torch.int32, (n_nodes,))
+    _check(arg_index, "arg_index", torch.int32, (n_nodes,))
+    out = torch.empty((pop, n_points), dtype=torch.float32, device=X.device)
+    lib = load()
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    with torch.cuda.device(X.device):
+        rc = lib.gp_interp(codes.data_ptr(), consts.data_ptr(),
+                           lengths.data_ptr(), X.data_ptr(),
+                           op_kind.data_ptr(), arg_index.data_ptr(), n_nodes,
+                           out.data_ptr(), pop, cap, n_args, n_points, stream)
+    _raise_on(lib, rc, "gp_interp")
+    LAUNCHES["gp_interp"] += 1
     return out

@@ -37,10 +37,10 @@ def _shape(shape: Shape) -> Tuple[int, ...]:
     return (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)
 
 
-def mul32(a, b: int):
-    """``a * b mod 2**32`` for uint32 words held in int64 and a constant
-    ``b`` below 2**32, split into 16-bit halves so no product overflows
-    int64."""
+def mul32(a, b):
+    """``a * b mod 2**32`` for uint32 words held in int64 (``b`` a
+    constant or a tensor of words), split into 16-bit halves so no
+    product overflows int64."""
     lo = a * (b & 0xFFFF)
     hi = ((a * (b >> 16)) & 0xFFFF) << 16
     return (lo + hi) & M32
@@ -85,26 +85,34 @@ def key_data(key: torch.Tensor) -> torch.Tensor:
     return key
 
 
+def _words(key: torch.Tensor, ndraw: int):
+    """The key's two words, shaped ``(*batch, 1, ..., 1)`` to broadcast
+    against ``ndraw`` trailing draw axes."""
+    tail = (1,) * ndraw
+    return (key[..., 0].reshape(key.shape[:-1] + tail),
+            key[..., 1].reshape(key.shape[:-1] + tail))
+
+
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
-    """``num`` (or ``shape``) new keys, shape ``(*shape, 2)``."""
+    """``num`` (or ``shape``) new keys per key: ``(*batch, *shape, 2)``."""
     shape = _shape(num)
     hi, lo = _iota_2x32(shape, key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    b1, b2 = threefry2x32(*_words(key, len(shape)), hi, lo)
     return torch.stack([b1, b2], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """Mix an integer into a key (``jax.random.fold_in``)."""
-    d = torch.tensor([int(data) & M32], dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
-    return torch.cat([b1, b2])
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], 0, int(data) & M32)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def bits(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
-    """Raw uint32 words of ``shape`` (as int64): ``random_bits(key, 32)``."""
+    """Raw uint32 words (as int64) of ``(*batch, *shape)``:
+    ``random_bits(key, 32)`` of each key."""
     shape = _shape(shape)
     hi, lo = _iota_2x32(shape, key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    b1, b2 = threefry2x32(*_words(key, len(shape)), hi, lo)
     return b1 ^ b2
 
 
@@ -113,7 +121,6 @@ def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
     """Uniform floats in ``[minval, maxval)`` from the top 23 bits."""
     if dtype != torch.float32:
         raise TypeError("uniform is ported for float32 only")
-    shape = _shape(shape)
     b = bits(key, shape)
     floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     # bounds stay Python floats (float32 values): a scalar needs no
@@ -129,31 +136,75 @@ def bernoulli(key: torch.Tensor, p: float = 0.5,
     return uniform(key, shape) < float(np.float32(p))
 
 
-def randint(key: torch.Tensor, shape: Shape, minval: int,
-            maxval: int) -> torch.Tensor:
-    """int32 draws in ``[minval, maxval)`` by jax's two-word modulus law
-    (biased exactly as jax's is when the span is not a power of two)."""
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def randint_bits(key: torch.Tensor, shape: Shape):
+    """The two words of raw bits that :func:`randint` reduces:
+    ``(higher, lower)``, each ``(*batch, *shape)``."""
     shape = _shape(shape)
-    i32_min, i32_max = -(1 << 31), (1 << 31) - 1
-    maxval_out_of_range = maxval > i32_max
-    minval = min(max(int(minval), i32_min), i32_max)
-    maxval = min(max(int(maxval), i32_min), i32_max)
-    k1, k2 = split(key)
-    higher, lower = bits(k1, shape), bits(k2, shape)
-    span = (maxval - minval) & M32
-    if maxval <= minval:
-        span = 1
-    elif maxval_out_of_range:
-        span = (span + 1) & M32
-    if span == 0:           # the full 2**32 range: remainders are no-ops
-        offset = lower
+    ks = split(key)
+    return bits(ks[..., 0, :], shape), bits(ks[..., 1, :], shape)
+
+
+def _span(minval, maxval):
+    """jax's bounds law: both bounds clamped to int32, ``span = maxval -
+    minval`` as a uint32 word, 1 when ``maxval <= minval`` (so
+    ``minval`` is returned), one more when ``maxval`` was above the
+    int32 range.  Python ints stay Python ints (no device copy);
+    tensors give tensors.  Returns ``(minval, span)``; a span of 0 is
+    the full 2**32 range."""
+    if not (torch.is_tensor(minval) or torch.is_tensor(maxval)):
+        out_of_range = maxval > _I32_MAX
+        minval = min(max(int(minval), _I32_MIN), _I32_MAX)
+        maxval = min(max(int(maxval), _I32_MIN), _I32_MAX)
+        span = (maxval - minval) & M32
+        if maxval <= minval:
+            span = 1
+        elif out_of_range:
+            span = (span + 1) & M32
+        return minval, span
+    dev = (minval if torch.is_tensor(minval) else maxval).device
+    minval, maxval = (torch.as_tensor(b, device=dev).to(torch.int64)
+                      for b in (minval, maxval))
+    out_of_range = maxval > _I32_MAX
+    minval = minval.clamp(_I32_MIN, _I32_MAX)
+    maxval = maxval.clamp(_I32_MIN, _I32_MAX)
+    span = torch.where(maxval <= minval, 1, (maxval - minval) & M32)
+    span = torch.where(out_of_range & (maxval > minval), (span + 1) & M32,
+                       span)
+    return minval, span
+
+
+def randint_from_bits(higher, lower, minval, maxval) -> torch.Tensor:
+    """jax's two-word modulus law on raw bits (biased exactly as jax's is
+    when the span is not a power of two).  ``minval``/``maxval`` are
+    Python ints or integer tensors that broadcast against the bits."""
+    minval, span = _span(minval, maxval)
+    full = span == 0            # the full 2**32 range: remainders are no-ops
+    safe = torch.where(full, 1, span) if torch.is_tensor(span) else (
+        1 if full else span)
+    mult = (1 << 16) % safe
+    mult = ((mult * mult) & M32) % safe         # the square wraps, as in jax
+    offset = (mul32(higher % safe, mult) + (lower % safe)) & M32
+    if torch.is_tensor(full):
+        offset = torch.where(full, lower, offset % safe)
     else:
-        mult = (1 << 16) % span
-        mult = ((mult * mult) & M32) % span     # the square wraps, as in jax
-        offset = mul32(higher % span, mult) + (lower % span)
-        offset = (offset & M32) % span
+        offset = lower if full else offset % safe
     out = (minval + offset + (1 << 31)) & M32
     return (out - (1 << 31)).to(torch.int32)
+
+
+def randint(key: torch.Tensor, shape: Shape, minval, maxval) -> torch.Tensor:
+    """int32 draws in ``[minval, maxval)`` of ``(*batch, *shape)``.  The
+    bounds are Python ints or integer tensors of the key batch's shape
+    (one bound per key, as a traced bound under ``jax.vmap``)."""
+    shape = _shape(shape)
+    higher, lower = randint_bits(key, shape)
+    tail = (1,) * len(shape)
+    minval, maxval = (b.reshape(b.shape + tail) if torch.is_tensor(b) else b
+                      for b in (minval, maxval))
+    return randint_from_bits(higher, lower, minval, maxval)
 
 
 def normal(key: torch.Tensor, shape: Shape = (),

@@ -36,7 +36,7 @@ def _forbidden_imports(source: str):
 
 def test_port_sources_exist():
     assert len(_port_files()) >= 15
-    for cu in ("megakernel.cu", "dominance.cu"):
+    for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu"):
         assert (ROOT / "deap_tpu_torch" / "kernels" / cu).exists()
 
 
@@ -57,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.interop, deap_tpu_torch.kernels, "
             "deap_tpu_torch.kernels.build, deap_tpu_torch.ops.generation, "
             "deap_tpu_torch.ops.emo, deap_tpu_torch.ops.dominance, "
-            "deap_tpu_torch.benchmarks; "
+            "deap_tpu_torch.benchmarks, deap_tpu_torch.gp, "
+            "deap_tpu_torch.gp.interp_cuda, deap_tpu_torch.gp.generate, "
+            "deap_tpu_torch.gp.variation, deap_tpu_torch.gp.tree; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -18,7 +18,7 @@ import sys
 import pytest
 import torch
 
-from deap_tpu_torch import benchmarks, kernels, random
+from deap_tpu_torch import benchmarks, gp, kernels, random
 from deap_tpu_torch.base import Fitness
 from deap_tpu_torch.kernels import build
 from deap_tpu_torch.ops import dominance as D, emo as E, generation as G
@@ -73,7 +73,8 @@ def test_kernels_equal_plain_versions_on_card(st):
     assert kernels.LAUNCHES == {"megakernel_vary": 1,
                                 "megakernel_gather_vary": 1,
                                 "megakernel_var_or": 0,
-                                "rows_dominate_counts": 0}
+                                "rows_dominate_counts": 0,
+                                "gp_interp": 0}
     assert _same(k1, p1) and _same(k2, p2) and torch.equal(w2, pw)
 
 
@@ -167,6 +168,55 @@ def test_sel_nsga2_on_card_equals_cpu():
     assert torch.equal(out[0].cpu(), out[1])
 
 
+def _gp_pset(which):
+    """The bench's primitive set, or one with every opcode of K6's table
+    (all of ``safe_ops`` and ``bool_ops``, two arguments, a terminal)."""
+    if which == "bench":
+        ps = gp.PrimitiveSet("MAIN", 1)
+        ops = {k: gp.safe_ops[k] for k in ("add", "sub", "mul", "div", "neg",
+                                           "cos", "sin")}
+    else:
+        ps = gp.PrimitiveSet("ALL", 2)
+        ops = {**gp.safe_ops, **gp.bool_ops}
+        ps.add_terminal(1.0, name="one")
+    for name, (f, a) in ops.items():
+        ps.add_primitive(f, a, name=name)
+    ps.add_ephemeral_constant(
+        "rand101", lambda keys: random.randint(keys, (), -1, 2).float())
+    return ps
+
+
+def _nan_equal(a, b):
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["bench", "all"])
+@pytest.mark.parametrize("skip", [False, True], ids=["all_rows", "skipped"])
+def test_gp_interp_kernel_equals_plain_on_card(which, skip):
+    dev = _cuda()
+    ps, cap, pop = _gp_pset(which), 64, 4096
+    keys = random.split(random.PRNGKey(3, device=dev), pop)
+    codes, consts, lengths = gp.make_generator(ps, cap, "half_and_half")(
+        keys, 2, 6)
+    if skip:
+        lengths = torch.where(torch.arange(pop, device=dev) % 2 == 0, 0,
+                              lengths)
+    n_args = len(ps.arguments)
+    X = torch.stack([torch.linspace(-1, 1, 1024, device=dev) * (i + 1)
+                     for i in range(n_args)])
+    ev = gp.make_population_evaluator(ps, cap)
+    kernels.reset_launches()
+    k6 = ev(codes, consts, lengths, X)
+    plain = gp.run_stack_machine(codes, consts, lengths, X, ps.freeze(), cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gp_interp"] == 1 and ev.last_backend == "cuda"
+    assert _nan_equal(k6, plain)
+    if skip:
+        assert (k6[::2] == 0).all()
+
+
 def test_cpu_tensors_take_the_plain_version():
     st = G.GenomeStorage()
     g, order, pos, seed, knobs = _inputs("cpu", 256, st)
@@ -230,7 +280,8 @@ def test_build_digest_covers_every_source_and_flag(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.digest(srcs) != base
     assert [s.name for s in build.SOURCES] == ["megakernel.cu",
-                                               "dominance.cu"]
+                                               "dominance.cu",
+                                               "gp_interp.cu"]
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -253,8 +304,8 @@ def _fake_nvcc(tmp_path, body: str):
 
 def test_build_is_one_compiler_call_over_every_source(monkeypatch,
                                                       tmp_path):
-    """Both sources go to one nvcc call that writes one library, named by
-    the digest; a second build reuses it without calling nvcc again."""
+    """Every source goes to one nvcc call that writes one library, named
+    by the digest; a second build reuses it without calling nvcc again."""
     log = tmp_path / "calls.jsonl"
     nvcc = _fake_nvcc(tmp_path, (
         f"open({str(log)!r}, 'a').write(json.dumps(sys.argv[1:]) + '\\n')\n"
@@ -269,7 +320,7 @@ def test_build_is_one_compiler_call_over_every_source(monkeypatch,
     calls = [json.loads(line) for line in log.read_text().splitlines()]
     assert len(calls) == 1
     assert "-shared" in calls[0]
-    assert calls[0][-2:] == [str(s) for s in build.SOURCES]
+    assert calls[0][-len(build.SOURCES):] == [str(s) for s in build.SOURCES]
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
         lib.name]
 
