@@ -55,15 +55,40 @@
              the initial population, the population after 2N generations,
              the same with every other row skipped, and a set with every
              opcode of the table (4096 x 64 x 1024, 2 arguments);
-14. the ``kernels`` line, the card's name and power limit, and the result
+14. reference — one generation of ``bench_nsga2.py`` as published (SBX,
+             polynomial mutation, ``sel_nsga2(nd="auto")``) at POP 1024 on
+             the card against the CPU path, for DTLZ2 (A) and ZDT1 (B):
+             offspring bitwise, selection indices equal on the CPU pool's
+             values, grid / staircase ranks equal to the count peel's;
+15. main path A — ``bench_nsga2.py`` with ``BENCH_PROBLEM=dtlz2`` at POP
+             1e5 (pool 2e5, 3 objectives, 12 variables, grid ranks): N = 3
+             and 2N generations, three pairs (median marginal time per
+             generation), then ``toolbox.hypervolume`` of the final
+             population at ref (1.1, 1.1, 1.1): K5 once, in float64, and
+             K4 in the grid peel's thin fronts; the value against the
+             plain float64 sweep and, on a 512-point subsample, against
+             the host tier to 1e-12; the distance to the front must fall
+             and the hypervolume rise;
+16. K5      — ``hv3d_sweep`` against the plain sweep on 8192 uniform
+             points (ref (1, 1, 1)) and on path A's final 1e5 x 3
+             population, float32 and float64: total and slab partials,
+             two launches bitwise equal, time against its bound;
+17. main path B — the default ``BENCH_PROBLEM=zdt1`` at POP 1e5 (2
+             objectives, 30 variables, staircase ranks): a few
+             generations, fronts per generation, the 2-D hypervolume at
+             ref (11, 11) must rise (no kernel of the port runs on it);
+18. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
-``python3 chip_smoke.py --profile`` adds, after phases 5, 9 and 12, a
+``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12 and 15, a
 per-stage and ``torch.profiler`` breakdown of a main-path generation of
 each path.
 
-Tolerance: every kernel must equal its plain version bit for bit (the
-stated ulp bound is 0; K6's NaNs compare equal whatever their payload); a
+Tolerance: K1-K4 and K6 must equal their plain versions bit for bit (the
+stated ulp bound is 0; K6's NaNs compare equal whatever their payload).
+K5's running minima are exact and its sums are taken in another order
+than the plain version's: relative 1e-4 in float32 and 1e-11 in float64,
+on the total and on every slab partial (relative to the total).  A
 mismatch prints the measured bound and fails.
 Any failed phase exits non-zero without the result line.  No JAX, and
 nothing of the JAX package, is imported.
@@ -103,6 +128,17 @@ FP32_INSTR_PER_S = 67e12 / 2
 INT32_INSTR_PER_S = 67e12 / 4      # integer and compare instructions
 ISSUE_PER_S = 67e12 / 2
 ULP_BOUND = 0                      # kernels equal their plain versions
+# bench_nsga2.py as published: SBX and polynomial mutation (eta 20), cxpb
+# 0.9, mutpb 1.0, sel_nsga2(nd="auto", front_chunk=1024), POP 1e5
+BN_POP, BN_NGEN, BN_PAIRS = 100_000, 3, 3
+BN_CXPB, BN_MUTPB, BN_ETA = 0.9, 1.0, 20.0
+BN_PROBLEMS = {"dtlz2": (3, 12), "zdt1": (2, 30)}     # nobj, variables
+BN_REF_POP = 1024
+BN_B_GENS = 3
+HV_REF = {"dtlz2": (1.1, 1.1, 1.1), "zdt1": (11.0, 11.0)}
+HV_UNIFORM_N = 8192                # bench_weakscaling.py's hv layout, 1 chip
+HV_SUBSAMPLE = 512                 # what the host tier takes in a moment
+HV_RTOL = {"float32": 1e-4, "float64": 1e-11}
 CXPB, MUTPB, MU, SIGMA, INDPB = 0.9, 0.5, 0.0, 0.3, 0.05
 
 
@@ -253,14 +289,45 @@ def _wall_ms(fn, reps: int = 5) -> float:
     return (time.perf_counter() - t) / reps * 1e3
 
 
+def _profile_window(run, gens: int) -> dict:
+    """``torch.profiler`` over ``run()`` (``gens`` generations): wall ms,
+    device busy ms, idle share and kernel launches per generation, and
+    the kernels that took most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    kernels_ = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_us = sum(dev_us(e) for e in kernels_)
+    top = sorted(kernels_, key=dev_us, reverse=True)[:12]
+    return dict(
+        gens=gens, wall_ms=wall / gens * 1e3,
+        device_busy_ms=busy_us / gens / 1e3 if busy_us else "not measured",
+        device_idle_share=(1.0 - busy_us / 1e6 / wall if busy_us
+                           else "not measured"),
+        kernel_launches=sum(e.count for e in kernels_) / gens,
+        top_kernels=[{"kernel": e.key[:60], "ms": dev_us(e) / gens / 1e3,
+                      "calls": e.count / gens} for e in top])
+
+
 def profile_main_path(ea_step, key, pop, tb, card_line, gens=5) -> None:
     """``--profile``: where a main-path generation's time goes — the wall
     cost of each stage called alone, then ``torch.profiler`` over
     ``gens`` generations: device busy time and kernel launches against
     the wall clock, and device time by operator."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from deap_tpu_torch import random
     from deap_tpu_torch.algorithms import evaluate_population
@@ -291,35 +358,14 @@ def profile_main_path(ea_step, key, pop, tb, card_line, gens=5) -> None:
 
     for _ in range(2):
         key, pop, _ = ea_step(key, pop, tb, CXPB, MUTPB)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+
+    def run():
+        k, p = key, pop
         for _ in range(gens):
-            key, pop, _ = ea_step(key, pop, tb, CXPB, MUTPB)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+            k, p, _ = ea_step(k, p, tb, CXPB, MUTPB)
 
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total",
-                       getattr(evt, "self_cuda_time_total", 0.0))
-
-    avgs = prof.key_averages()
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA
-               and dev_us(e) > 0]
-    ops = [e for e in avgs if e.device_type == DeviceType.CPU
-           and dev_us(e) > 0]
-    busy_us = sum(dev_us(e) for e in kernels)
-    top = sorted(ops, key=dev_us, reverse=True)[:12]
     phase("profile: ea_step megakernel, per generation", card_line,
-          gens=gens, wall_ms=wall / gens * 1e3,
-          device_busy_ms=(busy_us / gens / 1e3 if busy_us
-                          else "not measured"),
-          device_idle_share=(1.0 - busy_us / 1e6 / wall if busy_us
-                             else "not measured"),
-          kernel_launches=sum(e.count for e in kernels) / gens,
-          top_ops=[{"op": e.key[:48], "ms": dev_us(e) / gens / 1e3,
-                    "calls": e.count / gens} for e in top])
+          **_profile_window(run, gens))
 
 
 # ---------------------------------------------------------------------------
@@ -689,8 +735,6 @@ def profile_nsga2(key, pop, tb, card_line, gens=2) -> None:
     a generation called alone, then ``torch.profiler`` over ``gens``
     generations of the loop."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from deap_tpu_torch import random
     from deap_tpu_torch.algorithms import (ea_mu_plus_lambda,
@@ -723,33 +767,9 @@ def profile_nsga2(key, pop, tb, card_line, gens=2) -> None:
     }
     phase("profile: NSGA-II stage wall ms (synchronized, alone)", card_line,
           stages={k: _wall_ms(f, reps=3) for k, f in stages.items()})
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        ea_mu_plus_lambda(key, pop, tb, MO_POP, MO_POP, MO_CXPB, MO_MUTPB,
-                          gens)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total",
-                       getattr(evt, "self_cuda_time_total", 0.0))
-
-    avgs = prof.key_averages()
-    kernels_ = [e for e in avgs if e.device_type == DeviceType.CUDA
-                and dev_us(e) > 0]
-    busy_us = sum(dev_us(e) for e in kernels_)
-    top = sorted(kernels_, key=dev_us, reverse=True)[:12]
     phase("profile: NSGA-II ea_mu_plus_lambda, per generation", card_line,
-          gens=gens, wall_ms=wall / gens * 1e3,
-          device_busy_ms=(busy_us / gens / 1e3 if busy_us
-                          else "not measured"),
-          device_idle_share=(1.0 - busy_us / 1e6 / wall if busy_us
-                             else "not measured"),
-          kernel_launches=sum(e.count for e in kernels_) / gens,
-          top_kernels=[{"kernel": e.key[:60], "ms": dev_us(e) / gens / 1e3,
-                        "calls": e.count / gens} for e in top])
+          **_profile_window(lambda: ea_mu_plus_lambda(
+              key, pop, tb, MO_POP, MO_POP, MO_CXPB, MO_MUTPB, gens), gens))
 
 
 # ---------------------------------------------------------------------------
@@ -1101,8 +1121,6 @@ def profile_gp(key, pop, tb, card_line, gens=3) -> None:
     bench generation called alone, then ``torch.profiler`` over
     ``gens`` generations."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from deap_tpu_torch import random
     from deap_tpu_torch.algorithms import _apply_op, evaluate_population
@@ -1130,34 +1148,451 @@ def profile_gp(key, pop, tb, card_line, gens=3) -> None:
     }
     phase("profile: GP stage wall ms (synchronized, alone)", card_line,
           stages={k: _wall_ms(f, reps=3) for k, f in stages.items()})
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        k = key
+
+    def run():
+        k, p = key, pop
         for _ in range(gens):
-            k, pop, _ = gp_generation(tb, k, pop)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+            k, p, _ = gp_generation(tb, k, p)
 
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total",
-                       getattr(evt, "self_cuda_time_total", 0.0))
-
-    avgs = prof.key_averages()
-    kernels_ = [e for e in avgs if e.device_type == DeviceType.CUDA
-                and dev_us(e) > 0]
-    busy_us = sum(dev_us(e) for e in kernels_)
-    top = sorted(kernels_, key=dev_us, reverse=True)[:10]
     phase("profile: GP bench generation, per generation", card_line,
-          gens=gens, wall_ms=wall / gens * 1e3,
-          device_busy_ms=(busy_us / gens / 1e3 if busy_us
-                          else "not measured"),
-          device_idle_share=(1.0 - busy_us / 1e6 / wall if busy_us
-                             else "not measured"),
-          kernel_launches=sum(e.count for e in kernels_) / gens,
-          top_kernels=[{"kernel": e.key[:60], "ms": dev_us(e) / gens / 1e3,
-                        "calls": e.count / gens} for e in top])
+          **_profile_window(run, gens))
+
+
+# ---------------------------------------------------------------------------
+# bench_nsga2.py as published (SBX, polynomial mutation, nd="auto") and K5
+# ---------------------------------------------------------------------------
+
+
+def bench_nsga2_toolbox(problem: str):
+    """bench_nsga2.py's toolbox for ``BENCH_PROBLEM=problem``."""
+    from deap_tpu_torch import base, benchmarks
+    from deap_tpu_torch.ops import crossover, mutation
+    nobj, ndim = BN_PROBLEMS[problem]
+    tb = base.Toolbox()
+    if problem == "zdt1":
+        tb.register("evaluate", benchmarks.zdt1)
+    else:
+        tb.register("evaluate", benchmarks.dtlz2, obj=nobj)
+    tb.register("mate", crossover.cx_simulated_binary_bounded,
+                low=0.0, up=1.0, eta=BN_ETA)
+    tb.register("mutate", mutation.mut_polynomial_bounded,
+                low=0.0, up=1.0, eta=BN_ETA, indpb=1.0 / ndim)
+    return tb
+
+
+def bench_nsga2_generation(tb, key, pop, select=None):
+    """bench_nsga2.py's generation: SBX and polynomial mutation by
+    ``vary_genome(pairing="halves")`` on the xla engine, evaluation, the
+    (mu + lambda) pool and ``sel_nsga2(nd="auto", front_chunk=1024)``."""
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import evaluate_population, vary_genome
+    from deap_tpu_torch.ops import emo
+    n = pop.size
+    key, k_var, k_sel = random.split(key, 3)
+    genome, _ = vary_genome(k_var, pop.genome, tb, BN_CXPB, BN_MUTPB,
+                            pairing="halves")
+    off = base.Population(genome, base.Fitness.empty(
+        n, pop.fitness.weights, device=genome.device))
+    off, _ = evaluate_population(tb, off)
+    pool = pop.concat(off)
+    select = select or emo.sel_nsga2
+    sel = select(k_sel, pool.fitness, n, nd="auto", front_chunk=FRONT_CHUNK)
+    return key, pool.take(sel)
+
+
+def bench_nsga2_initial(tb, key, problem: str, n: int):
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import evaluate_population
+    nobj, ndim = BN_PROBLEMS[problem]
+    genome = random.uniform(key, (n, ndim))
+    pop = base.Population(genome, base.Fitness.empty(
+        n, (-1.0,) * nobj, device=key.device))
+    return evaluate_population(tb, pop)[0]
+
+
+def bench_nsga2_reference_phase(card_line, key, problem: str) -> None:
+    """One published generation at POP 1024, card against CPU: the
+    offspring of ``vary_genome`` bitwise, ``sel_nsga2(nd="auto")`` on the
+    CPU pool's values equal, and the grid's (3 objectives) or the
+    staircase's (2) ranks equal to the count peel's on the card."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import evaluate_population, vary_genome
+    from deap_tpu_torch.ops import emo
+    dev = torch.device("cuda")
+    tb = bench_nsga2_toolbox(problem)
+    n = BN_REF_POP
+    k_init, k_var, k_sel = random.split(key.cpu(), 3)
+    pop = bench_nsga2_initial(tb, k_init, problem, n)
+    g_cpu, _ = vary_genome(k_var, pop.genome, tb, BN_CXPB, BN_MUTPB,
+                           pairing="halves")
+    g_dev, _ = vary_genome(k_var.to(dev), pop.genome.to(dev), tb, BN_CXPB,
+                           BN_MUTPB, pairing="halves")
+    same_off = torch.equal(g_cpu.view(torch.int32),
+                           g_dev.cpu().view(torch.int32))
+    off = evaluate_population(tb, base.Population(g_cpu, base.Fitness.empty(
+        n, pop.fitness.weights, device="cpu")))[0]
+    pool = pop.concat(off)
+    pool_dev = base.Fitness(pool.fitness.values.to(dev),
+                            pool.fitness.valid.to(dev), pool.fitness.weights)
+    idx_cpu = emo.sel_nsga2(k_sel, pool.fitness, n, nd="auto",
+                            front_chunk=FRONT_CHUNK)
+    idx_dev = emo.sel_nsga2(k_sel.to(dev), pool_dev, n, nd="auto",
+                            front_chunk=FRONT_CHUNK)
+    same_idx = torch.equal(idx_cpu, idx_dev.cpu())
+    w = pool_dev.masked_wvalues()
+    method = "grid" if w.shape[1] >= 3 else "staircase"
+    same_ranks = True
+    for stop in (None, n):
+        a = emo.nondominated_ranks(w, method=method, front_chunk=FRONT_CHUNK,
+                                   stop_at_k=stop)
+        b = emo.nondominated_ranks(w, method="peel", front_chunk=FRONT_CHUNK,
+                                   stop_at_k=stop)
+        same_ranks &= torch.equal(a[0], b[0]) and int(a[1]) == int(b[1])
+    phase(f"reference: bench_nsga2 {problem} generation card vs CPU",
+          card_line, pop=n, dim=pop.genome.shape[1], nobj=w.shape[1],
+          changed_genes=int((g_cpu != pop.genome).sum().item()),
+          offspring_bitwise=same_off, selection_equal=same_idx,
+          method=method, ranks_equal_peel=same_ranks)
+    if not (same_off and same_idx and same_ranks):
+        fail(f"bench_nsga2 {problem} generation on the card differs: "
+             f"offspring {same_off}, selection {same_idx}, {method} ranks "
+             f"against the peel {same_ranks}")
+
+
+def _timed_pairs(run, n: int, pairs: int):
+    """``pairs`` (N, 2N) timings of ``run(ngen) -> seconds`` in
+    alternating order: the median marginal seconds per generation, the
+    sorted marginals and the pairs."""
+    out = []
+    for i in range(pairs):
+        if i % 2:
+            b, a = run(2 * n), run(n)
+        else:
+            a, b = run(n), run(2 * n)
+        out.append((a, b))
+    marginals = sorted((b - a) / n for a, b in out)
+    return marginals[len(marginals) // 2], marginals, out
+
+
+def front_widths(fitness, n_select: int):
+    """Widths of the fronts that ``sel_nsga2(nd="auto")`` peels to rank
+    ``n_select`` points."""
+    import torch
+    from deap_tpu_torch.ops import emo
+    ranks, nf = emo.nondominated_ranks(
+        fitness.masked_wvalues(), method="auto", front_chunk=FRONT_CHUNK,
+        stop_at_k=n_select)
+    return torch.bincount(ranks.long(), minlength=int(nf))[:int(nf)].tolist()
+
+
+def bench_nsga2_main_path_a(kernels, card_line, key):
+    """Configuration A at full width: the published generation N and 2N
+    times in BN_PAIRS pairs, then ``toolbox.hypervolume`` of the final
+    population.  Returns the launches of the counted run (2N generations
+    and the hypervolume), the final population and the toolbox."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.ops import hv as host_hv, hypervolume as H
+    dev = torch.device("cuda")
+    tb = bench_nsga2_toolbox("dtlz2")
+    ref = HV_REF["dtlz2"]
+    k_init, k_run = random.split(key)
+    pop0 = bench_nsga2_initial(tb, k_init, "dtlz2", BN_POP)
+    hv0 = tb.hypervolume(-pop0.fitness.wvalues, ref)
+    d0 = front_distance(pop0.fitness.values)
+    state = {}
+
+    def run(ngen):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        k, pop = k_run, pop0
+        for _ in range(ngen):
+            k, pop = bench_nsga2_generation(tb, k, pop)
+        torch.cuda.synchronize()
+        state[ngen] = pop
+        return time.perf_counter() - t
+
+    run(1)                                     # warm the allocator
+    # the counted run: 2N generations, then the hypervolume of what they
+    # leave, through the toolbox's default slot
+    kernels.reset_launches()
+    t2n = run(2 * BN_NGEN)
+    pop2 = state[2 * BN_NGEN]
+    t = time.perf_counter()
+    hv2 = tb.hypervolume(-pop2.fitness.wvalues, ref)
+    hv_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    per_gen, marginals, pairs = _timed_pairs(run, BN_NGEN, BN_PAIRS)
+    # untimed replay: the widths of the fronts each generation peels
+    widths, k, pop = [], k_run, pop0
+
+    def select(k_sel, fitness, n, **kw):
+        from deap_tpu_torch.ops import emo
+        widths.append(front_widths(fitness, n))
+        return emo.sel_nsga2(k_sel, fitness, n, **kw)
+
+    for _ in range(2 * BN_NGEN):
+        k, pop = bench_nsga2_generation(tb, k, pop, select=select)
+    if not torch.equal(pop.genome, pop2.genome):
+        fail("the untimed replay of path A left another population than "
+             "the timed run")
+    fat = [sum(w >= 4 * FRONT_CHUNK for w in ws) for ws in widths]
+    # the value: against the plain float64 sweep on the card, and on a
+    # subsample against the host tier
+    pts = (-pop2.fitness.wvalues).double()
+    plain = float(H.hypervolume_3d(pts, ref))
+    sub = pts[::BN_POP // HV_SUBSAMPLE][:HV_SUBSAMPLE]
+    sub_card = tb.hypervolume(sub, ref)
+    sub_host = host_hv.hypervolume(sub, ref)
+    d2 = front_distance(pop2.fitness.values)
+    final = pop2.fitness.values
+    ok_shape = (tuple(pop2.genome.shape) == (BN_POP, 12)
+                and tuple(final.shape) == (BN_POP, 3)
+                and bool(torch.isfinite(pop2.genome).all())
+                and bool(torch.isfinite(final).all())
+                and bool(pop2.fitness.valid.all())
+                and bool(((pop2.genome >= 0) & (pop2.genome <= 1)).all()))
+    rel_plain = abs(hv2 - plain) / abs(plain)
+    phase("main path A: bench_nsga2 dtlz2 (SBX, polynomial, grid ranks)",
+          card_line, pop=BN_POP, dim=12, nobj=3,
+          ngen=[BN_NGEN, 2 * BN_NGEN], seconds=[list(p) for p in pairs],
+          counted_run_seconds=t2n, marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
+          linearity=[b / a for a, b in pairs], launches=launches,
+          launches_per_gen={k: v / (2 * BN_NGEN) for k, v in launches.items()
+                            if k != "hv3d_sweep"},
+          fronts_per_gen=[len(ws) for ws in widths], fat_fronts_per_gen=fat,
+          widest_front_per_gen=[max(ws) for ws in widths],
+          distance_start=d0, distance_end=d2, hv_ref=list(ref),
+          hypervolume_start=hv0, hypervolume_end=hv2,
+          hypervolume_wall_ms=hv_ms, hypervolume_plain_float64=plain,
+          hypervolume_rel_gap_to_plain=rel_plain,
+          subsample=HV_SUBSAMPLE, subsample_card=sub_card,
+          subsample_host=sub_host, host_tier=host_hv.host_tier(),
+          subsample_abs_gap=abs(sub_card - sub_host),
+          finite_and_shaped=ok_shape)
+    if launches["hv3d_sweep"] != 1:
+        fail(f"K5 ran {launches['hv3d_sweep']} times for one "
+             "toolbox.hypervolume of path A's population")
+    if launches["rows_dominate_counts"] < 1:
+        fail("K4 never ran in path A's grid peel")
+    if rel_plain > HV_RTOL["float64"]:
+        fail(f"path A's hypervolume {hv2} is {rel_plain} (relative) from "
+             f"the plain float64 sweep's {plain}")
+    if abs(sub_card - sub_host) > 1e-12 * max(1.0, abs(sub_host)):
+        fail(f"hypervolume of the {HV_SUBSAMPLE}-point subsample: card "
+             f"{sub_card}, host tier ({host_hv.host_tier()}) {sub_host}")
+    if not d2 < d0:
+        fail(f"DTLZ2 distance did not fall on path A: {d0} -> {d2}")
+    if not hv2 > hv0:
+        fail(f"the hypervolume did not rise on path A: {hv0} -> {hv2}")
+    if not ok_shape:
+        fail("path A's final population is not finite, valid, in bounds "
+             "and shaped")
+    return launches, pop2, tb
+
+
+def k5_bound(n: int, dtype: str):
+    """K5's least time: the four arrays read and one partial per 128
+    prefixes written once; n * n pair steps of an integer compare, a
+    minimum (predicated on the compare, which takes the select's place),
+    a subtract, a maximum and a multiply-add.  In float32 the compare,
+    the minimum and the maximum run at the compare rate and the other
+    two at the float32 rate; in float64 the four floating instructions
+    run at the float64 rate."""
+    elt = 4 if dtype == "float32" else 8
+    n_bytes = (3 * elt + 4) * n + elt * -(-n // 128)
+    pairs = float(n) * n
+    if dtype == "float32":
+        return bound_ms(n_bytes, (3 * pairs, 2 * pairs))
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(pairs / INT32_INSTR_PER_S, 4 * pairs / FP64_INSTR_PER_S,
+                5 * pairs / ISSUE_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k5_check(kernels, card_line, label: str, points, ref) -> dict:
+    """K5 against the plain sweep on one point set, in float32 and
+    float64: the total and the slab partials (blocks of 128 prefixes)
+    within HV_RTOL of the plain version of the same dtype, two launches
+    bitwise equal, and both held against the plain float64 value as the
+    truth; kernel, entry (sorts included) and plain times."""
+    import torch
+    from deap_tpu_torch.ops import hypervolume as H
+    n = points.shape[0]
+    out = {}
+    truth = None
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        pts = points.to(dtype)
+        before = kernels.LAUNCHES["hv3d_sweep"]
+        clipped, r = H._as_points(pts, ref)
+        ref_y = float(torch.tensor(ref, dtype=dtype)[1])
+        part_k = H._hv3d_cuda_partials(clipped, r, ref_y, 128)
+        part_k2 = H._hv3d_cuda_partials(clipped, r, ref_y, 128)
+        part_p = H._slab_volumes(pts, ref, 128)
+        total_k = float(H.hypervolume_3d_cuda(pts, ref))
+        total_p = float(H.hypervolume_3d(pts, ref))
+        torch.cuda.synchronize()
+        if truth is None:
+            truth = total_p                     # the float64 plain value
+        repeat = torch.equal(part_k.view(torch.uint8).reshape(-1),
+                             part_k2.view(torch.uint8).reshape(-1))
+        scale = max(abs(total_p), 1e-300)
+        rel = abs(total_k - total_p) / scale
+        rel_parts = float((part_k.double() - part_p.double()).abs().max()
+                          .item()) / scale
+        _, ys, zr, dz, width = H._hv3d_prep(clipped, r)
+        ys, zr, width, dz = (t.contiguous() for t in (ys, zr, width, dz))
+        ms = cuda_ms(lambda: kernels.launch_hv3d_sweep(
+            ys, zr, width, dz, ref_y, threads=128), reps=5, warm=1)
+        entry_ms = cuda_ms(lambda: H.hypervolume_3d_cuda(pts, ref), reps=3,
+                           warm=1)
+        plain_ms = cuda_ms(lambda: H.hypervolume_3d(pts, ref), reps=1,
+                           warm=0)
+        b, by = k5_bound(n, name)
+        phase(f"K5 hv3d_sweep vs plain: {label}", card_line, n=n,
+              dtype=name, ref=list(ref), kernel=total_k, plain=total_p,
+              rel_gap=rel, rel_gap_slab_partials=rel_parts,
+              rtol=HV_RTOL[name], bitwise_repeatable=repeat,
+              rel_gap_kernel_to_float64_plain=abs(total_k - truth)
+              / max(abs(truth), 1e-300),
+              rel_gap_plain_to_float64_plain=abs(total_p - truth)
+              / max(abs(truth), 1e-300),
+              max_abs_err=abs(total_k - total_p), ms=ms, entry_ms=entry_ms,
+              plain_ms=plain_ms, bound_ms=b, bound_by=by,
+              launches=kernels.LAUNCHES["hv3d_sweep"] - before)
+        if not repeat:
+            fail(f"K5 {name} on {label}: two launches differ")
+        if max(rel, rel_parts) > HV_RTOL[name]:
+            fail(f"K5 {name} on {label}: total {rel}, slab partials "
+                 f"{rel_parts} (relative to the total) from the plain "
+                 f"version, bound {HV_RTOL[name]}")
+        out[name] = {"max_abs_err": abs(total_k - total_p), "ms": ms,
+                     "entry_ms": entry_ms, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by}
+    return out
+
+
+def bench_nsga2_main_path_b(kernels, card_line, key) -> dict:
+    """Configuration B at full width: ZDT1, two objectives, staircase
+    ranks, the 2-D hypervolume at ref (11, 11) before and after."""
+    import torch
+    from deap_tpu_torch import random
+    tb = bench_nsga2_toolbox("zdt1")
+    ref = HV_REF["zdt1"]
+    k_init, k_run = random.split(key)
+    pop0 = bench_nsga2_initial(tb, k_init, "zdt1", BN_POP)
+    hv0 = tb.hypervolume(-pop0.fitness.wvalues, ref)
+
+    def run(ngen, select=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        k, pop = k_run, pop0
+        for _ in range(ngen):
+            k, pop = bench_nsga2_generation(tb, k, pop, select=select)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, pop
+
+    run(1)                                     # warm the allocator
+    kernels.reset_launches()
+    secs, pop = run(BN_B_GENS)
+    hv1 = tb.hypervolume(-pop.fitness.wvalues, ref)
+    launches = dict(kernels.LAUNCHES)
+    widths = []
+
+    def select(k_sel, fitness, n, **kw):
+        from deap_tpu_torch.ops import emo
+        widths.append(front_widths(fitness, n))
+        return emo.sel_nsga2(k_sel, fitness, n, **kw)
+
+    _, replay = run(BN_B_GENS, select=select)
+    ok = (torch.equal(replay.genome, pop.genome)
+          and tuple(pop.genome.shape) == (BN_POP, 30)
+          and bool(torch.isfinite(pop.fitness.values).all())
+          and bool(pop.fitness.valid.all())
+          and bool(((pop.genome >= 0) & (pop.genome <= 1)).all()))
+    phase("main path B: bench_nsga2 zdt1 (SBX, polynomial, staircase ranks)",
+          card_line, pop=BN_POP, dim=30, nobj=2, gens=BN_B_GENS,
+          ms_per_gen=secs / BN_B_GENS * 1e3, launches=launches,
+          fronts_per_gen=[len(ws) for ws in widths],
+          widest_front_per_gen=[max(ws) for ws in widths],
+          best_f1=float(pop.fitness.values[:, 0].min().item()),
+          hv_ref=list(ref), hypervolume_start=hv0, hypervolume_end=hv1,
+          replay_equal_finite_valid_in_bounds=ok)
+    if not hv1 > hv0:
+        fail(f"the 2-D hypervolume did not rise on path B: {hv0} -> {hv1}")
+    if not ok:
+        fail("path B's population is not repeatable, finite, valid and in "
+             "bounds")
+    return launches
+
+
+def profile_bench_nsga2(key, pop, tb, card_line, gens=2) -> None:
+    """``--profile`` for path A: the wall cost of each stage of a
+    published generation called alone (variation with its seven powers
+    a gene, evaluation, the grid's views and initial counts, the hybrid
+    peel with its rounds by branch, crowding, K5), then
+    ``torch.profiler`` over ``gens`` generations."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import evaluate_population, vary_genome
+    from deap_tpu_torch.base import lexsort
+    from deap_tpu_torch.ops import emo, hypervolume as H
+    n = pop.size
+    k_var, k_sel = random.split(key, 3)[1:]
+    genome, _ = vary_genome(k_var, pop.genome, tb, BN_CXPB, BN_MUTPB,
+                            pairing="halves")
+    off = base.Population(genome, base.Fitness.empty(
+        n, pop.fitness.weights, device=genome.device))
+    pool = pop.concat(evaluate_population(tb, off)[0])
+    w, values = emo._wv_values(pool.fitness)
+    ones = torch.ones(2 * n, dtype=torch.bool, device=w.device)
+    views = emo._grid_views(w)
+    ranks, nf = emo._grid_recount_ranks(w, n, FRONT_CHUNK)
+    widths = torch.bincount(ranks.long(), minlength=int(nf))[:int(nf)]
+    fat = int((widths >= 4 * FRONT_CHUNK).sum().item())
+    dist = emo.assign_crowding_dist(values, ranks)
+    pts = -pop.fitness.wvalues
+    ga, gb = pop.genome[:n // 2], pop.genome[n // 2:]
+    stages = {
+        "split key (3)": lambda: random.split(key, 3),
+        "vary_genome (SBX + polynomial, 7 pows a gene)": lambda: vary_genome(
+            k_var, pop.genome, tb, BN_CXPB, BN_MUTPB, pairing="halves"),
+        "  SBX alone (n/2 pairs, 3 pows a gene)": lambda: tb.mate(
+            k_var, ga, gb),
+        "  polynomial mutation alone (n rows, 4 pows)": lambda: tb.mutate(
+            k_var, pop.genome),
+        "evaluate (vmap dtlz2)": lambda: evaluate_population(tb, off),
+        "grid views (lexsorts, buckets, slab views)":
+            lambda: emo._grid_views(w),
+        "initial grid counts (histogram, bands, duplicates)":
+            lambda: emo._grid_counts_from_views(views, ones),
+        "whole grid ranks (views, counts, hybrid peel)":
+            lambda: emo._grid_recount_ranks(w, n, FRONT_CHUNK),
+        "crowding distance": lambda: emo.assign_crowding_dist(values, ranks),
+        "final sort": lambda: lexsort([-dist, ranks]),
+        "whole sel_nsga2(nd=auto)": lambda: emo.sel_nsga2(
+            k_sel, pool.fitness, n, nd="auto", front_chunk=FRONT_CHUNK),
+        "toolbox.hypervolume (sorts + K5, float64)": lambda: tb.hypervolume(
+            pts, HV_REF["dtlz2"]),
+        "  hypervolume_3d_cuda float32": lambda: H.hypervolume_3d_cuda(
+            pts, HV_REF["dtlz2"]),
+    }
+    phase("profile: bench_nsga2 A stage wall ms (synchronized, alone)",
+          card_line, stages={k: _wall_ms(f, reps=3) for k, f in stages.items()},
+          peel_rounds=int(nf), fat_rounds=fat, thin_rounds=int(nf) - fat,
+          thin_k4_chunks=int(((widths[widths < 4 * FRONT_CHUNK]
+                               + FRONT_CHUNK - 1) // FRONT_CHUNK).sum()))
+
+    def run():
+        k, p = key, pop
+        for _ in range(gens):
+            k, p = bench_nsga2_generation(tb, k, p)
+
+    phase("profile: bench_nsga2 A, per generation", card_line,
+          **_profile_window(run, gens))
 
 
 def main() -> int:
@@ -1398,7 +1833,28 @@ def main() -> int:
         profile_gp(k_gp, gp_pop2, gp_tb, card_line)
     k6 = gp_k6_phase(kernels, card_line, k_gp_k6, gp_pop0, gp_pop2, dev)
 
-    # ---- 14. the kernels line and the result -------------------------------
+    # ---- 14.-17. bench_nsga2.py as published, and K5 ----------------------
+    del gp_pop0, gp_pop2
+    torch.cuda.empty_cache()
+    k_bn_ra, k_bn_rb, k_bn_a, k_bn_b, k_hv = random.split(
+        random.fold_in(key, 4), 5)
+    bench_nsga2_reference_phase(card_line, k_bn_ra, "dtlz2")
+    bench_nsga2_reference_phase(card_line, k_bn_rb, "zdt1")
+    launches_bn_a, bn_pop, bn_tb = bench_nsga2_main_path_a(kernels, card_line,
+                                                           k_bn_a)
+    if "--profile" in sys.argv[1:]:
+        profile_bench_nsga2(k_bn_a, bn_pop, bn_tb, card_line)
+    k5 = {"uniform": k5_check(
+              kernels, card_line, f"{HV_UNIFORM_N} uniform points",
+              random.uniform(k_hv, (HV_UNIFORM_N, 3)), (1.0, 1.0, 1.0)),
+          "path A": k5_check(
+              kernels, card_line, "path A's final population",
+              -bn_pop.fitness.wvalues, HV_REF["dtlz2"])}
+    del bn_pop
+    torch.cuda.empty_cache()
+    launches_bn_b = bench_nsga2_main_path_b(kernels, card_line, k_bn_b)
+
+    # ---- 18. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -1440,7 +1896,28 @@ def main() -> int:
         "launches": launches_mo["rows_dominate_counts"],
         "max_abs_err": max(v[0] for v in k4.values()),
         "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
-        "library_ms": None})
+        "library_ms": None,
+        "launches_by_path": {
+            "NSGA-II ea_mu_plus_lambda": launches_mo["rows_dominate_counts"],
+            "NSGA-II ea_step head": launches_head["rows_dominate_counts"],
+            "bench_nsga2 A (grid peel)":
+                launches_bn_a["rows_dominate_counts"],
+            "bench_nsga2 B": launches_bn_b["rows_dominate_counts"]}})
+    # K5 in float64 (the toolbox slot's route) on path A's final
+    # population; its other inputs and float32 are in the K5 phases above
+    a64 = k5["path A"]["float64"]
+    rows.append({
+        "name": "hv3d_sweep", "route": "cuda",
+        "source": "deap_tpu_torch/kernels/hypervolume.cu",
+        "replaces": "deap_tpu/ops/hypervolume.py:161",
+        "launches": launches_bn_a["hv3d_sweep"],
+        "max_abs_err": max(v["max_abs_err"] for c in k5.values()
+                           for v in c.values()),
+        "ms": a64["ms"], "plain_ms": a64["plain_ms"],
+        "bound_ms": a64["bound_ms"], "bound_by": a64["bound_by"],
+        "library_ms": None,
+        "ms_by_input": {f"{c} {d}": v["ms"] for c, cs in k5.items()
+                        for d, v in cs.items()}})
     # K6 on the population after 2N generations of the main path (its
     # other inputs are in the K6 phases above)
     ev = k6["evolved"]

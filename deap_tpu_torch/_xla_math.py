@@ -1,5 +1,6 @@
 """XLA's own f32 expansions of ``log``, ``log1p``, ``exp``, ``expm1`` and
-``erf_inv``, written with correctly rounded float32 operations only.
+``erf_inv``, written with correctly rounded float32 operations only, and
+the C library's ``sinf``/``cosf``/``powf`` that XLA's CPU backend calls.
 
 The JAX package's numbers come from XLA's CPU emitter: ``log`` and
 ``exp`` are the Cephes polynomials (as in Eigen's ``plog``/``pexp``),
@@ -29,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fma", "sqrt", "log", "log1p", "exp", "expm1", "erf_inv"]
+__all__ = ["fma", "fma64", "sqrt", "log", "log1p", "exp", "expm1", "erf_inv",
+           "sin", "cos", "pow"]
 
 _INF = float("inf")
 _FLT_MIN = 1.1754943508222875e-38           # smallest normal float32
@@ -298,3 +300,161 @@ def sin(y: torch.Tensor) -> torch.Tensor:
 def cos(y: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 cosine (glibc's ``cosf``), through float64."""
     return _sincos(y, True)
+
+
+# XLA's CPU backend lowers float32 ``power`` to ``llvm.pow.f32``, which
+# becomes a call of the C library's ``powf``.  glibc's (2.28 and later)
+# is ARM's optimized routine: ``exp2(y * log2(x))`` in double precision
+# with a 16-entry ``log2`` table and a 32-entry ``exp2`` table, rounded to
+# float32 once; on x86-64 with FMA its multiply-adds are fused.  XLA runs
+# it with subnormals flushed: a subnormal base reads as the bit pattern 0
+# past the zero test (so the subnormal rescale yields exponent -23 of
+# nothing), and a subnormal result is a signed zero.
+_POWF_LOG2 = tuple((float.fromhex(a), float.fromhex(b)) for a, b in (
+    ("0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2"),
+    ("0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2"),
+    ("0x1.49539f0f010b0p+0", "-0x1.7418b0a1fb77bp-2"),
+    ("0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2"),
+    ("0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2"),
+    ("0x1.25e227b0b8ea0p+0", "-0x1.97c1d1b3b7af0p-3"),
+    ("0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3"),
+    ("0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4"),
+    ("0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5"),
+    ("0x1.0000000000000p+0", "0x0.0p+0"),
+    ("0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4"),
+    ("0x1.ca4b31f026aa0p-1", "0x1.476a9543891bap-3"),
+    ("0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3"),
+    ("0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2"),
+    ("0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2"),
+    ("0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2")))
+_POWF_LOG2_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0"))
+# bits of 2^(i/32) less i << 47
+_EXP2F_TAB = (
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f,
+    0x3fef9301d0125b51, 0x3fef72b83c7d517b, 0x3fef54873168b9aa,
+    0x3fef387a6e756238, 0x3fef1e9df51fdee1, 0x3fef06fe0a31b715,
+    0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429,
+    0x3feea47eb03a5585, 0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74,
+    0x3feea11473eb0187, 0x3feea589994cce13, 0x3feeace5422aa0db,
+    0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c,
+    0x3fef3720dcef9069, 0x3fef5818dcfba487, 0x3fef7c97337b9b5f,
+    0x3fefa4afa2a490da, 0x3fefd0765b6e4540)
+_EXP2F_SHIFT = float.fromhex("0x1.8p+47")            # 0x1.8p52 / 32
+_EXP2F_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+_POWF_OFLOW = float.fromhex("0x1.fffffffd1d571p+6")
+_VELTKAMP = 134217729.0                              # 2^27 + 1
+_F32_TINY = float.fromhex("0x1p-149")
+
+
+def _two_sum(a, b):
+    s = a + b
+    bv = s - a
+    return s, (a - (s - bv)) + (b - bv)
+
+
+def _veltkamp(a):
+    c = a * _VELTKAMP
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _round_to_odd_sum(a, b):
+    s, err = _two_sum(a, b)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+
+
+def fma64(a: torch.Tensor, b, c) -> torch.Tensor:
+    """Correctly rounded float64 ``a * b + c`` (Boldo and Melquiond's
+    emulation: Dekker's exact product, TwoSum, one sum rounded to odd).
+    ``a`` is a float64 tensor, ``b`` and ``c`` float64 tensors or Python
+    floats; no operand may be so large or small that the exact product's
+    halves overflow or underflow."""
+    b, c = (v if torch.is_tensor(v)
+            else torch.tensor(v, dtype=torch.float64, device=a.device)
+            for v in (b, c))
+    uh = a * b
+    ah, al = _veltkamp(a)
+    bh, bl = _veltkamp(b)
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, uh)
+    return th + _round_to_odd_sum(tl, ul)
+
+
+def _checkint(iy: int) -> int:
+    """glibc's ``checkint``: 0 not an integer, 1 odd, 2 even."""
+    e = (iy >> 23) & 0xFF
+    if e < 0x7F:
+        return 0
+    if e > 0x7F + 23:
+        return 2
+    if iy & ((1 << (0x7F + 23 - e)) - 1):
+        return 0
+    return 1 if iy & (1 << (0x7F + 23 - e)) else 2
+
+
+def pow(x: torch.Tensor, y: float) -> torch.Tensor:
+    """XLA CPU's float32 ``x ** y`` for a scalar exponent ``y`` (finite,
+    not zero): glibc's ``powf`` with fused multiply-adds, subnormal bases
+    and results flushed as XLA's threads flush them.  Equal to
+    ``jax.jit(lambda v: v ** y)`` bit for bit on every float32 base
+    (pinned by ``tests/test_torch_sbx_poly.py``)."""
+    y = float(np.float32(y))
+    if not np.isfinite(y) or y in (0.0, 1.0, 2.0, 3.0, 0.5, -1.0):
+        # XLA's simplifier turns 1, 2, 3, 0.5 and -1 into products, a
+        # square root and a reciprocal before they reach powf
+        raise ValueError(f"pow is ported for the exponents that reach "
+                         f"powf, not {y}")
+    yint = _checkint(int(np.float32(y).view(np.uint32)))
+    x = x.float()
+    ix = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    negative = (ix >> 31) != 0
+    ax = ix & 0x7FFFFFFF
+    # a subnormal base is rescaled by 2^23 in float32, which reads 0 with
+    # subnormals flushed: bits 0 less 23 << 23
+    ax = torch.where(ax < 0x00800000, -(23 << 23), ax)
+    tmp = (ax - 0x3F330000) & 0xFFFFFFFF
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    iz = (ax - top) & 0xFFFFFFFF
+    k = torch.where(top >= (1 << 31), top - (1 << 32), top) >> 23
+    tab = torch.tensor(_POWF_LOG2, dtype=torch.float64, device=x.device)
+    z = iz.to(torch.int32).view(torch.float32).double()
+    r = fma64(z, tab[i, 0], -1.0)
+    y0 = tab[i, 1] + k.double()
+    a = _POWF_LOG2_POLY
+    r2 = r * r
+    q = fma64(r2, fma64(r, a[2], a[3]), fma64(r, a[4], y0))
+    logx = fma64(fma64(r, a[0], a[1]), r2 * r2, q)
+    ylogx = logx * y
+    # exp2: ylogx = k/32 + r, 2^(k/32) from the table
+    kd = ylogx + _EXP2F_SHIFT
+    ki = kd.view(torch.int64)
+    r = ylogx - (kd - _EXP2F_SHIFT)
+    tab2 = torch.tensor([t - (1 << 64) if t >> 63 else t for t in _EXP2F_TAB],
+                        dtype=torch.int64, device=x.device)
+    signed = negative if yint == 1 else torch.zeros_like(negative)
+    s = (tab2[ki & 31] + ((ki + torch.where(signed, 0x10000, 0)) << 47)
+         ).view(torch.float64)
+    c = _EXP2F_POLY
+    p = fma64(fma64(r, c[0], c[1]), r * r, fma64(r, c[2], 1.0))
+    out = (p * s).float()
+    sign = torch.where(signed, -1.0, 1.0).to(torch.float32)
+    out = torch.where(ylogx > _POWF_OFLOW, sign * _INF, out)
+    out = torch.where(ylogx < -149.0, sign * _F32_TINY, out)
+    out = torch.where(ylogx <= -150.0, sign * 0.0, out)
+    if yint == 0:
+        out = torch.where(negative, float("nan"), out)
+    # zero, infinite and NaN bases
+    x2 = x * x
+    if yint == 1:
+        x2 = torch.where(negative, -x2, x2)
+    special = ((ix & 0x7FFFFFFF) == 0) | ((ix & 0x7FFFFFFF) >= 0x7F800000)
+    out = torch.where(special, 1.0 / x2 if y < 0 else x2, out)
+    return torch.where(out.abs() < _FLT_MIN, sign * 0.0, out)

@@ -26,11 +26,21 @@ class Toolbox:
     ``register`` freezes arguments into a ``functools.partial`` that keeps
     the function's ``__dict__`` (so batched forms stay reachable); the
     ``clone`` and ``map`` slots default to identity and builtin ``map``.
-    The JAX package's ``hypervolume`` slot is not ported yet."""
+
+    One slot goes beyond the reference, as in the JAX package:
+    ``hypervolume(pointset, ref, block=128, device=None)`` defaults to
+    the per-dimension router of
+    :func:`deap_tpu_torch.ops.hypervolume.hypervolume` — two objectives
+    on the host staircase, three through the blocked sweep in float64
+    on ``device`` (the CUDA kernel on the card, which is the default and
+    raises without one; the plain sweep for ``device="cpu"``), four or
+    more on the host WFG."""
 
     def __init__(self):
         self.register("clone", lambda x: x)
         self.register("map", map)
+        from .ops.hypervolume import hypervolume
+        self.register("hypervolume", hypervolume)
 
     def register(self, alias: str, function: Callable, *args, **kargs) -> None:
         pfunc = partial(function, *args, **kargs)

@@ -9,7 +9,9 @@ import math
 
 import torch
 
-__all__ = ["sphere", "rastrigin", "dtlz2"]
+from .._xla_math import sqrt
+
+__all__ = ["sphere", "rastrigin", "zdt1", "dtlz2"]
 
 
 def sphere(individual):
@@ -22,6 +24,16 @@ def rastrigin(individual):
     n = individual.shape[-1]
     return 10.0 * n + torch.sum(individual ** 2 - 10.0 * torch.cos(
         2.0 * math.pi * individual)),
+
+
+def zdt1(individual):
+    """ZDT1 — two objectives, the NSGA-II benchmark's default problem.
+    The sum runs in torch's order, not XLA's (the tests state rtol
+    1e-6)."""
+    n = individual.shape[-1]
+    g = 1.0 + 9.0 * torch.sum(individual[1:]) / (n - 1)
+    f1 = individual[0]
+    return f1, g * (1.0 - sqrt(f1 / g))
 
 
 def _dtlz_spherical(individual, obj, g, transform=lambda x: x):

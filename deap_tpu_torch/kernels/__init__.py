@@ -1,7 +1,7 @@
 """Launch wrappers of the port's hand-written CUDA kernels.
 
-The library is built from ``megakernel.cu``, ``dominance.cu`` and
-``gp_interp.cu`` at first use
+The library is built from ``megakernel.cu``, ``dominance.cu``,
+``gp_interp.cu`` and ``hypervolume.cu`` at first use
 (:mod:`deap_tpu_torch.kernels.build`) and bound with ``ctypes``.  A
 launcher checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches on PyTorch's current stream, and
@@ -10,7 +10,8 @@ Only then does it add one to its entry of :data:`LAUNCHES` — the count a
 run reads to show that its path really went through the kernel.  Nothing
 here falls back to a plain version: that choice is made from the
 tensor's device by the callers in ``deap_tpu_torch/ops/generation.py``,
-``deap_tpu_torch/ops/dominance.py`` and ``deap_tpu_torch/gp/interp.py``.
+``deap_tpu_torch/ops/dominance.py``, ``deap_tpu_torch/gp/interp.py`` and
+``deap_tpu_torch/ops/hypervolume.py``.
 """
 
 from __future__ import annotations
@@ -23,12 +24,13 @@ import torch
 
 __all__ = ["LAUNCHES", "KernelLaunchError", "reset_launches", "load",
            "launch_vary", "launch_gather_vary", "launch_var_or",
-           "launch_rows_dominate_counts", "launch_gp_interp"]
+           "launch_rows_dominate_counts", "launch_gp_interp",
+           "launch_hv3d_sweep"]
 
 #: launches of each kernel since the last :func:`reset_launches`
 LAUNCHES = {"megakernel_vary": 0, "megakernel_gather_vary": 0,
             "megakernel_var_or": 0, "rows_dominate_counts": 0,
-            "gp_interp": 0}
+            "gp_interp": 0, "hv3d_sweep": 0}
 _DTYPES = {"float32": (0, torch.float32), "bfloat16": (1, torch.bfloat16),
            "int8": (2, torch.int8)}
 _lib = None
@@ -65,6 +67,9 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.rows_dominate_counts.restype = i
             lib.gp_interp.argtypes = [p, p, p, p, p, p, i, p, ll, i, i, i, p]
             lib.gp_interp.restype = i
+            lib.hv3d_sweep.argtypes = [p, p, p, p, ctypes.c_double, p, i, i,
+                                       i, p]
+            lib.hv3d_sweep.restype = i
             lib.megakernel_error_string.argtypes = [i]
             lib.megakernel_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -213,4 +218,35 @@ def launch_gp_interp(codes, consts, lengths, X, op_kind,
                            out.data_ptr(), pop, cap, n_args, n_points, stream)
     _raise_on(lib, rc, "gp_interp")
     LAUNCHES["gp_interp"] += 1
+    return out
+
+
+def launch_hv3d_sweep(ys, zr, width, dz, ref_y: float,
+                      threads: int = 128) -> torch.Tensor:
+    """K5 on the card: the blocked staircase sweep over the x-sorted view
+    ``ys``/``zr``/``width`` and the strip depths ``dz`` (all ``(n,)``;
+    float32 or float64, ``zr`` int32).  Returns one partial volume per
+    block of ``threads`` prefixes, ``(ceil(n / threads),)``; their sum
+    is the hypervolume."""
+    n = ys.shape[0]
+    if ys.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"ys dtype {ys.dtype} is not float32 or float64")
+    if not 0 < n < (1 << 31) - 1024:
+        raise ValueError(f"n = {n} out of range")
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"threads {threads} must be a multiple of 32 in "
+                         "[32, 1024]")
+    _check(ys, "ys", ys.dtype, (n,))
+    _check(zr, "zr", torch.int32, (n,))
+    _check(width, "width", ys.dtype, (n,))
+    _check(dz, "dz", ys.dtype, (n,))
+    out = torch.empty((-(-n // threads),), dtype=ys.dtype, device=ys.device)
+    lib = load()
+    stream = torch.cuda.current_stream(ys.device).cuda_stream
+    with torch.cuda.device(ys.device):
+        rc = lib.hv3d_sweep(ys.data_ptr(), zr.data_ptr(), width.data_ptr(),
+                            dz.data_ptr(), float(ref_y), out.data_ptr(), n,
+                            threads, int(ys.dtype == torch.float64), stream)
+    _raise_on(lib, rc, "hv3d_sweep")
+    LAUNCHES["hv3d_sweep"] += 1
     return out

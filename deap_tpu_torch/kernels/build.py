@@ -24,7 +24,7 @@ __all__ = ["KernelBuildError", "build", "digest", "SOURCES", "BUILD_DIR"]
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "megakernel.cu", _HERE / "dominance.cu",
-           _HERE / "gp_interp.cu")
+           _HERE / "gp_interp.cu", _HERE / "hypervolume.cu")
 BUILD_DIR = _HERE.parent / "_build"
 ARCH = "sm_90a"
 #: --fmad=false: no multiply-add contraction beyond the explicit

@@ -3,16 +3,24 @@
     python -m deap_tpu_torch.kernels.sass [--out DIR]
 
 Builds the kernel library (:mod:`deap_tpu_torch.kernels.build`), runs
-``cuobjdump -sass`` on it, takes K4 at m = 3 (the function whose mangled
-name holds :data:`KERNEL`), and finds its innermost loop that compares
-floats: the backward branch with the shortest address range holding
-``FSETP`` instructions.  Prints one JSON object: the loop's opcodes
-with their counts, the pairs it tests per iteration (its ``FSETP``
-count over the ``2m`` compares a dominance test needs) and each
-opcode's count per pair.  With ``--out`` the function's whole SASS,
-predicate guards included, is written there too.  Needs the CUDA
-toolkit (``nvcc`` and ``cuobjdump``), so it runs on the machine with
-the card.
+``cuobjdump -sass`` on it and, for every entry of :data:`KERNELS`, takes
+the function whose mangled name holds the entry's name and finds its
+inner loop by the entry's marker opcode:
+
+* K4 at m = 3: the backward branch with the shortest address range
+  holding ``FSETP``; it tests ``FSETP / 2m`` pairs per iteration (a
+  dominance test needs ``2m`` compares);
+* K5 in float32 and float64: among the innermost loops (backward
+  branches whose range holds no other backward branch) holding the
+  product of a pair step (``FMUL`` / ``DMUL``), the one holding the
+  most — the unrolled sweep over a tile, not its remainder loop; one
+  product is one pair step.
+
+Prints one JSON object per kernel, each on a line: the loop's opcodes
+with their counts, the pairs per iteration and each opcode's count per
+pair.  With ``--out`` each function's whole SASS, predicate guards
+included, is written there too.  Needs the CUDA toolkit (``nvcc`` and
+``cuobjdump``), so it runs on the machine with the card.
 """
 
 from __future__ import annotations
@@ -29,7 +37,12 @@ from .build import KernelBuildError, build, nvcc_path
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                     r"([A-Z][A-Z0-9_.]*)([^;]*);")
 _TARGET = re.compile(r"0x([0-9a-f]+)")
-KERNEL, NOBJ = "rows_dominate_counts_kernelILi3E", 3
+#: label -> (mangled-name part, marker opcode, markers per pair, rule)
+KERNELS = {
+    "K4": ("rows_dominate_counts_kernelILi3E", "FSETP", 6, "shortest"),
+    "K5_f32": ("hv3d_sweep_kernelIfE", "FMUL", 1, "most"),
+    "K5_f64": ("hv3d_sweep_kernelIdE", "DMUL", 1, "most"),
+}
 
 
 def functions(sass: str) -> dict:
@@ -49,55 +62,85 @@ def functions(sass: str) -> dict:
     return out
 
 
-def innermost_compare_loop(instrs):
-    """The instructions of the shortest backward-branch range that holds
-    an ``FSETP``, or ``None``."""
-    best = None
+def _loops(instrs, marker: str):
+    """``(markers, innermost, body)`` of every backward-branch range
+    holding an instruction whose opcode starts with ``marker``;
+    ``innermost`` says that the range holds no other backward branch."""
+    spans = []
     for addr, op, args, _ in instrs:
         t = _TARGET.search(args)
         lo = int(t.group(1), 16) if t is not None else addr + 1
-        if not op.startswith("BRA") or lo > addr:
-            continue
-        body = [i for i in instrs if lo <= i[0] <= addr]
-        if any(i[1].startswith("FSETP") for i in body) and (
-                best is None or len(body) < len(best)):
-            best = body
-    return best
+        if op.startswith("BRA") and lo <= addr:
+            spans.append((lo, addr))
+    out = []
+    for lo, hi in spans:
+        body = [i for i in instrs if lo <= i[0] <= hi]
+        hits = sum(i[1].startswith(marker) for i in body)
+        inner = not any(lo <= b <= hi for a, b in spans if (a, b) != (lo, hi))
+        if hits:
+            out.append((hits, inner, body))
+    return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", type=Path)
-    args = ap.parse_args(argv)
+def inner_loop(instrs, marker: str = "FSETP", rule: str = "shortest"):
+    """The instructions of the inner loop holding ``marker``, or
+    ``None``: the shortest such backward-branch range, or
+    (``rule="most"``) the innermost one with the most markers."""
+    loops = _loops(instrs, marker)
+    if not loops:
+        return None
+    if rule == "most":
+        loops = [l for l in loops if l[1]] or loops
+        top = max(l[0] for l in loops)
+        loops = [l for l in loops if l[0] == top]
+    return min((l[2] for l in loops), key=len)
+
+
+def report(label: str, sass_funcs: dict, out_dir=None) -> dict:
+    """The inner-loop instruction counts of one entry of
+    :data:`KERNELS`."""
+    kernel, marker, per_pair, rule = KERNELS[label]
+    funcs = {k: v for k, v in sass_funcs.items() if kernel in k}
+    if len(funcs) != 1:
+        raise SystemExit(f"{len(funcs)} functions match {kernel!r}: "
+                         f"{sorted(funcs)}")
+    (name, instrs), = funcs.items()
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"sass_{kernel}.txt").write_text("\n".join(
+            f"{a:06x}  {g:>5} {o} {r}" for a, o, r, g in instrs) + "\n")
+    loop = inner_loop(instrs, marker, rule)
+    if loop is None:
+        raise SystemExit(f"no loop with {marker} in {name}")
+    ops = Counter(i[1] for i in loop)
+    pairs = sum(c for o, c in ops.items() if o.startswith(marker)) / per_pair
+    return {
+        "kernel": label, "function": name, "instructions": len(instrs),
+        "loop": [hex(loop[0][0]), hex(loop[-1][0])],
+        "loop_instructions": len(loop), "opcodes": dict(ops.most_common()),
+        "pairs_per_iteration": pairs,
+        "per_pair": {o: c / pairs for o, c in ops.most_common()},
+        "per_pair_total": len(loop) / pairs}
+
+
+def disassemble() -> dict:
+    """Build the library and return :func:`functions` of its SASS."""
     lib = build()
     tool = Path(nvcc_path()).with_name("cuobjdump")
     proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True)
     if proc.returncode != 0:
         raise KernelBuildError(f"cuobjdump failed: {proc.stderr}")
-    funcs = {k: v for k, v in functions(proc.stdout).items()
-             if KERNEL in k}
-    if len(funcs) != 1:
-        raise SystemExit(f"{len(funcs)} functions match {KERNEL!r}: "
-                         f"{sorted(funcs)}")
-    (name, instrs), = funcs.items()
-    if args.out is not None:
-        args.out.mkdir(parents=True, exist_ok=True)
-        (args.out / f"sass_{KERNEL}.txt").write_text("\n".join(
-            f"{a:06x}  {g:>5} {o} {r}" for a, o, r, g in instrs) + "\n")
-    loop = innermost_compare_loop(instrs)
-    if loop is None:
-        raise SystemExit(f"no loop with FSETP in {name}")
-    ops = Counter(i[1] for i in loop)
-    fsetp = sum(c for o, c in ops.items() if o.startswith("FSETP"))
-    pairs = fsetp / (2 * NOBJ)
-    print(json.dumps({
-        "function": name, "instructions": len(instrs),
-        "loop": [hex(loop[0][0]), hex(loop[-1][0])],
-        "loop_instructions": len(loop), "opcodes": dict(ops.most_common()),
-        "pairs_per_iteration": pairs,
-        "per_pair": {o: c / pairs for o, c in ops.most_common()},
-        "per_pair_total": len(loop) / pairs}))
+    return functions(proc.stdout)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args(argv)
+    funcs = disassemble()
+    for label in KERNELS:
+        print(json.dumps(report(label, funcs, args.out)))
     return 0
 
 

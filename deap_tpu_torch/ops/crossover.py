@@ -7,9 +7,10 @@ from __future__ import annotations
 import torch
 
 from .. import random
+from .._xla_math import fma, pow as xla_pow
 from ._dispatch import batched_op
 
-__all__ = ["cx_two_point"]
+__all__ = ["cx_two_point", "cx_simulated_binary_bounded"]
 
 
 def _two_cut_points(key, size, low=1, shape=()):
@@ -43,3 +44,67 @@ def _cx_two_point_batched(key, A, B):
 
 
 batched_op(cx_two_point, _cx_two_point_batched)
+
+
+def _bounds(v, like):
+    """A scalar bound stays a Python float (float32 value, no device
+    copy); a per-gene sequence becomes a tensor beside ``like``."""
+    if isinstance(v, (int, float)):
+        return float(torch.tensor(v, dtype=like.dtype))
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+def cx_simulated_binary_bounded(key, ind1, ind2, eta, low, up):
+    """Bounded SBX as NSGA-II uses it: each gene is crossed with
+    probability 0.5 where the parents differ; the spread factor is
+    corrected for the bounds, the children are clipped and swapped at
+    random.  Shape-polymorphic: one key serves a ``(n, size)`` batch.
+
+    The float32 operations are the ones XLA's CPU backend runs when the
+    operator is jitted inside a generation (``vary_genome`` in a scanned
+    loop, the published path): ``x1 + x2 -/+ beta_q * diff`` is one
+    fused multiply-add, and the three powers of a gene go through
+    :func:`deap_tpu_torch._xla_math.pow`.  ``2 - rand * alpha`` is
+    rounded twice there, because the product also feeds the other
+    branch's power; jitted on its own, XLA splits the branches into two
+    fusions and contracts it, which moves 0.3% of the genes by one ulp
+    (pinned in ``tests/test_torch_sbx_poly.py``)."""
+    low, up = _bounds(low, ind1), _bounds(up, ind1)
+    k_apply, k_rand, k_swap = random.split(key, 3)
+    apply_ = random.bernoulli(k_apply, 0.5, ind1.shape) & (
+        (ind1 - ind2).abs() > 1e-14)
+    x1 = torch.minimum(ind1, ind2)
+    x2 = torch.maximum(ind1, ind2)
+    rand = random.uniform(k_rand, ind1.shape)
+    gap = x2 - x1
+    diff = torch.where(gap > 1e-14, gap, 1.0)         # guarded denominator
+    total = x1 + x2
+    inv_pow = 1.0 / (eta + 1.0)
+
+    def beta_q(beta):
+        alpha = 2.0 - xla_pow(beta, -(eta + 1.0))
+        return torch.where(
+            rand <= 1.0 / alpha,
+            xla_pow(rand * alpha, inv_pow),
+            xla_pow(1.0 / (2.0 - rand * alpha), inv_pow))
+
+    beta1 = 1.0 + (2.0 * (x1 - low) / diff)
+    c1 = 0.5 * fma(-beta_q(beta1), diff, total)
+    beta2 = 1.0 + (2.0 * (up - x2) / diff)
+    c2 = 0.5 * fma(beta_q(beta2), diff, total)
+    c1 = _clip(c1, low, up)
+    c2 = _clip(c2, low, up)
+    swap = random.bernoulli(k_swap, 0.5, ind1.shape)
+    o1 = torch.where(swap, c2, c1)
+    o2 = torch.where(swap, c1, c2)
+    return torch.where(apply_, o1, ind1), torch.where(apply_, o2, ind2)
+
+
+def _clip(x, low, up):
+    if torch.is_tensor(low) or torch.is_tensor(up):
+        return torch.minimum(torch.maximum(x, torch.as_tensor(low).to(x)),
+                             torch.as_tensor(up).to(x))
+    return torch.clamp(x, low, up)
+
+
+batched_op(cx_simulated_binary_bounded, cx_simulated_binary_bounded)

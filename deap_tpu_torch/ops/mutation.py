@@ -1,17 +1,19 @@
 """Mutation operators — the PyTorch counterparts of
-``deap_tpu/ops/mutation.py``.  ``mut_gaussian`` is shape-polymorphic:
-called on a ``(pop, size)`` batch with one key it is its own batched
+``deap_tpu/ops/mutation.py``.  Both operators are shape-polymorphic:
+called on a ``(pop, size)`` batch with one key each is its own batched
 form."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import random
-from .._xla_math import fma
+from .._xla_math import fma, pow as xla_pow
 from ._dispatch import batched_op
+from .crossover import _bounds, _clip
 
-__all__ = ["mut_gaussian"]
+__all__ = ["mut_gaussian", "mut_polynomial_bounded"]
 
 
 def mut_gaussian(key, ind, mu, sigma, indpb):
@@ -26,3 +28,42 @@ def mut_gaussian(key, ind, mu, sigma, indpb):
 
 
 batched_op(mut_gaussian, mut_gaussian)
+
+
+def mut_polynomial_bounded(key, ind, eta, low, up, indpb):
+    """Deb's polynomial bounded mutation, as NSGA-II uses it: each gene
+    moves with probability ``indpb`` by a polynomially distributed step
+    scaled to its distance from the bounds.  The multiply-adds that XLA
+    fuses under ``jit`` (``2 rand + (1 - 2 rand) p`` and ``ind + delta_q
+    * span``, ``1 - (ind - low) / span``) are
+    :func:`~deap_tpu_torch._xla_math.fma`; in the mirrored
+    ``2 (1 - rand) + 2 (rand - 0.5) p`` XLA's backend fuses the exact
+    doubling instead, so the product is rounded on its own.  The four
+    powers of a gene go through :func:`deap_tpu_torch._xla_math.pow`."""
+    low, up = _bounds(low, ind), _bounds(up, ind)
+    k_mask, k_rand = random.split(key)
+    mask = random.bernoulli(k_mask, indpb, ind.shape)
+    rand = random.uniform(k_rand, ind.shape)
+    if torch.is_tensor(low) or torch.is_tensor(up):
+        span = torch.where(torch.as_tensor(up > low), up - low, 1.0)
+        inv_span = 1.0 / span
+    else:
+        span = float(np.float32(up) - np.float32(low)) if up > low else 1.0
+        inv_span = float(np.float32(1.0) / np.float32(span))
+    mut_pow = 1.0 / (eta + 1.0)
+    # the bounds are constants of the jitted program, so XLA divides by
+    # the span as a multiplication by its float32 reciprocal, fused into
+    # the subtraction from one
+    xy1 = fma(-(ind - low), inv_span, 1.0)
+    xy2 = fma(-(up - ind), inv_span, 1.0)
+    val1 = fma(1.0 - 2.0 * rand, xla_pow(xy1, eta + 1.0), 2.0 * rand)
+    dq1 = xla_pow(val1, mut_pow) - 1.0
+    val2 = 2.0 * (1.0 - rand) + (2.0 * (rand - 0.5)) * xla_pow(xy2,
+                                                               eta + 1.0)
+    dq2 = 1.0 - xla_pow(val2, mut_pow)
+    delta_q = torch.where(rand < 0.5, dq1, dq2)
+    x = _clip(fma(delta_q, span, ind), low, up)
+    return torch.where(mask, x, ind)
+
+
+batched_op(mut_polynomial_bounded, mut_polynomial_bounded)

@@ -35,9 +35,16 @@ def _forbidden_imports(source: str):
 
 
 def test_port_sources_exist():
-    assert len(_port_files()) >= 15
-    for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu"):
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert len(files) >= 15
+    for new in ("deap_tpu_torch/ops/hv.py", "deap_tpu_torch/ops/hypervolume.py",
+                "deap_tpu_torch/native/build.py", "deap_tpu_torch/native/hv.py",
+                "deap_tpu_torch/benchmarks/tools.py", "chip_smoke.py"):
+        assert new in files
+    for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
+               "hypervolume.cu"):
         assert (ROOT / "deap_tpu_torch" / "kernels" / cu).exists()
+    assert (ROOT / "deap_tpu_torch" / "native" / "hv.cpp").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -52,6 +59,28 @@ def test_scan_catches_a_forbidden_import():
     assert _forbidden_imports(src) == ["2:deap_tpu.ops", "5:jax.numpy"]
 
 
+def test_chip_smoke_imports_nothing_of_jax_when_loaded():
+    """Importing ``chip_smoke`` as a module (its ``main`` not run) pulls
+    in no JAX and nothing of the JAX package."""
+    code = ("import sys; import chip_smoke; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_native_source_is_the_ports_own_copy():
+    """``native/hv.cpp`` is a copy inside the port, with the C ABI the
+    binding expects; the port never loads the JAX package's library."""
+    src = (ROOT / "deap_tpu_torch" / "native" / "hv.cpp").read_text()
+    assert 'extern "C" double deap_tpu_hv(' in src
+    for py in ("build.py", "hv.py"):
+        text = (ROOT / "deap_tpu_torch" / "native" / py).read_text()
+        assert "deap_tpu/native" not in text and "deap_tpu.native" not in text
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import deap_tpu_torch, deap_tpu_torch.algorithms, "
             "deap_tpu_torch.interop, deap_tpu_torch.kernels, "
@@ -59,7 +88,12 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.ops.emo, deap_tpu_torch.ops.dominance, "
             "deap_tpu_torch.benchmarks, deap_tpu_torch.gp, "
             "deap_tpu_torch.gp.interp_cuda, deap_tpu_torch.gp.generate, "
-            "deap_tpu_torch.gp.variation, deap_tpu_torch.gp.tree; "
+            "deap_tpu_torch.gp.variation, deap_tpu_torch.gp.tree, "
+            "deap_tpu_torch.ops.hv, deap_tpu_torch.ops.hypervolume, "
+            "deap_tpu_torch.native.hv, deap_tpu_torch.native.build, "
+            "deap_tpu_torch.benchmarks.tools, deap_tpu_torch.ops.crossover, "
+            "deap_tpu_torch.ops.mutation, deap_tpu_torch.kernels.sass; "
+            "deap_tpu_torch.base.Toolbox().hypervolume; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -7,7 +7,8 @@ skips the suite's JAX-based conftest):
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 
 On the card each kernel must equal its plain version bit for bit (the
-stated ulp bound is 0).  The CPU tests pin the wrappers' contract: CPU
+stated ulp bound is 0), except K5, whose sums run in another order than
+the plain sweep's: relative 1e-4 in float32 and 1e-11 in float64.  The CPU tests pin the wrappers' contract: CPU
 tensors take the plain version and count no launch, the launchers refuse
 CPU tensors, and a missing compiler raises instead of falling back.
 """
@@ -19,9 +20,10 @@ import pytest
 import torch
 
 from deap_tpu_torch import benchmarks, gp, kernels, random
-from deap_tpu_torch.base import Fitness
+from deap_tpu_torch.base import Fitness, Toolbox
 from deap_tpu_torch.kernels import build
 from deap_tpu_torch.ops import dominance as D, emo as E, generation as G
+from deap_tpu_torch.ops import hv as host_hv, hypervolume as H
 
 # the tensors here are small: extra intra-op threads would only contend
 # with the suite's other test workers
@@ -74,7 +76,7 @@ def test_kernels_equal_plain_versions_on_card(st):
                                 "megakernel_gather_vary": 1,
                                 "megakernel_var_or": 0,
                                 "rows_dominate_counts": 0,
-                                "gp_interp": 0}
+                                "gp_interp": 0, "hv3d_sweep": 0}
     assert _same(k1, p1) and _same(k2, p2) and torch.equal(w2, pw)
 
 
@@ -247,6 +249,47 @@ def test_launchers_refuse_cpu_tensors_before_building():
         kernels.launch_rows_dominate_counts(w, w)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.float64, 1e-11)],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("n", [1, 33, 1025, 8192])
+def test_k5_equals_plain_on_card(n, dtype, rtol):
+    """K5 against the plain sweep on the card: the total and every slab
+    partial within the stated bound, two launches bitwise equal, one
+    launch per hypervolume."""
+    dev = _cuda()
+    p = random.uniform(random.PRNGKey(n, device=dev), (n, 3), maxval=1.2)
+    p[::5] = p[0].clone()                               # duplicates
+    pts = p.to(dtype)
+    ref = [1.0, 1.1, 0.9]
+    kernels.reset_launches()
+    got = H.hypervolume_3d_cuda(pts, ref)
+    again = H.hypervolume_3d_cuda(pts, ref)
+    assert kernels.LAUNCHES["hv3d_sweep"] == 2
+    want = H.hypervolume_3d(pts, ref)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got.reshape(1).view(torch.uint8),
+                       again.reshape(1).view(torch.uint8))
+    assert float(got) == pytest.approx(float(want), rel=rtol)
+    clipped, r = H._as_points(pts, ref)
+    parts = H._hv3d_cuda_partials(clipped, r, float(r[1]), 128)
+    plain_parts = H._slab_volumes(pts, ref, 128)
+    assert float((parts - plain_parts).abs().max()) <= rtol * float(want)
+
+
+@pytest.mark.gpu
+def test_router_runs_k5_in_float64_on_card():
+    dev = _cuda()
+    pts = random.uniform(random.PRNGKey(5, device=dev), (300, 3))
+    kernels.reset_launches()
+    got = Toolbox().hypervolume(pts, [1.1] * 3)
+    assert kernels.LAUNCHES["hv3d_sweep"] == 1
+    assert got == pytest.approx(host_hv.hypervolume(pts, [1.1] * 3),
+                                abs=1e-12)
+
+
 def test_cpu_var_or_and_counts_take_the_plain_version():
     st = G.GenomeStorage()
     g, ia, i2, code, seed, knobs = _var_or_inputs("cpu", 64, 96, st)
@@ -281,7 +324,8 @@ def test_build_digest_covers_every_source_and_flag(monkeypatch, tmp_path):
     assert build.digest(srcs) != base
     assert [s.name for s in build.SOURCES] == ["megakernel.cu",
                                                "dominance.cu",
-                                               "gp_interp.cu"]
+                                               "gp_interp.cu",
+                                               "hypervolume.cu"]
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -363,9 +407,12 @@ def test_sass_finds_the_innermost_compare_loop():
     name = next(k for k in funcs if "rows_dominate_counts_kernelILi3E" in k)
     assert [i[1] for i in funcs[name]][:3] == [
         "LDC", "BAR.SYNC.DEFER_BLOCKING", "LDS"]
-    loop = sass.innermost_compare_loop(funcs[name])
+    loop = sass.inner_loop(funcs[name])
     assert [i[1] for i in loop] == [
         "LDS", "FSETP.GE.AND", "FSETP.GT.AND", "IADD3", "BRA"]
     assert [i[3] for i in loop] == ["", "", "", "@P0", "@!P2"]
-    assert sass.innermost_compare_loop(
+    assert sass.inner_loop(
         funcs["_ZN12_GLOBAL__N_114var_or_kernelEv"]) is None
+    rep = sass.report("K4", funcs)
+    assert rep["pairs_per_iteration"] == 2 / 6
+    assert rep["loop_instructions"] == 5
