@@ -77,15 +77,35 @@
              objectives, 30 variables, staircase ranks): a few
              generations, fronts per generation, the 2-D hypervolume at
              ref (11, 11) must rise (no kernel of the port runs on it);
-18. the ``kernels`` line, the card's name and power limit, and the result
+18. P1-P4   — the probe kernels of ``kernels/probes.cu`` against their
+             plain versions at the GA probe tool's shape, 2^20 x 128
+             float32: the copy (rows 512 / 2048 / 8192 a block), the
+             24-step FMA chain, the rastrigin row reduce (dim 100), the
+             counter-hash normals, the table lookup and the row gather;
+             times beside the bound and the library call (``copy_``,
+             ``order[pos]``, ``index_select``);
+19. probe tool — ``python -m deap_tpu_torch.probes.ga`` in process at
+             2^20 x 100, every probe, ``--recommend``, ``--json
+             chip_smoke_out/probe_ga.json``: P1-P4 launched on it, every
+             record a finite time above zero, ``errors`` exactly the
+             ``rbg`` leg of ``varveval``; the linearity witnesses and the
+             recommended gather;
+20. P5      — ``probe_gp`` against its plain version on the GP tool's
+             4096 full binary trees (capacity 64) at 1024 points: every
+             mode, tb 8 and 32, unroll 1 and 63;
+21. probe tool — ``python -m deap_tpu_torch.probes.gp`` in process: the
+             nine probes and ``fraction_of_floor``, P5 and K6 (``real63``)
+             launched on it;
+22. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12 and 15, a
 per-stage and ``torch.profiler`` breakdown of a main-path generation of
 each path.
 
-Tolerance: K1-K4 and K6 must equal their plain versions bit for bit (the
-stated ulp bound is 0; K6's NaNs compare equal whatever their payload).
+Tolerance: K1-K4, K6 and P1-P5 must equal their plain versions bit for
+bit (the stated ulp bound is 0; K6's NaNs compare equal whatever their
+payload; P3's lookup is exact).
 K5's running minima are exact and its sums are taken in another order
 than the plain version's: relative 1e-4 in float32 and 1e-11 in float64,
 on the total and on every slab partial (relative to the total).  A
@@ -116,17 +136,6 @@ MO_PAIRS = 3
 MO_HEAD_GENS = 3
 MO_CXPB, MO_MUTPB, MO_SIGMA, MO_INDPB = 0.6, 0.3, 0.1, 1.0 / 12
 FRONT_CHUNK = 1024
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-# Instruction rates of the H100 SXM: 132 SMs at the 1.98 GHz that the
-# data sheet's 67 TFLOP/s float32 peak implies (132 x 128 lanes x 2 x
-# 1.98e9).  Per SM and clock: 128 float32 add/multiply/FMA (an FMA is one
-# instruction, hence half the FLOP rate); 64 of 32-bit integer add, shift
-# and logic, and 64 compares (float32 compares included: "compare,
-# minimum, maximum", CUDA C++ Programming Guide, arithmetic instruction
-# throughput, compute capability 9.0); 128 instructions issued in all.
-FP32_INSTR_PER_S = 67e12 / 2
-INT32_INSTR_PER_S = 67e12 / 4      # integer and compare instructions
-ISSUE_PER_S = 67e12 / 2
 ULP_BOUND = 0                      # kernels equal their plain versions
 # bench_nsga2.py as published: SBX and polynomial mutation (eta 20), cxpb
 # 0.9, mutpb 1.0, sel_nsga2(nd="auto", front_chunk=1024), POP 1e5
@@ -147,14 +156,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+def bound_ms(n_bytes: float, ints: float = 0, flts: float = 0,
+             dbls: float = 0):
+    """The least time of a kernel's work at the H100's data-sheet peaks
+    (:func:`deap_tpu_torch.kernels.peaks.bound_ms`)."""
+    from deap_tpu_torch.kernels.peaks import bound_ms as least
+    return least(n_bytes, ints, flts, dbls)
 
 
 def phase(name: str, card_line: str, **fields) -> None:
@@ -188,17 +195,6 @@ def ulp_gap(a, b) -> int:
     ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
     ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
     return int((ia - ib).abs().max().item()) if a.numel() else 0
-
-
-def bound_ms(n_bytes: float, ops):
-    """The least time for moving ``n_bytes`` and issuing ``ops`` =
-    ``(integer, float)`` instructions: the larger of the byte time and
-    the slowest of the integer pipe, the float pipe and the issue slots."""
-    ints, flts = ops
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ints / INT32_INSTR_PER_S, flts / FP32_INSTR_PER_S,
-                (ints + flts) / ISSUE_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def tile_counts(seed, knobs, n: int, dim: int) -> dict:
@@ -411,7 +407,7 @@ def var_or_bound(c: dict, dim: int, elt: int, dtype: str):
             + c["mutated_genes"] * (_MUTATE[0] + _WIDEN_NARROW[dtype][0]))
     flts = (c["cx_rows"] * (2 * hf + 4) + c["mut_rows"] * dim * (hf + 1)
             + c["mutated_genes"] * (_MUTATE[1] + _WIDEN_NARROW[dtype][1]))
-    return bound_ms(n_bytes, (ints, flts))
+    return bound_ms(n_bytes, ints, flts)
 
 
 def counts_bound(C: int, n: int, m: int):
@@ -422,7 +418,7 @@ def counts_bound(C: int, n: int, m: int):
     move once.  ``python -m deap_tpu_torch.kernels.sass`` counts what
     the compiled loop spends per pair (it also joins the two chains,
     counts in two instructions, and loads and loops)."""
-    return bound_ms(4 * (C * m + n * m + n), (C * n * (2 * m + 1), 0))
+    return bound_ms(4 * (C * m + n * m + n), C * n * (2 * m + 1))
 
 
 def dtlz2_values(genome):
@@ -695,7 +691,7 @@ def nsga2_head_phase(kernels, G, card_line, key, pop, tb) -> tuple:
         gap, err, ms, plain = vary_check(kernels, G, parents, seed, knobs,
                                          MO_DIM, st)
         b, by = bound_ms(2 * MO_POP * MO_DIM * parents.element_size() + 24,
-                         tile_ops(counts, MO_POP, MO_DIM, st.dtype))
+                         *tile_ops(counts, MO_POP, MO_DIM, st.dtype))
         phase("K1 megakernel_vary vs plain, NSGA-II head inputs", card_line,
               storage=st.dtype, shape=[MO_POP, MO_DIM], ulp_gap=gap,
               ulp_bound=ULP_BOUND, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -797,7 +793,6 @@ GP_OP_COST = {
     "sin": (3, 0, 11), "cos": (3, 0, 13), "log": (6, 18, 0),
     "sqrt": (1, 5, 0), "lf": (4, 23, 0), "and": (4, 0, 0), "or": (4, 0, 0),
     "xor": (4, 0, 0), "not": (2, 0, 0), "if": (2, 0, 0)}
-FP64_INSTR_PER_S = 67e12 / 4       # 64 float64 lanes per SM and clock
 
 
 def gp_toolbox(dev, pset_kind: str = "bench"):
@@ -897,11 +892,7 @@ def gp_bound(tokens: dict, n_bytes: int, n_points: int):
     ints = sum(GP_OP_COST[k][0] * v for k, v in tokens.items()) * n_points
     flts = sum(GP_OP_COST[k][1] * v for k, v in tokens.items()) * n_points
     dbls = sum(GP_OP_COST[k][2] * v for k, v in tokens.items()) * n_points
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ints / INT32_INSTR_PER_S, flts / FP32_INSTR_PER_S,
-                dbls / FP64_INSTR_PER_S,
-                (ints + flts + dbls) / ISSUE_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms(n_bytes, ints, flts, dbls)
 
 
 def nan_gap(a, b):
@@ -1405,11 +1396,8 @@ def k5_bound(n: int, dtype: str):
     n_bytes = (3 * elt + 4) * n + elt * -(-n // 128)
     pairs = float(n) * n
     if dtype == "float32":
-        return bound_ms(n_bytes, (3 * pairs, 2 * pairs))
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(pairs / INT32_INSTR_PER_S, 4 * pairs / FP64_INSTR_PER_S,
-                5 * pairs / ISSUE_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return bound_ms(n_bytes, 3 * pairs, 2 * pairs)
+    return bound_ms(n_bytes, pairs, 0, 4 * pairs)
 
 
 def k5_check(kernels, card_line, label: str, points, ref) -> dict:
@@ -1595,6 +1583,189 @@ def profile_bench_nsga2(key, pop, tb, card_line, gens=2) -> None:
           **_profile_window(run, gens))
 
 
+# ---------------------------------------------------------------------------
+# the probe tools: P1-P5 (kernels/probes.cu) and the tools' own paths
+# ---------------------------------------------------------------------------
+
+PROBE_POP, PROBE_DIM = 1 << 20, 100           # tools/pallas_probe_ga.py's
+PROBE_GP_SETTINGS = ("PROBE_POP", "PROBE_CAP", "PROBE_POINTS", "PROBE_ITERS")
+PROBE_GP_TB = (8, 32)
+PROBE_GP_UNROLL = (0, 63)
+
+
+def probe_check(label: str, card_line, kernel, plain, library, bound,
+                exact: bool = False, **fields) -> dict:
+    """One probe kernel against its plain version on the same inputs:
+    bitwise (``exact``: equal integers), times beside the bound and the
+    library call's time; fails on a mismatch."""
+    import torch
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if exact:
+        gap = 0 if torch.equal(got, want) else 1
+        err = float((got.long() - want.long()).abs().max().item())
+    else:
+        gap = ulp_gap(got, want)
+        err = nan_gap(got, want)[1]         # overflowed stacks hold inf
+    ms = cuda_ms(kernel, reps=20, warm=2)
+    plain_ms = cuda_ms(plain, reps=1, warm=0)
+    library_ms = cuda_ms(library, reps=20, warm=2) if library else None
+    b, by = bound
+    phase(f"{label} vs plain", card_line, ulp_gap=gap, ulp_bound=ULP_BOUND,
+          max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+          bound_ms=b, bound_by=by, **fields)
+    if gap > ULP_BOUND:
+        fail(f"{label}: {gap} ulp from its plain version (bound {ULP_BOUND})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b, "bound_by": by}
+
+
+def probe_kernels_phase(card_line, key) -> dict:
+    """P1-P4 against their plain versions at the GA tool's shape, 2^20 x
+    128 float32 (the reduce masked at dim 100)."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.probes import ga as PGA
+    pop, dev = PROBE_POP, key.device
+    k_x, k_o, k_p, k_s = random.split(key, 4)
+    x = random.uniform(k_x, (pop, PGA.LANE))
+    order = torch.argsort(random.uniform(k_o, (pop,))).to(torch.int32)
+    pos = random.randint(k_p, (pop,), 0, pop)
+    seed = random.randint(k_s, (1,), -(1 << 31), (1 << 31) - 1)
+    copy_out = torch.empty_like(x)
+    shape = [pop, PGA.LANE]
+    res = {}
+    for rows in (512, 2048, 8192):
+        res[f"stream_rows{rows}"] = probe_check(
+            f"P1 probe_stream_copy rows {rows}", card_line,
+            lambda rows=rows: PGA.stream(x, rows), lambda: x.clone(),
+            lambda: copy_out.copy_(x), PGA.kernel_bound("stream", pop),
+            shape=shape, rows=rows)
+    res["chain"] = probe_check(
+        "P1 probe_chain24", card_line, lambda: PGA.chain24(x),
+        lambda: PGA._chain24_plain(x), None, PGA.kernel_bound("chain", pop),
+        shape=shape)
+    res["rast"] = probe_check(
+        "P1 probe_rast_reduce", card_line,
+        lambda: PGA.rast_reduce(x, PROBE_DIM),
+        lambda: PGA._rast_reduce_plain(x, PROBE_DIM), None,
+        PGA.kernel_bound("rast", pop, PROBE_DIM), shape=shape, dim=PROBE_DIM)
+    res["rng"] = probe_check(
+        "P2 probe_hash_normal", card_line,
+        lambda: PGA.hash_normal(seed, pop),
+        lambda: PGA._hash_normal_plain(seed, pop), None,
+        PGA.kernel_bound("rng", pop), shape=shape, seed=int(seed.item()))
+    res["lookup"] = probe_check(
+        "P3 probe_lookup", card_line, lambda: PGA.lookup(order, pos),
+        lambda: order[pos.long()], lambda: order[pos],
+        PGA.kernel_bound("lookup", pop), exact=True, queries=pop)
+    res["dmagather"] = probe_check(
+        "P4 probe_row_gather", card_line,
+        lambda: PGA.row_gather(x, pos), lambda: x[pos.long()],
+        lambda: torch.index_select(x, 0, pos),
+        PGA.kernel_bound("dmagather", pop), shape=shape)
+    del x, order, pos, copy_out
+    torch.cuda.empty_cache()
+    return res
+
+
+def probe_ga_tool_phase(kernels, card_line) -> dict:
+    """The GA probe tool's own path at 2^20 x 100: every probe,
+    ``--recommend``, ``--json chip_smoke_out/probe_ga.json``; P1-P4 must run
+    on it and every record must carry a finite time above zero; the only
+    error is the ``rbg`` leg of ``varveval``."""
+    import math
+    from deap_tpu_torch.probes import ga as PGA
+    out_dir = os.path.join(ROOT, "chip_smoke_out")
+    os.makedirs(out_dir, exist_ok=True)
+    kernels.reset_launches()
+    doc = PGA.main(["--pop", str(PROBE_POP), "--dim", str(PROBE_DIM),
+                    "--recommend", "--json",
+                    os.path.join(out_dir, "probe_ga.json")])
+    launches = dict(kernels.LAUNCHES)
+    res = doc["result"]
+    bad = [r["probe"] for r in res["probes"]
+           if not (isinstance(r["ms"], float) and math.isfinite(r["ms"])
+                   and r["ms"] > 0)]
+    errors = res["errors"]
+    phase("probe tool: deap_tpu_torch.probes.ga", card_line,
+          pop=res["pop"], dim=res["dim"], k_iters=res["k_iters"],
+          ms={r["probe"]: r["ms"] for r in res["probes"]},
+          linearity={r["probe"]: r["linearity_t2k_over_tk"]
+                     for r in res["probes"]},
+          errors=errors, recommend=res["recommend"],
+          launches={k: v for k, v in launches.items() if v})
+    if bad:
+        fail(f"probe records without a finite positive time: {bad}")
+    if len(errors) != 1 or errors[0]["probe"] != "varveval" \
+            or "rbg" not in errors[0]["error"]:
+        fail(f"GA probe errors are not exactly varveval's rbg leg: {errors}")
+    for name in ("probe_stream_copy", "probe_chain24", "probe_rast_reduce",
+                 "probe_hash_normal", "probe_lookup", "probe_row_gather"):
+        if not launches[name]:
+            fail(f"{name} did not run on the GA probe tool's path")
+    return launches
+
+
+def probe_gp_phase(card_line, key) -> dict:
+    """P5 against its plain version, bitwise, on the GP tool's 4096 x 64
+    full binary trees at 1024 points: every mode, tb 8 and 32, unroll 1
+    and 63."""
+    import numpy as np
+    import torch
+    from deap_tpu_torch.probes import gp as PGP
+    pop, cap, npts = GP_POP, GP_CAP, GP_NPOINTS
+    codes, consts, lengths = PGP.full_binary_trees(
+        PGP.bench_pset(), np.random.default_rng(0), pop, cap, key.device)
+    x = torch.zeros((1, 1), device=key.device)
+    res = {}
+    for mode in ("noswitch", "dispatch", "stackrw"):
+        for tb in PROBE_GP_TB:
+            for unroll in PROBE_GP_UNROLL:
+                run = PGP.make_probe_kernel(mode, 9, tb, unroll,
+                                            n_points=npts)
+                res[(mode, tb, unroll)] = probe_check(
+                    f"P5 probe_gp {mode} tb {tb} unroll {unroll or 1}",
+                    card_line, lambda run=run: run(codes, consts, lengths, x),
+                    lambda mode=mode, tb=tb, unroll=unroll:
+                    PGP._probe_gp_plain(codes, consts, lengths, npts, mode,
+                                        tb, bool(unroll), 9),
+                    None, PGP.probe_bound(mode, codes, npts),
+                    shape=[pop, cap, npts])
+    return res
+
+
+def probe_gp_tool_phase(kernels, card_line) -> tuple:
+    """The GP probe tool's nine probes at its defaults (4096 x 64 x 1024);
+    P5 and K6 (``real63``) must run on it."""
+    import math
+    from deap_tpu_torch.probes import gp as PGP
+    for name in PROBE_GP_SETTINGS:
+        os.environ.pop(name, None)
+    kernels.reset_launches()
+    out = PGP.main([])
+    launches = dict(kernels.LAUNCHES)
+    pr = out["probes"]
+    phase("probe tool: deap_tpu_torch.probes.gp", card_line,
+          shape=out["shape"],
+          ns_per_token={k: v["ns_per_token"] for k, v in pr.items()},
+          eval_ms={k: v["eval_ms"] for k, v in pr.items()},
+          linearity={k: v["linearity"] for k, v in pr.items()},
+          fraction_of_floor=out.get("fraction_of_floor"),
+          launches={k: v for k, v in launches.items() if v})
+    bad = [k for k, v in pr.items()
+           if not (math.isfinite(v["eval_ms"]) and v["eval_ms"] > 0)]
+    if bad or sorted(pr) != sorted(PGP.PROBES):
+        fail(f"GP probe records missing or without a finite positive "
+             f"time: {bad or sorted(set(PGP.PROBES) - set(pr))}")
+    if not math.isfinite(out.get("fraction_of_floor", float("nan"))):
+        fail("the GP probe tool gave no finite fraction_of_floor")
+    for name in ("probe_gp", "gp_interp"):
+        if not launches[name]:
+            fail(f"{name} did not run on the GP probe tool's path")
+    return launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -1602,7 +1773,11 @@ def main() -> int:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: chip_smoke.py needs a card")
-    card_line = card()
+    from deap_tpu_torch.probes import card_line as read_card_line
+    try:
+        card_line = read_card_line()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        fail(f"nvidia-smi: {e}")
     kind = torch.cuda.get_device_name(0)
     print(f"# python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} on {card_line}", flush=True)
@@ -1646,7 +1821,7 @@ def main() -> int:
         gap1, err1, ms1, plain1 = vary_check(kernels, G, parents, seed,
                                              knobs, DIM, st)
         ops = tile_ops(counts, POP, DIM, st.dtype)
-        b1, by1 = bound_ms(2 * POP * DIM * elt + 4 + 20, ops)
+        b1, by1 = bound_ms(2 * POP * DIM * elt + 4 + 20, *ops)
         phase("K1 megakernel_vary vs plain", card_line, storage=st.dtype,
               ulp_gap=gap1, ulp_bound=ULP_BOUND, max_abs_err=err1,
               ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
@@ -1669,7 +1844,8 @@ def main() -> int:
             scale=st.scale))
         plain2 = cuda_ms(lambda: G._gather_vary_plain(
             order, pos, gs, seed, knobs, DIM, st), reps=3, warm=1)
-        b2, by2 = bound_ms(2 * POP * DIM * elt + 3 * 4 * POP + 4 + 20, ops)
+        b2, by2 = bound_ms(2 * POP * DIM * elt + 3 * 4 * POP + 4 + 20,
+                           *ops)
         phase("K2 megakernel_gather_vary vs index_select+plain", card_line,
               storage=st.dtype, ulp_gap=gap2, ulp_bound=ULP_BOUND,
               max_abs_err=err2, widx_equal=True, ms=ms2, plain_ms=plain2,
@@ -1854,7 +2030,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_bn_b = bench_nsga2_main_path_b(kernels, card_line, k_bn_b)
 
-    # ---- 18. the kernels line and the result -------------------------------
+    # ---- 18.-21. the probe tools and P1-P5 --------------------------------
+    k_pr, k_pr5 = random.split(random.fold_in(key, 5))
+    p14 = probe_kernels_phase(card_line, k_pr)
+    launches_pga = probe_ga_tool_phase(kernels, card_line)
+    torch.cuda.empty_cache()
+    p5 = probe_gp_phase(card_line, k_pr5)
+    launches_pgp, gp_probes = probe_gp_tool_phase(kernels, card_line)
+
+    # ---- 22. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -1932,6 +2116,42 @@ def main() -> int:
         "launches_by_path": {"bench generation": launches_gp["gp_interp"],
                              "ea_simple": launches_gp_ea["gp_interp"]},
         "ms_by_input": {k: v["ms"] for k, v in k6.items()}})
+    rows[-1]["launches_by_path"]["probes.gp real63"] = launches_pgp[
+        "gp_interp"]
+    # P1-P4 at the GA tool's shape (stream and the row tiles at 2048
+    # rows), launches on the GA tool's path; P5 at the GP tool's shape,
+    # dispatch at tb 8, unroll 1 (its other forms are in phase 20),
+    # launches on the GP tool's path
+    ga_src = "tools/pallas_probe_ga.py"
+    for name, tag, line in (
+            ("probe_stream_copy", "stream_rows2048", 280),
+            ("probe_chain24", "chain", 280),
+            ("probe_rast_reduce", "rast", 280),
+            ("probe_hash_normal", "rng", 354),
+            ("probe_lookup", "lookup", 421),
+            ("probe_row_gather", "dmagather", 479)):
+        r = p14[tag]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "deap_tpu_torch/kernels/probes.cu",
+            "replaces": f"{ga_src}:{line}", "launches": launches_pga[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    rows[-6]["ms_by_rows"] = {k: v["ms"] for k, v in p14.items()
+                              if k.startswith("stream_")}
+    r5 = p5[("dispatch", 8, 0)]
+    rows.append({
+        "name": "probe_gp", "route": "cuda",
+        "source": "deap_tpu_torch/kernels/probes.cu",
+        "replaces": "tools/pallas_probe_gp.py:184",
+        "launches": launches_pgp["probe_gp"],
+        "max_abs_err": max(v["max_abs_err"] for v in p5.values()),
+        "ms": r5["ms"], "plain_ms": r5["plain_ms"], "bound_ms": r5["bound_ms"],
+        "bound_by": r5["bound_by"], "library_ms": None,
+        "ms_by_form": {f"{m} tb{tb} unroll{u or 1}": v["ms"]
+                       for (m, tb, u), v in p5.items()},
+        "fraction_of_floor": gp_probes.get("fraction_of_floor")})
     phase("total", card_line, seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line, flush=True)

@@ -1,7 +1,7 @@
 """Launch wrappers of the port's hand-written CUDA kernels.
 
 The library is built from ``megakernel.cu``, ``dominance.cu``,
-``gp_interp.cu`` and ``hypervolume.cu`` at first use
+``gp_interp.cu``, ``hypervolume.cu`` and ``probes.cu`` at first use
 (:mod:`deap_tpu_torch.kernels.build`) and bound with ``ctypes``.  A
 launcher checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches on PyTorch's current stream, and
@@ -10,8 +10,9 @@ Only then does it add one to its entry of :data:`LAUNCHES` — the count a
 run reads to show that its path really went through the kernel.  Nothing
 here falls back to a plain version: that choice is made from the
 tensor's device by the callers in ``deap_tpu_torch/ops/generation.py``,
-``deap_tpu_torch/ops/dominance.py``, ``deap_tpu_torch/gp/interp.py`` and
-``deap_tpu_torch/ops/hypervolume.py``.
+``deap_tpu_torch/ops/dominance.py``, ``deap_tpu_torch/gp/interp.py``,
+``deap_tpu_torch/ops/hypervolume.py`` and the probe tools
+(``deap_tpu_torch/probes/ga.py``, ``deap_tpu_torch/probes/gp.py``).
 """
 
 from __future__ import annotations
@@ -25,12 +26,21 @@ import torch
 __all__ = ["LAUNCHES", "KernelLaunchError", "reset_launches", "load",
            "launch_vary", "launch_gather_vary", "launch_var_or",
            "launch_rows_dominate_counts", "launch_gp_interp",
-           "launch_hv3d_sweep"]
+           "launch_hv3d_sweep", "launch_probe_stream_copy",
+           "launch_probe_chain24", "launch_probe_rast_reduce",
+           "launch_probe_hash_normal", "launch_probe_lookup",
+           "launch_probe_row_gather", "launch_probe_gp", "PROBE_GP_MODES"]
 
 #: launches of each kernel since the last :func:`reset_launches`
 LAUNCHES = {"megakernel_vary": 0, "megakernel_gather_vary": 0,
             "megakernel_var_or": 0, "rows_dominate_counts": 0,
-            "gp_interp": 0, "hv3d_sweep": 0}
+            "gp_interp": 0, "hv3d_sweep": 0,
+            "probe_stream_copy": 0, "probe_chain24": 0,
+            "probe_rast_reduce": 0, "probe_hash_normal": 0,
+            "probe_lookup": 0, "probe_row_gather": 0, "probe_gp": 0}
+#: probes.cu's ``Mode`` of the stripped token loop (P5)
+PROBE_GP_MODES = {"noswitch": 0, "dispatch": 1, "stackrw": 2}
+_PROBE_LANES = 128
 _DTYPES = {"float32": (0, torch.float32), "bfloat16": (1, torch.bfloat16),
            "int8": (2, torch.int8)}
 _lib = None
@@ -70,6 +80,17 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.hv3d_sweep.argtypes = [p, p, p, p, ctypes.c_double, p, i, i,
                                        i, p]
             lib.hv3d_sweep.restype = i
+            lib.probe_stream_copy.argtypes = [p, p, ll, i, p]
+            lib.probe_chain24.argtypes = [p, p, ll, p]
+            lib.probe_rast_reduce.argtypes = [p, p, ll, i, p]
+            lib.probe_hash_normal.argtypes = [p, p, ll, p]
+            lib.probe_lookup.argtypes = [p, p, p, ll, p]
+            lib.probe_row_gather.argtypes = [p, p, p, ll, p]
+            lib.probe_gp.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p]
+            for name in ("probe_stream_copy", "probe_chain24",
+                         "probe_rast_reduce", "probe_hash_normal",
+                         "probe_lookup", "probe_row_gather", "probe_gp"):
+                getattr(lib, name).restype = i
             lib.megakernel_error_string.argtypes = [i]
             lib.megakernel_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -249,4 +270,122 @@ def launch_hv3d_sweep(ys, zr, width, dz, ref_y: float,
                             threads, int(ys.dtype == torch.float64), stream)
     _raise_on(lib, rc, "hv3d_sweep")
     LAUNCHES["hv3d_sweep"] += 1
+    return out
+
+
+def _launch_rows(name: str, x, *extra) -> torch.Tensor:
+    n = x.shape[0]
+    _check(x, "x", torch.float32, (n, _PROBE_LANES))
+    out = torch.empty_like(x)
+    lib = load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, name)(x.data_ptr(), out.data_ptr(), n, *extra,
+                                stream)
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def launch_probe_stream_copy(x, *, rows: int) -> torch.Tensor:
+    """P1's copy on the card: ``(n, 128)`` float32, ``rows`` rows a block."""
+    return _launch_rows("probe_stream_copy", x, rows)
+
+
+def launch_probe_chain24(x) -> torch.Tensor:
+    """P1's chain on the card: 24 times ``fma(v, 1.0000001, 1e-7)``."""
+    return _launch_rows("probe_chain24", x)
+
+
+def launch_probe_rast_reduce(x, *, dim: int) -> torch.Tensor:
+    """P1's reduce on the card: ``(n, 128)`` float32 → ``(n,)``, the
+    rastrigin term of lanes ``< dim`` summed in XLA's order."""
+    n = x.shape[0]
+    _check(x, "x", torch.float32, (n, _PROBE_LANES))
+    if not 0 <= dim <= _PROBE_LANES:
+        raise ValueError(f"dim {dim} outside [0, {_PROBE_LANES}]")
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    lib = load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.probe_rast_reduce(x.data_ptr(), out.data_ptr(), n, dim,
+                                   stream)
+    _raise_on(lib, rc, "probe_rast_reduce")
+    LAUNCHES["probe_rast_reduce"] += 1
+    return out
+
+
+def launch_probe_hash_normal(seed, n_rows: int) -> torch.Tensor:
+    """P2 on the card: ``(n_rows, 128)`` float32 normals from the counter
+    hash of ``seed`` (``(1,)`` int32 on the card), draws 6 and 7."""
+    _check(seed, "seed", torch.int32, (1,))
+    if not 0 <= n_rows <= 1 << 32:
+        raise ValueError(f"n_rows {n_rows} outside [0, 2**32]")
+    out = torch.empty((n_rows, _PROBE_LANES), dtype=torch.float32,
+                      device=seed.device)
+    lib = load()
+    stream = torch.cuda.current_stream(seed.device).cuda_stream
+    with torch.cuda.device(seed.device):
+        rc = lib.probe_hash_normal(seed.data_ptr(), out.data_ptr(), n_rows,
+                                   stream)
+    _raise_on(lib, rc, "probe_hash_normal")
+    LAUNCHES["probe_hash_normal"] += 1
+    return out
+
+
+def launch_probe_lookup(order, pos) -> torch.Tensor:
+    """P3 on the card: ``order[pos]`` for int32 ``order`` ``(m,)`` and
+    ``pos`` ``(n,)``, every position in ``[0, m)`` (not checked)."""
+    _check(order, "order", torch.int32, (order.shape[0],))
+    _check(pos, "pos", torch.int32, (pos.shape[0],))
+    out = torch.empty_like(pos)
+    lib = load()
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    with torch.cuda.device(pos.device):
+        rc = lib.probe_lookup(order.data_ptr(), pos.data_ptr(),
+                              out.data_ptr(), pos.shape[0], stream)
+    _raise_on(lib, rc, "probe_lookup")
+    LAUNCHES["probe_lookup"] += 1
+    return out
+
+
+def launch_probe_row_gather(genome, idx) -> torch.Tensor:
+    """P4 on the card: ``genome[idx]`` for ``(m, 128)`` float32 rows and
+    int32 ``idx`` ``(n,)``, every index in ``[0, m)`` (not checked); a
+    block owns 512 output rows and a warp keeps 16 rows in flight."""
+    _check(genome, "genome", torch.float32, (genome.shape[0], _PROBE_LANES))
+    _check(idx, "idx", torch.int32, (idx.shape[0],))
+    out = torch.empty((idx.shape[0], _PROBE_LANES), dtype=torch.float32,
+                      device=idx.device)
+    lib = load()
+    stream = torch.cuda.current_stream(idx.device).cuda_stream
+    with torch.cuda.device(idx.device):
+        rc = lib.probe_row_gather(genome.data_ptr(), idx.data_ptr(),
+                                  out.data_ptr(), idx.shape[0], stream)
+    _raise_on(lib, rc, "probe_row_gather")
+    LAUNCHES["probe_row_gather"] += 1
+    return out
+
+
+def launch_probe_gp(codes, consts, lengths, *, n_points: int, mode: str,
+                    tb: int, unroll: bool, n_branches: int) -> torch.Tensor:
+    """P5 on the card: the stripped token loop (``mode`` one of
+    :data:`PROBE_GP_MODES`) over ``codes``/``consts`` ``(pop, cap)`` with
+    ``lengths`` ``(pop,)``, ``tb`` trees a block, unrolled over 63 tokens
+    or not → ``(pop, n_points)`` float32."""
+    pop, cap = codes.shape
+    _check(codes, "codes", torch.int32, (pop, cap))
+    _check(consts, "consts", torch.float32, (pop, cap))
+    _check(lengths, "lengths", torch.int32, (pop,))
+    out = torch.empty((pop, n_points), dtype=torch.float32,
+                      device=codes.device)
+    lib = load()
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    with torch.cuda.device(codes.device):
+        rc = lib.probe_gp(codes.data_ptr(), consts.data_ptr(),
+                          lengths.data_ptr(), out.data_ptr(), pop, cap,
+                          n_points, PROBE_GP_MODES[mode], tb, int(unroll),
+                          n_branches, stream)
+    _raise_on(lib, rc, "probe_gp")
+    LAUNCHES["probe_gp"] += 1
     return out

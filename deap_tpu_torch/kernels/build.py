@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
 One ``nvcc`` call compiles every file of :data:`SOURCES` (plain C
-interfaces, no PyTorch headers: seconds, not minutes) for ``sm_90a``
+interfaces, no PyTorch headers: seconds, not minutes; the shared device
+functions of :data:`HEADERS` are included) for ``sm_90a``
 into one shared library under ``deap_tpu_torch/_build/``.  The library
-is named by a hash of every source and the flags, so an edited source is
+is named by a hash of every source, header and flag, so an edited file is
 rebuilt and an unchanged tree is reused.  Any failure raises
 :class:`KernelBuildError` with the compiler's output; nothing falls back.
 
@@ -20,11 +21,15 @@ import sys
 import tempfile
 from pathlib import Path
 
-__all__ = ["KernelBuildError", "build", "digest", "SOURCES", "BUILD_DIR"]
+__all__ = ["KernelBuildError", "build", "digest", "SOURCES", "HEADERS",
+           "BUILD_DIR"]
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "megakernel.cu", _HERE / "dominance.cu",
-           _HERE / "gp_interp.cu", _HERE / "hypervolume.cu")
+           _HERE / "gp_interp.cu", _HERE / "hypervolume.cu",
+           _HERE / "probes.cu")
+#: included by the sources; part of the library's digest
+HEADERS = (_HERE / "device_math.cuh",)
 BUILD_DIR = _HERE.parent / "_build"
 ARCH = "sm_90a"
 #: --fmad=false: no multiply-add contraction beyond the explicit
@@ -52,8 +57,9 @@ def nvcc_path() -> str:
     return found
 
 
-def digest(sources=SOURCES) -> str:
-    """Hash of every source's bytes and the flags: the library's name."""
+def digest(sources=SOURCES + HEADERS) -> str:
+    """Hash of every source's and header's bytes and the flags: the
+    library's name."""
     h = hashlib.sha256()
     for src in sources:
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")

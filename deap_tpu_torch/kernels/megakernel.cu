@@ -45,55 +45,12 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "device_math.cuh"
+
 namespace {
 
-// ---- counter hash --------------------------------------------------------
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x21F0AAADu;
-  x ^= x >> 15;
-  x *= 0x735A2D97u;
-  x ^= x >> 15;
-  return x;
-}
-
-__device__ __forceinline__ float uniform_at(uint32_t seed, uint32_t draw,
-                                            uint32_t row, uint32_t lane) {
-  uint32_t ctr = row * 0x9E3779B9u + lane * 0x85EBCA6Bu + draw * 0xC2B2AE35u;
-  return __fmul_rn((float)(mix32(ctr ^ seed) >> 8), 5.9604644775390625e-08f);
-}
-
-// ---- XLA's float32 log, log1p and erf_inv ---------------------------------
+// ---- XLA's float32 log1p and erf_inv ---------------------------------------
 // Constants are float32 values; the operation order is XLA CPU's.
-
-__device__ float xla_log(float v) {
-  const float kMin = 1.1754943508222875e-38f;
-  float x = v > kMin ? v : kMin;
-  int b = __float_as_int(x);
-  float e = __fadd_rn((float)((b >> 23) - 127), 1.0f);
-  float m = __int_as_float((b & 0x7FFFFF) | 0x3F000000);
-  bool small = m < 0.7071067690849304f;
-  x = __fadd_rn(__fadd_rn(m, -1.0f), small ? m : 0.0f);
-  e = __fsub_rn(e, small ? 1.0f : 0.0f);
-  float x2 = __fmul_rn(x, x);
-  float x3 = __fmul_rn(x2, x);
-  float y1 = __fmaf_rn(__fmaf_rn(x, 0.07037683576345444f, -0.11514610052108765f),
-                       x, 0.11676998436450958f);
-  float y2 = __fmaf_rn(__fmaf_rn(x, -0.12420140951871872f, 0.14249323308467865f),
-                       x, -0.16668057441711426f);
-  float y3 = __fmaf_rn(__fmaf_rn(x, 0.2000071406364441f, -0.24999994039535522f),
-                       x, 0.3333333134651184f);
-  float y = __fmaf_rn(y1, x3, y2);
-  y = __fmaf_rn(y, x3, y3);
-  y = __fmaf_rn(y, x3, __fmul_rn(e, -0.00021219444170128554f));
-  x = __fsub_rn(x, __fmul_rn(x2, 0.5f));
-  x = __fmaf_rn(e, 0.693359375f, __fadd_rn(x, y));
-  if (v == 0.0f) return -__int_as_float(0x7F800000);
-  if (v == __int_as_float(0x7F800000)) return v;
-  if (!(v > 0.0f)) return __int_as_float(0x7FC00000);
-  return x;
-}
 
 __device__ float xla_log1p(float x) {
   float large = xla_log(__fadd_rn(x, 1.0f));

@@ -16,6 +16,11 @@ inner loop by the entry's marker opcode:
   most — the unrolled sweep over a tile, not its remainder loop; one
   product is one pair step.
 
+And, for P5's token loop (not unrolled) in each mode, how its switch
+compiled (:data:`DISPATCH`): the whole function's branches (``BRA``,
+``BRX``), selects (``FSEL``, ``SEL``) and ``FFMA`` with the distinct
+float immediates they multiply by — nine scales mean nine case bodies.
+
 Prints one JSON object per kernel, each on a line: the loop's opcodes
 with their counts, the pairs per iteration and each opcode's count per
 pair.  With ``--out`` each function's whole SASS, predicate guards
@@ -43,6 +48,13 @@ KERNELS = {
     "K5_f32": ("hv3d_sweep_kernelIfE", "FMUL", 1, "most"),
     "K5_f64": ("hv3d_sweep_kernelIdE", "DMUL", 1, "most"),
 }
+#: label -> mangled-name part of P5's token loop, not unrolled
+DISPATCH = {
+    "P5_noswitch": "probe_gp_kernelILi0ELb0E",
+    "P5_dispatch": "probe_gp_kernelILi1ELb0E",
+    "P5_stackrw": "probe_gp_kernelILi2ELb0E",
+}
+_FLOAT_IMM = re.compile(r"\b(0x3f8[0-9a-f]{5}|1\.0000\d*)\b", re.I)
 
 
 def functions(sass: str) -> dict:
@@ -96,10 +108,9 @@ def inner_loop(instrs, marker: str = "FSETP", rule: str = "shortest"):
     return min((l[2] for l in loops), key=len)
 
 
-def report(label: str, sass_funcs: dict, out_dir=None) -> dict:
-    """The inner-loop instruction counts of one entry of
-    :data:`KERNELS`."""
-    kernel, marker, per_pair, rule = KERNELS[label]
+def _function(kernel: str, sass_funcs: dict, out_dir=None):
+    """``(name, instructions)`` of the one function whose mangled name
+    holds ``kernel``; its SASS is written to ``out_dir`` when given."""
     funcs = {k: v for k, v in sass_funcs.items() if kernel in k}
     if len(funcs) != 1:
         raise SystemExit(f"{len(funcs)} functions match {kernel!r}: "
@@ -109,6 +120,14 @@ def report(label: str, sass_funcs: dict, out_dir=None) -> dict:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / f"sass_{kernel}.txt").write_text("\n".join(
             f"{a:06x}  {g:>5} {o} {r}" for a, o, r, g in instrs) + "\n")
+    return name, instrs
+
+
+def report(label: str, sass_funcs: dict, out_dir=None) -> dict:
+    """The inner-loop instruction counts of one entry of
+    :data:`KERNELS`."""
+    kernel, marker, per_pair, rule = KERNELS[label]
+    name, instrs = _function(kernel, sass_funcs, out_dir)
     loop = inner_loop(instrs, marker, rule)
     if loop is None:
         raise SystemExit(f"no loop with {marker} in {name}")
@@ -121,6 +140,19 @@ def report(label: str, sass_funcs: dict, out_dir=None) -> dict:
         "pairs_per_iteration": pairs,
         "per_pair": {o: c / pairs for o, c in ops.most_common()},
         "per_pair_total": len(loop) / pairs}
+
+
+def dispatch_report(label: str, sass_funcs: dict, out_dir=None) -> dict:
+    """How one entry of :data:`DISPATCH` compiled its switch: branches,
+    selects and the ``FFMA`` scales of the whole function."""
+    name, instrs = _function(DISPATCH[label], sass_funcs, out_dir)
+    ops = Counter(o.split(".")[0] for _, o, _, _ in instrs)
+    scales = sorted({m.group(1).lower() for _, o, r, _ in instrs
+                     if o.startswith("FFMA") for m in _FLOAT_IMM.finditer(r)})
+    return {"kernel": label, "function": name, "instructions": len(instrs),
+            "branches": ops["BRA"] + ops["BRX"], "indexed_branches": ops["BRX"],
+            "selects": ops["FSEL"] + ops["SEL"], "ffma": ops["FFMA"],
+            "ffma_scales": scales, "opcodes": dict(ops.most_common())}
 
 
 def disassemble() -> dict:
@@ -141,6 +173,8 @@ def main(argv=None) -> int:
     funcs = disassemble()
     for label in KERNELS:
         print(json.dumps(report(label, funcs, args.out)))
+    for label in DISPATCH:
+        print(json.dumps(dispatch_report(label, funcs, args.out)))
     return 0
 
 

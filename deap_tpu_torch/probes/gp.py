@@ -1,0 +1,281 @@
+"""Roofline probes of the GP stack machine on the card — the port's
+counterpart of ``tools/pallas_probe_gp.py``::
+
+    python -m deap_tpu_torch.probes.gp [probe ...] [--device cuda|cpu]
+
+The interpreter's work unit is a token: one opcode read, one dispatch,
+one operation on the top of the stack for every point and, for pushes and
+binary operations, one stack-row access (K6, ``kernels/gp_interp.cu``).
+These probes strip that loop down (P5, ``kernels/probes.cu``) and add the
+costs back one at a time, at ``bench_gp.py``'s shape (pop 4096, capacity
+64, 1024 points) on full binary trees of exactly 63 tokens:
+
+  noswitch   the bare token loop: a token's constant added to the top
+  dispatch   + a switch over the bench set's nine codes (branch j
+             computes ``top * (1 + j 1e-7) + const``)
+  stackrw    + one stack-row read (even codes) or write (odd codes)
+  real63     the port's evaluator, ``gp.make_population_evaluator(...,
+             backend="cuda")`` (K6)
+
+``_tb32`` runs 32 trees a block in place of 8 and ``_unrollfull`` unrolls
+the token loop over the 63 tokens; K6 has no trees-a-block knob, so
+``real63_tb32`` runs the same evaluator as ``real63``.  Each probe reports
+ns a token, Mtok/s, the marginal ms of one evaluation and the linearity
+witness (the harness of :mod:`deap_tpu_torch.probes`: k and 2k
+evaluations, each one's constants shifted by the last one's output);
+``stackrw / real63`` in ns a token is ``fraction_of_floor``, the share of
+the interpreter's time that the stripped loop demonstrates it needs.
+``PROBE_POP`` / ``PROBE_CAP`` / ``PROBE_POINTS`` / ``PROBE_ITERS`` set the
+shape and k as in the JAX tool; the result is printed as one JSON line
+with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from .. import _xla_math, gp, kernels, random
+from .._device import resolve_device
+from ..gp.pset import Argument, Ephemeral, Primitive, freeze_pset
+from ..kernels.peaks import bound_ms
+from . import ProbeRun
+
+__all__ = ["LEN", "PROBES", "settings", "bench_pset", "full_binary_trees",
+           "make_probe_kernel", "probe_bound", "main"]
+
+LEN = 63                     # full binary tree of depth 5
+N_BRANCHES = 9               # the bench set's nodes
+PROBES = ["noswitch", "dispatch", "stackrw", "real63", "noswitch_tb32",
+          "dispatch_tb32", "real63_tb32", "dispatch_unrollfull",
+          "stackrw_unrollfull"]
+
+
+def settings() -> dict:
+    """The shape and k from the environment: ``PROBE_POP`` (4096),
+    ``PROBE_CAP`` (64), ``PROBE_POINTS`` (1024), ``PROBE_ITERS`` (32)."""
+    env = os.environ
+    return {"pop": int(env.get("PROBE_POP", 4096)),
+            "cap": int(env.get("PROBE_CAP", 64)),
+            "points": int(env.get("PROBE_POINTS", 1024)),
+            "iters": int(env.get("PROBE_ITERS", 32))}
+
+
+def bench_pset():
+    """``bench_gp.py``'s primitive set (nine codes after freezing)."""
+    ps = gp.PrimitiveSet("MAIN", 1)
+    for name in ("add", "sub", "mul", "div", "neg", "cos", "sin"):
+        func, arity = gp.safe_ops[name]
+        ps.add_primitive(func, arity, name=name)
+    ps.add_ephemeral_constant(
+        "rand101", lambda keys: random.randint(keys, (), -1, 2).float())
+    return ps
+
+
+def full_binary_trees(pset, rng, pop: int, cap: int, device=None):
+    """``(codes, consts, lengths)``: ``pop`` prefix programs, each a full
+    depth-5 tree of binary primitives over the argument and ephemeral
+    leaves — exactly :data:`LEN` tokens — from the numpy generator
+    ``rng``, drawn as the JAX tool draws them (the same codes)."""
+    nodes = list(freeze_pset(pset).pset.nodes)
+    bin_codes = [i for i, n in enumerate(nodes)
+                 if isinstance(n, Primitive) and n.arity == 2]
+    eph_codes = [i for i, n in enumerate(nodes) if isinstance(n, Ephemeral)]
+    leaf_codes = [i for i, n in enumerate(nodes)
+                  if isinstance(n, Argument)] + eph_codes
+
+    def one_tree():
+        codes, consts = [], []
+
+        def rec(d):
+            if d == 0:
+                c = leaf_codes[rng.integers(len(leaf_codes))]
+                codes.append(c)
+                consts.append(float(rng.integers(-1, 2))
+                              if c in eph_codes else 0.0)
+            else:
+                codes.append(bin_codes[rng.integers(len(bin_codes))])
+                consts.append(0.0)
+                rec(d - 1)
+                rec(d - 1)
+
+        rec(5)
+        pad = cap - len(codes)
+        return codes + [0] * pad, consts + [0.0] * pad
+
+    trees = [one_tree() for _ in range(pop)]
+    dev = resolve_device(device)
+    codes = torch.tensor(np.array([c for c, _ in trees], np.int32),
+                         device=dev)
+    consts = torch.tensor(np.array([k for _, k in trees], np.float32),
+                          device=dev)
+    return codes, consts, torch.full((pop,), LEN, dtype=torch.int32,
+                                     device=dev)
+
+
+def _scales(n_branches: int, device) -> torch.Tensor:
+    return torch.tensor([np.float32(1.0 + j * 1e-7)
+                         for j in range(n_branches)], device=device)
+
+
+def _probe_gp_plain(codes, consts, lengths, n_points: int, mode: str,
+                    tb: int, unroll: bool, n_branches: int) -> torch.Tensor:
+    """The stripped token loop, as P5 runs it: trees in blocks of ``tb``,
+    each block's stack row starting at zero and carried over its trees in
+    order.  No token reads a point's input, so a tree's value is the same
+    at every point: computed once and repeated."""
+    pop, cap = codes.shape
+    nb = -(-pop // tb)
+    pad = nb * tb - pop                  # missing trees run no token
+    c = torch.nn.functional.pad(codes.long(), (0, 0, 0, pad))
+    c = c.clamp(0, n_branches - 1).reshape(nb, tb, cap)
+    k = torch.nn.functional.pad(consts, (0, 0, 0, pad)).reshape(nb, tb, cap)
+    length = torch.nn.functional.pad(lengths.clamp(0, cap), (0, pad))
+    length = torch.full_like(length, LEN) if unroll else length
+    length = length.reshape(nb, tb)
+    scale = _scales(n_branches, codes.device)[c]
+    even = (c & 1) == 0
+    stack = torch.zeros(nb, dtype=torch.float32, device=codes.device)
+    tops = []
+    for i in range(tb):
+        top = torch.zeros_like(stack)
+        for t in range(cap - 1, -1, -1):
+            live = t < length[:, i]
+            kt, st = k[:, i, t], scale[:, i, t]
+            if mode == "noswitch":
+                new = top + kt
+            elif mode == "dispatch":
+                new = _xla_math.fma(top, st, kt)
+            else:
+                ev = even[:, i, t]
+                new = torch.where(ev, _xla_math.fma(top, st, stack) + kt,
+                                  _xla_math.fma(top, st, kt))
+                stack = torch.where(live & ~ev, top, stack)
+            top = torch.where(live, new, top)
+        tops.append(top)
+    out = torch.stack(tops, dim=1).reshape(nb * tb)[:pop]
+    return out[:, None].expand(pop, n_points).contiguous()
+
+
+def make_probe_kernel(mode: str, n_branches: int, tb: int, unroll,
+                      *, n_points: int):
+    """``run(codes, consts, lengths, x) -> (pop, n_points)``: the stripped
+    token loop ``mode`` (``noswitch`` / ``dispatch`` / ``stackrw``) over
+    ``n_branches`` codes, ``tb`` trees a block, unrolled over 63 tokens
+    when ``unroll``.  ``x`` (``(1, 1)``) shifts the constants by ``x *
+    1e-30``, so that one evaluation depends on the last.  P5 for CUDA
+    tensors, its plain version for CPU tensors.
+
+    The TPU kernel carries its stack from tree to tree over the whole
+    grid, which runs in order there; blocks on the card run in no order,
+    so the stack carries over the ``tb`` trees of a block only and starts
+    at zero (the TPU kernel's starts uninitialised).  ``noswitch`` and
+    ``dispatch`` do not touch the stack and equal the TPU kernel's
+    function on every tree."""
+    if mode not in kernels.PROBE_GP_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if not 1 <= n_branches <= N_BRANCHES:
+        raise ValueError(f"n_branches {n_branches} outside [1, {N_BRANCHES}]")
+
+    def run(codes, consts, lengths, x):
+        consts = consts + x[0, 0] * 1e-30
+        if codes.is_cuda:
+            return kernels.launch_probe_gp(
+                codes, consts.contiguous(), lengths, n_points=n_points,
+                mode=mode, tb=tb, unroll=bool(unroll), n_branches=n_branches)
+        return _probe_gp_plain(codes, consts, lengths, n_points, mode, tb,
+                               bool(unroll), n_branches)
+
+    return run
+
+
+def probe_bound(mode: str, codes, n_points: int):
+    """``(ms, by)`` of P5 on ``codes``: the tokens' codes and constants,
+    the lengths and the output moved once; one float instruction a token
+    and point, two on ``stackrw``'s reads (even codes)."""
+    pop, cap = codes.shape
+    tokens = pop * LEN
+    flts = tokens * n_points
+    if mode == "stackrw":
+        flts += int(((codes[:, :LEN] & 1) == 0).sum()) * n_points
+    return bound_ms(8 * pop * cap + 4 * pop + 4 * pop * n_points, flts=flts)
+
+
+def _marginal_tokens(run: ProbeRun, fn, args, tokens: int, iters: int):
+    def step(x):
+        return x + fn(*args, x)[:1, :1] * 1e-30
+
+    x0 = torch.ones((1, 1), dtype=torch.float32, device=run.device)
+    sec, ratio = run.marginal(step, x0, k=iters)
+    return {"ns_per_token": sec / tokens * 1e9,
+            "mtok_per_s": tokens / sec / 1e6,
+            "eval_ms": sec * 1e3, "linearity": ratio}
+
+
+def main(argv=None) -> dict:
+    """Run the probes; prints and returns the result document."""
+    ap = argparse.ArgumentParser(
+        prog="python -m deap_tpu_torch.probes.gp",
+        description="Roofline probes of the GP stack machine (P5 and K6).")
+    ap.add_argument("probes", nargs="*",
+                    help=f"probe subset (default: all of {', '.join(PROBES)})")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where to run (default cuda; cpu runs the plain "
+                         "versions)")
+    args = ap.parse_args(argv)
+    unknown = [n for n in args.probes if n not in PROBES]
+    if unknown:
+        ap.error(f"unknown probe(s) {unknown} (have: {', '.join(PROBES)})")
+    cfg = settings()
+    pop, cap, npts = cfg["pop"], cfg["cap"], cfg["points"]
+    run = ProbeRun(args.device, pop=pop, dim=cap, k_iters=cfg["iters"])
+    ps = bench_pset()
+    codes, consts, lengths = full_binary_trees(ps, np.random.default_rng(0),
+                                               pop, cap, run.device)
+    tokens = pop * LEN
+    out = {"shape": {"pop": pop, "cap": cap, "points": npts, "len": LEN},
+           "platform": run.platform, "device": run.device_line,
+           "probes": {}}
+    for name in args.probes or PROBES:
+        base, *parts = name.split("_")
+        tb = next((int(p[2:]) for p in parts if p.startswith("tb")), 8)
+        unroll = LEN if name.endswith("unrollfull") else 0
+        if base == "real63":
+            ev = gp.make_population_evaluator(
+                ps, cap, backend="cuda" if run.device.type == "cuda"
+                else "plain")
+            X = torch.linspace(-1, 1, npts, dtype=torch.float32,
+                               device=run.device)[None, :]
+
+            def fn(codes, consts, lengths, x, ev=ev, X=X):
+                return ev(codes, consts, lengths, X + x * 1e-30)
+
+            res = _marginal_tokens(run, fn, (codes, consts, lengths), tokens,
+                                   cfg["iters"])
+            res.update(route=run.route, evaluator="K6 gp_interp"
+                       if run.route == "cuda" else "plain interpreter")
+        else:
+            fn = make_probe_kernel(base, N_BRANCHES, tb, unroll,
+                                   n_points=npts)
+            res = _marginal_tokens(run, fn, (codes, consts, lengths), tokens,
+                                   cfg["iters"])
+            b, by = probe_bound(base, codes, npts)
+            res.update(route=run.route, tb=tb, unroll=unroll or 1,
+                       bound_ms=b, bound_by=by)
+        out["probes"][name] = res
+        print(f"  {name:20s} {res}", file=sys.stderr, flush=True)
+    pr = out["probes"]
+    if "real63" in pr and "stackrw" in pr:
+        out["fraction_of_floor"] = (pr["stackrw"]["ns_per_token"]
+                                    / pr["real63"]["ns_per_token"])
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -39,10 +39,13 @@ def test_port_sources_exist():
     assert len(files) >= 15
     for new in ("deap_tpu_torch/ops/hv.py", "deap_tpu_torch/ops/hypervolume.py",
                 "deap_tpu_torch/native/build.py", "deap_tpu_torch/native/hv.py",
-                "deap_tpu_torch/benchmarks/tools.py", "chip_smoke.py"):
+                "deap_tpu_torch/benchmarks/tools.py", "chip_smoke.py",
+                "deap_tpu_torch/probes/__init__.py",
+                "deap_tpu_torch/probes/ga.py", "deap_tpu_torch/probes/gp.py",
+                "deap_tpu_torch/kernels/peaks.py"):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
-               "hypervolume.cu"):
+               "hypervolume.cu", "probes.cu", "device_math.cuh"):
         assert (ROOT / "deap_tpu_torch" / "kernels" / cu).exists()
     assert (ROOT / "deap_tpu_torch" / "native" / "hv.cpp").exists()
 
@@ -92,7 +95,10 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.ops.hv, deap_tpu_torch.ops.hypervolume, "
             "deap_tpu_torch.native.hv, deap_tpu_torch.native.build, "
             "deap_tpu_torch.benchmarks.tools, deap_tpu_torch.ops.crossover, "
-            "deap_tpu_torch.ops.mutation, deap_tpu_torch.kernels.sass; "
+            "deap_tpu_torch.ops.mutation, deap_tpu_torch.kernels.sass, "
+            "deap_tpu_torch.kernels.peaks, "
+            "deap_tpu_torch.probes, deap_tpu_torch.probes.ga, "
+            "deap_tpu_torch.probes.gp; "
             "deap_tpu_torch.base.Toolbox().hypervolume; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "

@@ -7,7 +7,8 @@ skips the suite's JAX-based conftest):
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 
 On the card each kernel must equal its plain version bit for bit (the
-stated ulp bound is 0), except K5, whose sums run in another order than
+stated ulp bound is 0; the probe kernels P1–P5 too, P3's lookup
+exactly), except K5, whose sums run in another order than
 the plain sweep's: relative 1e-4 in float32 and 1e-11 in float64.  The CPU tests pin the wrappers' contract: CPU
 tensors take the plain version and count no launch, the launchers refuse
 CPU tensors, and a missing compiler raises instead of falling back.
@@ -24,6 +25,7 @@ from deap_tpu_torch.base import Fitness, Toolbox
 from deap_tpu_torch.kernels import build
 from deap_tpu_torch.ops import dominance as D, emo as E, generation as G
 from deap_tpu_torch.ops import hv as host_hv, hypervolume as H
+from deap_tpu_torch.probes import ga as PGA, gp as PGP
 
 # the tensors here are small: extra intra-op threads would only contend
 # with the suite's other test workers
@@ -76,7 +78,11 @@ def test_kernels_equal_plain_versions_on_card(st):
                                 "megakernel_gather_vary": 1,
                                 "megakernel_var_or": 0,
                                 "rows_dominate_counts": 0,
-                                "gp_interp": 0, "hv3d_sweep": 0}
+                                "gp_interp": 0, "hv3d_sweep": 0,
+                                "probe_stream_copy": 0, "probe_chain24": 0,
+                                "probe_rast_reduce": 0,
+                                "probe_hash_normal": 0, "probe_lookup": 0,
+                                "probe_row_gather": 0, "probe_gp": 0}
     assert _same(k1, p1) and _same(k2, p2) and torch.equal(w2, pw)
 
 
@@ -325,7 +331,15 @@ def test_build_digest_covers_every_source_and_flag(monkeypatch, tmp_path):
     assert [s.name for s in build.SOURCES] == ["megakernel.cu",
                                                "dominance.cu",
                                                "gp_interp.cu",
-                                               "hypervolume.cu"]
+                                               "hypervolume.cu",
+                                               "probes.cu"]
+    # the shared header is part of the library's name too
+    header = tmp_path / "device_math.cuh"
+    header.write_bytes(build.HEADERS[0].read_bytes())
+    with_header = build.digest(srcs + [header])
+    header.write_bytes(header.read_bytes() + b"\n// edit\n")
+    assert build.digest(srcs + [header]) != with_header
+    assert [h.name for h in build.HEADERS] == ["device_math.cuh"]
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -416,3 +430,108 @@ def test_sass_finds_the_innermost_compare_loop():
     rep = sass.report("K4", funcs)
     assert rep["pairs_per_iteration"] == 2 / 6
     assert rep["loop_instructions"] == 5
+
+
+_SASS_P5 = """
+		Function : _ZN12_GLOBAL__N_115probe_gp_kernelILi1ELb0EEEvPKiPKfS2_Pfxiiii
+        /*0000*/                   ISETP.GT.AND P0, PT, R4, 0x3, PT ;
+        /*0010*/              @P0 BRA 0x40 ;
+        /*0020*/                   FFMA R5, R5, 1.0000001192092895508, R6 ;
+        /*0030*/                   BRA 0x60 ;
+        /*0040*/                   FFMA R5, R5, 1.0000002384185791016, R6 ;
+        /*0050*/                   FSEL R7, R5, R6, P0 ;
+        /*0060*/                   BRX R8 -0x70 ;
+        /*0070*/                   EXIT ;
+"""
+
+
+def test_sass_reads_how_p5_compiled_its_switch():
+    from deap_tpu_torch.kernels import sass
+    rep = sass.dispatch_report("P5_dispatch", sass.functions(_SASS_P5))
+    assert rep["branches"] == 3 and rep["indexed_branches"] == 1
+    assert rep["selects"] == 1 and rep["ffma"] == 2
+    assert rep["ffma_scales"] == ["1.0000001192092895508",
+                                  "1.0000002384185791016"]
+
+
+def _probe_rows_inputs(dev, pop):
+    key = random.PRNGKey(9, device=dev)
+    k_x, k_i = random.split(key)
+    x = random.uniform(k_x, (pop, PGA.LANE), minval=-5.12, maxval=5.12)
+    idx = random.randint(k_i, (pop,), 0, pop)
+    return x, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [512, 2048, 8192])
+def test_probe_stream_and_chain_equal_plain_on_card(rows):
+    dev = _cuda()
+    x, _ = _probe_rows_inputs(dev, (1 << 16) + 96)     # a ragged last block
+    kernels.reset_launches()
+    copy, chain = PGA.stream(x, rows), PGA.chain24(x)
+    want = PGA._chain24_plain(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["probe_stream_copy"] == 1
+    assert kernels.LAUNCHES["probe_chain24"] == 1
+    assert _same(copy, x) and _same(chain, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [100, 128, 37])
+def test_probe_rast_reduce_equals_plain_on_card(dim):
+    dev = _cuda()
+    x, _ = _probe_rows_inputs(dev, (1 << 16) + 96)
+    kernels.reset_launches()
+    got = PGA.rast_reduce(x, dim)
+    want = PGA._rast_reduce_plain(x, dim)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["probe_rast_reduce"] == 1
+    assert got.shape == (x.shape[0],) and _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 12345, -7])
+def test_probe_hash_normal_equals_plain_on_card(seed):
+    dev = _cuda()
+    s = torch.tensor([seed], dtype=torch.int32, device=dev)
+    kernels.reset_launches()
+    got = PGA.hash_normal(s, (1 << 16) + 96)
+    want = PGA._hash_normal_plain(s, (1 << 16) + 96)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["probe_hash_normal"] == 1
+    assert _same(got, want)
+
+
+@pytest.mark.gpu
+def test_probe_lookup_and_row_gather_equal_plain_on_card():
+    dev = _cuda()
+    x, idx = _probe_rows_inputs(dev, (1 << 16) + 96)
+    order = torch.argsort(x[:, 0]).to(torch.int32)
+    kernels.reset_launches()
+    looked = PGA.lookup(order, idx)
+    rows = PGA.row_gather(x, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["probe_lookup"] == 1
+    assert kernels.LAUNCHES["probe_row_gather"] == 1
+    assert torch.equal(looked, order[idx.long()])
+    assert _same(rows, x[idx.long()])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unroll", [0, 63], ids=["unroll1", "unroll63"])
+@pytest.mark.parametrize("tb", [8, 32])
+@pytest.mark.parametrize("mode", ["noswitch", "dispatch", "stackrw"])
+def test_probe_gp_equals_plain_on_card(mode, tb, unroll):
+    import numpy as np
+    dev = _cuda()
+    codes, consts, lengths = PGP.full_binary_trees(
+        PGP.bench_pset(), np.random.default_rng(1), 200, 64, dev)
+    x = torch.zeros((1, 1), device=dev)
+    kernels.reset_launches()
+    got = PGP.make_probe_kernel(mode, 9, tb, unroll, n_points=1000)(
+        codes, consts, lengths, x)
+    want = PGP._probe_gp_plain(codes, consts, lengths, 1000, mode, tb,
+                               bool(unroll), 9)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["probe_gp"] == 1
+    assert got.shape == (200, 1000) and _same(got, want)

@@ -34,6 +34,7 @@ from deap_tpu_torch.engines import (EngineError, EngineNotPorted,
 from deap_tpu_torch.ops import crossover as tcx, mutation as tmut
 from deap_tpu_torch.ops import generation as tg
 from deap_tpu_torch.ops import selection as tsel
+from deap_tpu_torch.probes import ga as probes_ga, gp as probes_gp
 from deap_tpu_torch.utils.support import Statistics
 
 # the tensors here are small: extra intra-op threads would only contend
@@ -211,6 +212,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(NoCudaDevice):
         interop.population_to_torch(genome, np.zeros((4, 1)), np.ones(4, bool),
                                     (1.0,))
+    # the probe tools default to the card as well: --device cpu is asked
+    with pytest.raises(NoCudaDevice):
+        probes_ga.main(["stream", "--pop", "64"])
+    with pytest.raises(NoCudaDevice):
+        probes_gp.main(["noswitch"])
     assert tr.PRNGKey(0, device="cpu").device.type == "cpu"
 
 
