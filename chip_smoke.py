@@ -7,10 +7,14 @@
              and bind them;
 2. K1      — ``megakernel_vary`` against its plain PyTorch version on the
              card, pop 1e6 x dim 100, float32 / bfloat16 / int8 storage;
-3. K2      — ``megakernel_gather_vary`` against ``index_select`` plus the
-             plain variation, same sizes;
+3. K2      — ``megakernel_gather_vary`` (one warp a mating pair) against
+             ``index_select`` plus the plain variation, same sizes, bit
+             for bit, its time beside its byte bound;
 4. reference — one whole fused generation on a small input: the card's
-             output against the CPU path's, bit for bit;
+             output against the CPU path's, bit for bit; then, bit for
+             bit card against CPU, an ``ea_step(reevaluate_all=True)``
+             generation on the xla engine (pop 1024 x 100) and
+             ``mut_gaussian`` on a bfloat16 genome (4096 x 100);
 5. main path — ``ea_simple`` with the megakernel engine on rastrigin, pop
              1e6 x dim 100 float32, NGEN and 2*NGEN generations, five
              pairs (median marginal time per generation), best fitness
@@ -44,7 +48,10 @@
 11. reference — one GP bench generation (``bench_gp.py``: symbolic
              regression, pop 256 here) on the card against the CPU path:
              selection indices equal, trees bitwise after ``var_and``,
-             MSE within rtol 1e-5;
+             MSE within rtol 1e-5; then the same generation on the card
+             with the operators registered per tree, as the reference
+             examples register them (``lambda k, t: gp.mut_uniform(k, t,
+             expr, pset)``), against the CPU's;
 12. main path — ``bench_gp.py``'s generation at full width (pop 4096,
              tree capacity 64, 1024 points): N = 10 and 2N generations,
              three pairs (median marginal time per generation), K6 once
@@ -72,7 +79,9 @@
 16. K5      — ``hv3d_sweep`` against the plain sweep on 8192 uniform
              points (ref (1, 1, 1)) and on path A's final 1e5 x 3
              population, float32 and float64: total and slab partials,
-             two launches bitwise equal, time against its bound;
+             two launches bitwise equal, time (CUDA events, and the
+             device time alone from ``torch.profiler``) against its
+             bound;
 17. main path B — the default ``BENCH_PROBLEM=zdt1`` at POP 1e5 (2
              objectives, 30 variables, staircase ranks): a few
              generations, fronts per generation, the 2-D hypervolume at
@@ -106,8 +115,8 @@ each path.
 Tolerance: K1-K4, K6 and P1-P5 must equal their plain versions bit for
 bit (the stated ulp bound is 0; K6's NaNs compare equal whatever their
 payload; P3's lookup is exact).
-K5's running minima are exact and its sums are taken in another order
-than the plain version's: relative 1e-4 in float32 and 1e-11 in float64,
+K5's running heights are exact and its sums are taken in another order
+than the plain version's (with fused multiply-adds): relative 1e-4 in float32 and 1e-11 in float64,
 on the total and on every slab partial (relative to the total).  A
 mismatch prints the measured bound and fails.
 Any failed phase exits non-zero without the result line.  No JAX, and
@@ -795,10 +804,12 @@ GP_OP_COST = {
     "xor": (4, 0, 0), "not": (2, 0, 0), "if": (2, 0, 0)}
 
 
-def gp_toolbox(dev, pset_kind: str = "bench"):
+def gp_toolbox(dev, pset_kind: str = "bench", per_tree: bool = False):
     """bench_gp.py's primitive set, data and toolbox on ``dev``: the GP
-    operators are registered with their ``rowwise_op`` mark.  ``"all"``
-    is a second set with every opcode of K6's table."""
+    operators are registered with their ``rowwise_op`` mark, or with
+    ``per_tree`` as the reference examples register them (a lambda over
+    one key and one tree, called once a row).  ``"all"`` is a second set
+    with every opcode of K6's table."""
     import torch
     from deap_tpu_torch import base, gp, random
     from deap_tpu_torch.ops import selection
@@ -832,9 +843,14 @@ def gp_toolbox(dev, pset_kind: str = "bench"):
 
     tb = base.Toolbox()
     tb.register("evaluate_population", evaluate_all)
-    tb.register("mate", gp.cx_one_point, pset=ps)
-    tb.register("mutate", gp.mut_uniform,
-                expr=lambda kk: gen_mut(kk, 0, 2), pset=ps)
+    if per_tree:
+        tb.register("mate", lambda k, a, b: gp.cx_one_point(k, a, b, ps))
+        tb.register("mutate", lambda k, t: gp.mut_uniform(
+            k, t, lambda kk: gen_mut(kk, 0, 2), ps))
+    else:
+        tb.register("mate", gp.cx_one_point, pset=ps)
+        tb.register("mutate", gp.mut_uniform,
+                    expr=lambda kk: gen_mut(kk, 0, 2), pset=ps)
     tb.register("select", selection.sel_tournament, tournsize=3)
     gen_init = gp.make_generator(ps, GP_CAP, "half_and_half")
     return ps, tb, pop_ev, gen_init, X
@@ -989,6 +1005,73 @@ def gp_reference_phase(card_line, key, dev) -> None:
              f"fitness rel err {rel}")
     if ev_dev.last_backend != ev_dev.resolve(pop_dev.genome[1]):
         fail("the card's evaluator did not take its device's route")
+    # the reference examples' per-tree registration on the card: one
+    # operator call a row, the same generation as the CPU's rowwise one
+    _, tb_tree, ev_tree, _, _ = gp_toolbox(dev, per_tree=True)
+    _, off_tree, idx_tree = gp_generation(tb_tree, k_gen.to(dev), pop_dev)
+    same_idx = torch.equal(idx_cpu, idx_tree.cpu())
+    same_off = all(torch.equal(a, b.cpu())
+                   for a, b in zip(off_cpu.genome, off_tree.genome))
+    fd = off_tree.fitness.values.cpu()
+    rel = float(((fc - fd).abs() / fc.abs().clamp(min=1e-30)).max().item())
+    ok_fit = bool(torch.allclose(fd, fc, rtol=GP_FITNESS_RTOL, atol=0.0))
+    phase("reference: GP generation, per-tree registration, card vs CPU",
+          card_line, pop=GP_REF_POP, selection_equal=same_idx,
+          offspring_trees_bitwise=same_off, fitness_max_rel_err=rel,
+          fitness_rtol=GP_FITNESS_RTOL, backend=ev_tree.last_backend)
+    if not (same_idx and same_off and ok_fit):
+        fail("the per-tree-registered GP generation on the card differs "
+             f"from the CPU's: selection {same_idx}, trees {same_off}, "
+             f"fitness rel err {rel}")
+
+
+def fault_reference_phase(card_line, key, dev) -> None:
+    """Card against CPU, bit for bit: an ``ea_step(reevaluate_all=True)``
+    generation on the xla engine (pop 1024 x 100, the flagship's
+    operators, the fitness the largest gene: exact on both devices) and
+    ``mut_gaussian`` on a bfloat16 genome (4096 x 100)."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import ea_step, evaluate_population
+    from deap_tpu_torch.ops import crossover, mutation, selection
+    cpu = torch.device("cpu")
+    k_g, k_step, k_bf = random.split(key.cpu(), 3)
+    genome = random.uniform(k_g, (1024, DIM), minval=-5.12, maxval=5.12)
+    outs = []
+    for d in (dev, cpu):
+        tb = base.Toolbox()
+        tb.register("evaluate", lambda g: (torch.max(g),))
+        tb.register("mate", crossover.cx_two_point)
+        tb.register("mutate", mutation.mut_gaussian, mu=MU, sigma=SIGMA,
+                    indpb=INDPB)
+        tb.register("select", selection.sel_tournament, tournsize=3)
+        pop = base.Population(genome.to(d), base.Fitness.empty(
+            1024, (1.0,), device=d))
+        pop, _ = evaluate_population(tb, pop)
+        _, off, nevals = ea_step(k_step.to(d), pop, tb, CXPB, MUTPB,
+                                 reevaluate_all=True)
+        outs.append((off.genome.cpu(), off.fitness.values.cpu(),
+                     int(nevals)))
+    same = (torch.equal(outs[0][0].view(torch.int32),
+                        outs[1][0].view(torch.int32))
+            and torch.equal(outs[0][1].view(torch.int32),
+                            outs[1][1].view(torch.int32))
+            and outs[0][2] == outs[1][2])
+    phase("reference: ea_step reevaluate_all (xla engine) card vs CPU",
+          card_line, pop=1024, dim=DIM, nevals=outs[1][2],
+          bitwise_equal=same)
+    if not same:
+        fail("ea_step(reevaluate_all=True) on the card differs from the CPU")
+    g16 = genome.repeat(4, 1).to(torch.bfloat16)
+    m = [mutation.mut_gaussian(k_bf.to(d), g16.to(d), 0.5, SIGMA, 0.2).cpu()
+         for d in (dev, cpu)]
+    same = (m[0].dtype == torch.bfloat16
+            and torch.equal(m[0].view(torch.int16), m[1].view(torch.int16)))
+    phase("reference: bfloat16 mut_gaussian card vs CPU", card_line,
+          shape=list(g16.shape), mutated_share=float(
+              (m[1] != g16).float().mean().item()), bitwise_equal=same)
+    if not same:
+        fail("bfloat16 mut_gaussian on the card differs from the CPU")
 
 
 def gp_main_path(kernels, card_line, key, dev):
@@ -1386,18 +1469,21 @@ def bench_nsga2_main_path_a(kernels, card_line, key):
 
 def k5_bound(n: int, dtype: str):
     """K5's least time: the four arrays read and one partial per 128
-    prefixes written once; n * n pair steps of an integer compare, a
-    minimum (predicated on the compare, which takes the select's place),
-    a subtract, a maximum and a multiply-add.  In float32 the compare,
-    the minimum and the maximum run at the compare rate and the other
-    two at the float32 rate; in float64 the four floating instructions
-    run at the float64 rate."""
+    prefixes written once; n * n pair steps of an integer compare (is the
+    slot in the prefix), a maximum of the running height predicated on
+    it, and a multiply-add into the area.  The JAX form's running minimum
+    needs a subtract and a clamp more a pair step; the running maximum of
+    the heights ref_y - y, subtracted once a slot, is the same value
+    exactly (kernels/hypervolume.cu), so they are not charged.  In
+    float32 the compare and the maximum run at the compare rate and the
+    multiply-add at the float32 rate; in float64 the compare at the
+    integer rate, the maximum and the multiply-add at the float64 rate."""
     elt = 4 if dtype == "float32" else 8
     n_bytes = (3 * elt + 4) * n + elt * -(-n // 128)
     pairs = float(n) * n
     if dtype == "float32":
-        return bound_ms(n_bytes, 3 * pairs, 2 * pairs)
-    return bound_ms(n_bytes, pairs, 0, 4 * pairs)
+        return bound_ms(n_bytes, 2 * pairs, pairs)
+    return bound_ms(n_bytes, pairs, 0, 2 * pairs)
 
 
 def k5_check(kernels, card_line, label: str, points, ref) -> dict:
@@ -1435,6 +1521,11 @@ def k5_check(kernels, card_line, label: str, points, ref) -> dict:
         ys, zr, width, dz = (t.contiguous() for t in (ys, zr, width, dz))
         ms = cuda_ms(lambda: kernels.launch_hv3d_sweep(
             ys, zr, width, dz, ref_y, threads=128), reps=5, warm=1)
+        # the device time alone: at small n the host's launch work (four
+        # kernels, one scratch allocation) can exceed it
+        device_ms = _profile_window(lambda: [kernels.launch_hv3d_sweep(
+            ys, zr, width, dz, ref_y, threads=128) for _ in range(5)],
+            5)["device_busy_ms"]
         entry_ms = cuda_ms(lambda: H.hypervolume_3d_cuda(pts, ref), reps=3,
                            warm=1)
         plain_ms = cuda_ms(lambda: H.hypervolume_3d(pts, ref), reps=1,
@@ -1448,8 +1539,9 @@ def k5_check(kernels, card_line, label: str, points, ref) -> dict:
               / max(abs(truth), 1e-300),
               rel_gap_plain_to_float64_plain=abs(total_p - truth)
               / max(abs(truth), 1e-300),
-              max_abs_err=abs(total_k - total_p), ms=ms, entry_ms=entry_ms,
-              plain_ms=plain_ms, bound_ms=b, bound_by=by,
+              max_abs_err=abs(total_k - total_p), ms=ms,
+              device_ms=device_ms, entry_ms=entry_ms, plain_ms=plain_ms,
+              bound_ms=b, bound_by=by,
               launches=kernels.LAUNCHES["hv3d_sweep"] - before)
         if not repeat:
             fail(f"K5 {name} on {label}: two launches differ")
@@ -1458,8 +1550,8 @@ def k5_check(kernels, card_line, label: str, points, ref) -> dict:
                  f"{rel_parts} (relative to the total) from the plain "
                  f"version, bound {HV_RTOL[name]}")
         out[name] = {"max_abs_err": abs(total_k - total_p), "ms": ms,
-                     "entry_ms": entry_ms, "plain_ms": plain_ms,
-                     "bound_ms": b, "bound_by": by}
+                     "device_ms": device_ms, "entry_ms": entry_ms,
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by}
     return out
 
 
@@ -1880,6 +1972,8 @@ def main() -> int:
             fail(f"fused_generation(gather={gather!r}) on the card differs "
                  "from the CPU path on a small input")
 
+    fault_reference_phase(card_line, random.fold_in(key, 6), dev)
+
     # ---- 5. the main path ---------------------------------------------------
     tb = base.Toolbox()
     tb.register("evaluate", benchmarks.rastrigin)
@@ -2101,7 +2195,10 @@ def main() -> int:
         "bound_ms": a64["bound_ms"], "bound_by": a64["bound_by"],
         "library_ms": None,
         "ms_by_input": {f"{c} {d}": v["ms"] for c, cs in k5.items()
-                        for d, v in cs.items()}})
+                        for d, v in cs.items()},
+        "device_ms_by_input": {f"{c} {d}": v["device_ms"]
+                               for c, cs in k5.items()
+                               for d, v in cs.items()}})
     # K6 on the population after 2N generations of the main path (its
     # other inputs are in the K6 phases above)
     ev = k6["evolved"]

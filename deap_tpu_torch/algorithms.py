@@ -314,9 +314,30 @@ def ea_tell(toolbox, population: Population, values=None, *, live=None):
 
 
 def ea_step(key, population: Population, toolbox, cxpb: float, mutpb: float,
-            *, live=None):
+            *, reevaluate_all: bool = False, live=None):
     """One full :func:`ea_simple` generation: ``(key, population,
-    nevals)``."""
+    nevals)``.
+
+    ``reevaluate_all=True`` evaluates every offspring row instead of
+    carrying the fitness of untouched rows forward (the same trajectory
+    for a deterministic evaluate, without the two fitness gathers);
+    ``nevals`` still counts the rows variation touched.  It refuses a
+    ``live`` mask, and the megakernel engine is reevaluate-all already
+    (the flag changes nothing there)."""
+    if reevaluate_all and resolve_engine(toolbox) == "xla":
+        if live is not None:
+            raise ValueError("reevaluate_all is incompatible with a live "
+                             "mask: it recomputes every row, including pads")
+        key, k_sel, k_var = random.split(key, 3)
+        idx = toolbox.select(k_sel, population.fitness, population.size)
+        genome = _map(lambda x: x[idx.long()], population.genome)
+        genome, touched = vary_genome(k_var, genome, toolbox, cxpb, mutpb)
+        fit = population.fitness
+        off = Population(genome, Fitness.empty(
+            population.size, fit.weights, fit.values.dtype,
+            fit.values.device))
+        off, _ = evaluate_population(toolbox, off)
+        return key, off, touched.sum()
     key, off = ea_ask(key, population, toolbox, cxpb, mutpb, live=live)
     off, nevals = ea_tell(toolbox, off, live=live)
     return key, off, nevals
@@ -356,11 +377,12 @@ def _no_halloffame(halloffame):
 
 
 def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
-              ngen: int, stats=None, halloffame=None, verbose=False):
+              ngen: int, stats=None, halloffame=None, verbose=False,
+              reevaluate_all: bool = False):
     """The simplest GA (reference eaSimple): per generation select, vary
-    (:func:`var_and`) and evaluate — ``ngen`` calls of :func:`ea_step`.
-    Returns ``(population, logbook)``.  Records stay on the device until
-    the run ends."""
+    (:func:`var_and`) and evaluate — ``ngen`` calls of :func:`ea_step`,
+    each with ``reevaluate_all``.  Returns ``(population, logbook)``.
+    Records stay on the device until the run ends."""
     require_ported(resolve_engine(toolbox))
     _no_halloffame(halloffame)
     key, _ = random.split(key)
@@ -369,7 +391,7 @@ def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
     records = []
     for _ in range(ngen):
         key, population, nevals = ea_step(key, population, toolbox, cxpb,
-                                          mutpb)
+                                          mutpb, reevaluate_all=reevaluate_all)
         records.append(_record(stats, population, nevals))
     return population, _logbook(stats, rec0, records, ngen, verbose)
 

@@ -66,8 +66,9 @@ def make_generator(pset, cap: int, kind: str = "half_and_half") -> Callable:
     ``kind``: "full", "grow" or "half_and_half" (a coin per tree).
     ``min_depth``/``max_depth`` are ints; ``ret_type`` is a type id or a
     ``(n,)`` tensor of them (typed ``mut_uniform`` passes the replaced
-    subtree's type).  Raises at construction if a reachable argument type
-    has no terminal."""
+    subtree's type).  One key ``(2,)`` (the JAX package's per-tree form)
+    gives one tree, ``(cap,)``, ``(cap,)`` and a scalar length.  Raises
+    at construction if a reachable argument type has no terminal."""
     if kind not in ("full", "grow", "half_and_half"):
         raise ValueError(f"unknown generator kind {kind!r}")
     f = freeze_pset(pset)
@@ -93,6 +94,11 @@ def make_generator(pset, cap: int, kind: str = "half_and_half") -> Callable:
         return min(cap, sum(max_arity ** d for d in range(max_depth + 1)))
 
     def gen(keys, min_depth: int, max_depth: int, ret_type=None):
+        if keys.ndim == 1:
+            if torch.is_tensor(ret_type):
+                ret_type = ret_type.reshape(1)
+            return tuple(x[0] for x in gen(keys[None], min_depth,
+                                           max_depth, ret_type))
         dev = keys.device
         t = f.tables(dev)
         n = keys.shape[0]

@@ -107,17 +107,24 @@ class PopulationEvaluator:
         return out
 
 
-def make_population_evaluator(pset, cap: int, *,
-                              backend: str = "auto") -> PopulationEvaluator:
+def make_population_evaluator(pset, cap: int, *, backend: str = "auto",
+                              block_trees: int = 8) -> PopulationEvaluator:
     """The population evaluator.  ``backend="auto"`` takes K6 when ``X``
     is a CUDA tensor and the plain interpreter when it is on the CPU;
     ``"cuda"`` insists on K6 and ``"plain"`` on the plain interpreter.
     A primitive set with a primitive outside the op-kind table raises
     :class:`~deap_tpu_torch.gp.interp_cuda.KernelFormUnavailable` on a
     CUDA request (at construction for ``"cuda"``, at the call for
-    ``"auto"``): nothing switches to the plain interpreter unasked."""
+    ``"auto"``): nothing switches to the plain interpreter unasked.
+
+    ``block_trees`` is the JAX package's trees per Pallas grid step; it
+    is validated as there (``ValueError`` below 1) and otherwise
+    ignored: K6 runs one thread block per tree and tile of 128 points
+    (``kernels/gp_interp.cu``), so it has no tree blocking to tune."""
     if backend not in ("auto", "plain", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
+    if block_trees < 1:
+        raise ValueError(f"block_trees must be >= 1, got {block_trees}")
     return PopulationEvaluator(pset, cap, backend)
 
 

@@ -9,7 +9,9 @@ with one key per row — ``keys`` ``(n, 2)``, trees ``codes``/``consts``
 operator on ``keys[i]``.  The operators carry the ``rowwise_op`` mark,
 so :func:`deap_tpu_torch.algorithms.var_and` calls them once with
 ``split(key, n)``, as the JAX package's ``jax.vmap(tool)(split(key, n),
-...)``.
+...)``.  Called with one key and one tree (the JAX package's per-tree
+form, as in ``lambda k, t: gp.mut_uniform(k, t, expr, pset)``) they
+return one tree (:func:`deap_tpu_torch.ops._dispatch.rowwise_op`).
 
 For prefix arrays the subtree rooted at ``i`` ends at the first ``j >=
 i`` where ``cumsum(1 - arity)`` exceeds its value before ``i`` by one.

@@ -26,7 +26,7 @@ import torch
 __all__ = ["LAUNCHES", "KernelLaunchError", "reset_launches", "load",
            "launch_vary", "launch_gather_vary", "launch_var_or",
            "launch_rows_dominate_counts", "launch_gp_interp",
-           "launch_hv3d_sweep", "launch_probe_stream_copy",
+           "launch_hv3d_sweep", "hv3d_chunks", "launch_probe_stream_copy",
            "launch_probe_chain24", "launch_probe_rast_reduce",
            "launch_probe_hash_normal", "launch_probe_lookup",
            "launch_probe_row_gather", "launch_probe_gp", "PROBE_GP_MODES"]
@@ -78,7 +78,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.gp_interp.argtypes = [p, p, p, p, p, p, i, p, ll, i, i, i, p]
             lib.gp_interp.restype = i
             lib.hv3d_sweep.argtypes = [p, p, p, p, ctypes.c_double, p, i, i,
-                                       i, p]
+                                       i, p, p, p, p, i, p]
             lib.hv3d_sweep.restype = i
             lib.probe_stream_copy.argtypes = [p, p, ll, i, p]
             lib.probe_chain24.argtypes = [p, p, ll, p]
@@ -242,13 +242,40 @@ def launch_gp_interp(codes, consts, lengths, X, op_kind,
     return out
 
 
+#: hypervolume.cu's prefixes a warp, and the warps an SM should hold
+HV3D_GROUP = 256
+HV3D_WARPS_PER_SM = 12
+#: the shortest j chunk worth a warp of its own
+HV3D_MIN_CHUNK = 256
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def hv3d_chunks(n: int, sms: int) -> int:
+    """How many pieces K5 splits the j range into: enough warps (one per
+    128 prefixes and chunk) for :data:`HV3D_WARPS_PER_SM` on each of
+    ``sms`` SMs, with chunks of at least :data:`HV3D_MIN_CHUNK` slots."""
+    groups = -(-n // HV3D_GROUP)
+    want = -(-HV3D_WARPS_PER_SM * sms // groups)
+    return max(1, min(want, n // HV3D_MIN_CHUNK, 65535))
+
+
 def launch_hv3d_sweep(ys, zr, width, dz, ref_y: float,
                       threads: int = 128) -> torch.Tensor:
     """K5 on the card: the blocked staircase sweep over the x-sorted view
     ``ys``/``zr``/``width`` and the strip depths ``dz`` (all ``(n,)``;
     float32 or float64, ``zr`` int32).  Returns one partial volume per
     block of ``threads`` prefixes, ``(ceil(n / threads),)``; their sum
-    is the hypervolume."""
+    is the hypervolume.  The j range is split into
+    :func:`hv3d_chunks` pieces; the scratch is allocated here."""
     n = ys.shape[0]
     if ys.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"ys dtype {ys.dtype} is not float32 or float64")
@@ -261,13 +288,30 @@ def launch_hv3d_sweep(ys, zr, width, dz, ref_y: float,
     _check(zr, "zr", torch.int32, (n,))
     _check(width, "width", ys.dtype, (n,))
     _check(dz, "dz", ys.dtype, (n,))
-    out = torch.empty((-(-n // threads),), dtype=ys.dtype, device=ys.device)
+    dev = ys.device
+    chunks = hv3d_chunks(n, _sm_count(dev))
+    out = torch.empty((-(-n // threads),), dtype=ys.dtype, device=dev)
+    # one scratch allocation, in elements of ys's dtype: area (chunks, n)
+    # and, when the j range is split, gm (chunks, groups), hz (n,) and the
+    # int32 cz (n,) (8-byte aligned: every part is a whole number of
+    # elements of at least 4 bytes, cz last)
+    elt = ys.element_size()
+    parts = [chunks * n]
+    if chunks > 1:
+        parts += [chunks * -(-n // HV3D_GROUP), n, -(-n * 4 // elt)]
+    scratch = torch.empty((sum(parts),), dtype=ys.dtype, device=dev)
+    ptrs, at = [], scratch.data_ptr()
+    for k in parts:
+        ptrs.append(at)
+        at += k * elt
+    ptrs += [0] * (4 - len(ptrs))
     lib = load()
-    stream = torch.cuda.current_stream(ys.device).cuda_stream
-    with torch.cuda.device(ys.device):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         rc = lib.hv3d_sweep(ys.data_ptr(), zr.data_ptr(), width.data_ptr(),
                             dz.data_ptr(), float(ref_y), out.data_ptr(), n,
-                            threads, int(ys.dtype == torch.float64), stream)
+                            threads, chunks, *ptrs,
+                            int(ys.dtype == torch.float64), stream)
     _raise_on(lib, rc, "hv3d_sweep")
     LAUNCHES["hv3d_sweep"] += 1
     return out

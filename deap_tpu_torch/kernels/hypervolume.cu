@@ -7,64 +7,78 @@
 //                    k = 1..n has the 2-D staircase area
 //                      A_k = sum_j max(ref_y - min_{i<=j, zr[i]<k} ys[i], 0)
 //                                  * width[j],
-//                    and the kernel writes, per block of prefixes,
+//                    and the kernel writes, per block of `threads` prefixes,
 //                      out[g] = sum_k A_k * dz[k-1].
 //                    The caller adds the block partials (torch.sum), as the
 //                    TPU form leaves jnp.sum(out) outside its kernel.
 //
 // The TPU body builds the (blk, n_pad) masked matrix and takes its prefix
 // minimum in log2(n_pad) shift-and-min passes, because Pallas has no scan
-// and the vector unit wants whole rows.  Here a thread owns one prefix k
-// and walks j once, carrying the running minimum and the area in
+// and the vector unit wants whole rows.  Here the same blocked O(n^2) sweep
+// walks j once per prefix, carrying the running height and the area in
 // registers: n * n pair steps, no (blk, n) intermediate, no log factor and
-// no padding (any n; the +inf / INT32_MAX / zero-width lane padding of the
-// TPU form is not needed).
+// no padding (any n).
+//
+// Heights instead of minima.  The points are clipped to ref, so every
+// height ref_y - ys[j] is >= 0, and rounded subtraction is monotone:
+// ref_y - min(ys) = max(ref_y - ys) exactly.  The running height of prefix
+// k is therefore a running maximum of the staged heights ref_y - ys[j]
+// (subtracted once per slot, not once per pair), started at 0, which is
+// exactly max(ref_y - m, 0) of the running minimum m started at +inf: no
+// subtract and no clamp per pair step.
 //
 // Bound on the card: operations.  The four input arrays are 16 n bytes
-// (1.6 MB at n = 1e5); the work is n * n pair steps of one integer
-// compare, one select, one minimum, one subtract, one maximum, one
-// multiply and one add.  Design: the block stages tiles of (ys, width, zr)
-// in shared memory as one 16-byte (float) or 24-byte (double) record, so
-// every thread of a warp reads the same record at once (a broadcast, no
-// bank conflict); the running minimum, the tile's area and the total live
-// in registers.  The area is summed per tile and the tile sums are added
-// up afterwards, so a thread's float32 sum over 1e5 strips does not run
-// sequentially through one accumulator; the block's A_k * dz products are
-// added by a fixed tree in shared memory.  No atomics: two launches on the
-// same input are bitwise equal.  The build sets --fmad=false, so h * width
-// is rounded before it is added, as in the plain PyTorch version
-// ((h * width).sum(), deap_tpu_torch/ops/hypervolume.py); the orders of
-// the sums differ, which is where kernel and plain version may part: the
-// running minima are exact, the sums are not.
+// (1.6 MB at n = 1e5); the work is n * n pair steps.  A pair step here is
+// one integer compare, one maximum predicated on it and one fused multiply-
+// add: the area's product and sum contract to an FMA (a choice: the plain
+// version rounds h * width before its sum, and its sum runs in another
+// order anyway, so the stated tolerance covers both).  Design:
+//   * register tiling: a lane owns kR = 8 consecutive prefixes, so one
+//     staged slot, read from shared memory as one broadcast record, serves
+//     eight independent max/FMA chains (float64 latency is hidden by work of
+//     the same lane, not only by other warps; 8 measured 12% faster than 4
+//     at n = 1e5 in float64 and float32);
+//   * a warp owns 256 prefixes and a block is one warp, so blocks balance
+//     over the SMs in units of one warp;
+//   * the j range is split into `chunks` (chosen by the wrapper from n and
+//     the SM count so that about 12 warps run per SM: at n = 8192 there are
+//     only 32 prefix groups, at n = 1e5 391).  Chunk c starts each prefix k
+//     at its height after slots [0, c * chunk_len): the largest height of
+//     the z-ranks below k whose x-slot lies before the chunk.  Over the
+//     z-sorted view that is an O(n) prefix maximum: per-group maxima
+//     (hv3d_groupmax_kernel), then in the sweep's warp the groups before
+//     its own and a warp scan inside it (maxima are exact, so their order
+//     does not matter).
+//   * hv3d_finalize_kernel adds each prefix's chunk areas in chunk order,
+//     multiplies by dz and adds a block's products by a fixed tree in shared
+//     memory.
+// Within a chunk a lane sums each tile's areas first and adds the tile sums
+// afterwards, so a float32 sum over 1e5 strips does not run sequentially
+// through one accumulator.  No atomics and a fixed order everywhere: two
+// launches on the same input are bitwise equal.  The running maxima are
+// exact; the sums are not, which is where kernel and plain version may part.
 //
 // float32 and float64 instantiations.  A plain C interface (no PyTorch
 // headers), built into one library with the other kernels by
 // deap_tpu_torch/kernels/build.py.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 1024;         // x-slots staged per tile
+constexpr int kR = 8;               // prefixes a lane
+constexpr int kGroup = 32 * kR;     // prefixes a warp (one block)
+constexpr int kTile = 256;          // x-slots staged at a time
 constexpr int kMaxThreads = 1024;
 
 template <typename T>
 struct Slot {                       // one x-slot of the sorted view
-  T y;
-  T w;
+  T h;                              // ref_y - ys[j]
+  T w;                              // width[j]
   int zr;
   int pad;
 };
-
-template <typename T> __device__ __forceinline__ T pos_inf();
-template <> __device__ __forceinline__ float pos_inf<float>() {
-  return CUDART_INF_F;
-}
-template <> __device__ __forceinline__ double pos_inf<double>() {
-  return CUDART_INF;
-}
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -78,58 +92,180 @@ __device__ __forceinline__ float add_rn(float a, float b) {
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
-// one min/max instruction each in float32; the heights are never NaN
-__device__ __forceinline__ float min_(float a, float b) {
-  return fminf(a, b);
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
 }
-__device__ __forceinline__ double min_(double a, double b) {
-  return fmin(a, b);
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
 }
-__device__ __forceinline__ float max_(float a, float b) {
-  return fmaxf(a, b);
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
 }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+// h = max(h, x) where `in` holds; the heights are never NaN.  float32: a
+// maximum predicated on `in` (FMNMX).  float64: fmax compiles to DSETP.MAX
+// and selects of both halves, which with the predication came to ~14
+// instructions a pair step in SASS (kernels/sass.py); one compare folded
+// into `in` and a select of the two halves do it in four.
+__device__ __forceinline__ void raise_if(bool in, float x, float& h) {
+  if (in) h = fmaxf(h, x);
+}
+__device__ __forceinline__ void raise_if(bool in, double x, double& h) {
+  h = (in & (x > h)) ? x : h;
+}
+__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_(double a, double b) {
-  return fmax(a, b);
+  return a > b ? a : b;
 }
 
 template <typename T>
-__global__ void hv3d_sweep_kernel(const T* __restrict__ ys,
-                                  const int* __restrict__ zr,
-                                  const T* __restrict__ width,
-                                  const T* __restrict__ dz, T ref_y,
-                                  T* __restrict__ out, int n) {
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max_(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+
+// The z-sorted view of the heights: hz[zr[j]] = ref_y - ys[j] and the
+// chunk of its x-slot, cz[zr[j]] = j / chunk_len (zr is a permutation of
+// 0..n-1).
+template <typename T>
+__global__ void hv3d_zview_kernel(const T* __restrict__ ys,
+                                  const int* __restrict__ zr, T ref_y,
+                                  T* __restrict__ hz, int* __restrict__ cz,
+                                  int n, int chunk_len) {
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += gridDim.x * blockDim.x) {
+    const int k = zr[j];
+    hz[k] = sub_rn(ref_y, ys[j]);
+    cz[k] = j / chunk_len;
+  }
+}
+
+// gm[c][g] (one warp a prefix group g, chunks c = 1..chunks-1): the
+// largest height among the group's z-ranks q (256 g <= q < 256 g + 256)
+// whose x-slot lies before chunk c, 0 where there is none.
+template <typename T>
+__global__ void hv3d_groupmax_kernel(const T* __restrict__ hz,
+                                     const int* __restrict__ cz,
+                                     T* __restrict__ gm, int n, int groups,
+                                     int chunks) {
+  const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (g >= groups) return;                    // the whole warp
+  const int lane = threadIdx.x & 31;
+  T h[kR];
+  int cq[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int q = g * kGroup + lane * kR + r;
+    h[r] = q < n ? hz[q] : T(0);
+    cq[r] = q < n ? cz[q] : chunks;
+  }
+  for (int c = 1; c < chunks; ++c) {
+    T m = T(0);
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      if (cq[r] < c) m = max_(m, h[r]);
+    m = warp_max(m);
+    if (lane == 0) gm[(size_t)c * groups + g] = m;
+  }
+}
+
+// area[c][k - 1]: the strip sum of prefix k over chunk c's slots
+template <typename T>
+__global__ void __launch_bounds__(32)
+hv3d_sweep_kernel(const T* __restrict__ ys, const int* __restrict__ zr,
+                  const T* __restrict__ width, T ref_y,
+                  const T* __restrict__ gm, const T* __restrict__ hz,
+                  const int* __restrict__ cz, T* __restrict__ area, int n,
+                  int chunk_len) {
   __shared__ Slot<T> tile[kTile];
-  __shared__ T partial[kMaxThreads];
-  const int k0 = blockIdx.x * blockDim.x + threadIdx.x;   // prefix k0 + 1
-  const int k = k0 + 1;            // x-slot j is in the prefix iff zr[j] < k
-  T m = pos_inf<T>();              // running minimum of the prefix's heights
-  T area = T(0);
-  for (int j0 = 0; j0 < n; j0 += kTile) {
-    const int here = n - j0 < kTile ? n - j0 : kTile;
-    __syncthreads();               // the previous tile is consumed
-    for (int t = threadIdx.x; t < here; t += blockDim.x) {
+  const int lane = threadIdx.x;
+  const int g = blockIdx.x, c = blockIdx.y;
+  const int k1 = g * kGroup + lane * kR + 1;   // prefixes k1 + r
+  const int j0 = c * chunk_len;
+  const int j1 = min(n, j0 + chunk_len);
+  T h[kR], acc[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    h[r] = T(0);
+    acc[r] = T(0);
+  }
+  if (c > 0) {
+    // the heights when chunk c begins, over the z-ranks below k with an
+    // x-slot before the chunk: the groups before g (gm), then inside group
+    // g a running maximum over the lane's ranks and a warp scan over lanes
+    T base = T(0);
+    for (int q = lane; q < g; q += 32)
+      base = max_(base, gm[(size_t)c * gridDim.x + q]);
+    base = warp_max(base);
+    T run = T(0);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int q = k1 - 1 + r;                  // z-rank of prefix k1 + r
+      if (q < n && cz[q] < c) run = max_(run, hz[q]);
+      h[r] = run;
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {          // inclusive scan over lanes
+      const T up = __shfl_up_sync(~0u, run, o);
+      if (lane >= o) run = max_(run, up);
+    }
+    T before = __shfl_up_sync(~0u, run, 1);
+    before = max_(base, lane ? before : T(0));
+#pragma unroll
+    for (int r = 0; r < kR; ++r) h[r] = max_(before, h[r]);
+  }
+  for (int t0 = j0; t0 < j1; t0 += kTile) {
+    const int here = min(kTile, j1 - t0);
+    __syncwarp();                  // the previous tile is consumed
+    for (int t = lane; t < here; t += 32) {
       Slot<T> s;
-      s.y = ys[j0 + t];
-      s.w = width[j0 + t];
-      s.zr = zr[j0 + t];
+      s.h = sub_rn(ref_y, ys[t0 + t]);
+      s.w = width[t0 + t];
+      s.zr = zr[t0 + t];
       s.pad = 0;
       tile[t] = s;
     }
-    __syncthreads();
-    T tile_area = T(0);
-#pragma unroll 8
+    __syncwarp();
+    T part[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) part[r] = T(0);
+#pragma unroll 4
     for (int t = 0; t < here; ++t) {
       const Slot<T> s = tile[t];
-      m = min_(m, s.zr < k ? s.y : pos_inf<T>());
-      const T h = max_(ref_y - m, T(0));
-      tile_area = add_rn(tile_area, mul_rn(h, s.w));
+      const int d = s.zr - k1;     // slot t is in prefix k1 + r iff d < r
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        raise_if(d < r, s.h, h[r]);
+        part[r] = fma_rn(h[r], s.w, part[r]);
+      }
     }
-    area = add_rn(area, tile_area);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[r] = add_rn(acc[r], part[r]);
   }
-  // A_k * dz[k - 1]; threads past n carry zero
-  partial[threadIdx.x] = k0 < n ? mul_rn(area, dz[k0]) : T(0);
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+    if (k1 + r <= n) area[(size_t)c * n + k1 + r - 1] = acc[r];
+}
+
+// out[g] = sum over the block's prefixes k of (sum_c area[c][k - 1]) *
+// dz[k - 1], the products added by a fixed tree
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+hv3d_finalize_kernel(const T* __restrict__ area, const T* __restrict__ dz,
+                     T* __restrict__ out, int n, int chunks) {
+  __shared__ T partial[kMaxThreads];
+  const int k0 = blockIdx.x * blockDim.x + threadIdx.x;   // prefix k0 + 1
+  T p = T(0);
+  if (k0 < n) {
+    T a = area[k0];
+    for (int c = 1; c < chunks; ++c) a = add_rn(a, area[(size_t)c * n + k0]);
+    p = mul_rn(a, dz[k0]);
+  }
+  partial[threadIdx.x] = p;
   __syncthreads();
-  // fixed tree over the next power of two of blockDim.x
   int span = 1;
   while (span < (int)blockDim.x) span <<= 1;
   for (int s = span >> 1; s > 0; s >>= 1) {
@@ -143,11 +279,22 @@ __global__ void hv3d_sweep_kernel(const T* __restrict__ ys,
 
 template <typename T>
 int launch(const void* ys, const void* zr, const void* width, const void* dz,
-           double ref_y, void* out, int n, int threads, cudaStream_t st) {
-  const int blocks = (n + threads - 1) / threads;
-  hv3d_sweep_kernel<T><<<blocks, threads, 0, st>>>(
-      (const T*)ys, (const int*)zr, (const T*)width, (const T*)dz, (T)ref_y,
-      (T*)out, n);
+           double ref_y, void* out, int n, int threads, int chunks,
+           void* area, void* gm, void* hz, void* cz, cudaStream_t st) {
+  const int chunk_len = (n + chunks - 1) / chunks;
+  const int groups = (n + kGroup - 1) / kGroup;
+  if (chunks > 1) {
+    hv3d_zview_kernel<T><<<(n + 255) / 256, 256, 0, st>>>(
+        (const T*)ys, (const int*)zr, (T)ref_y, (T*)hz, (int*)cz, n,
+        chunk_len);
+    hv3d_groupmax_kernel<T><<<(groups + 7) / 8, 256, 0, st>>>(
+        (const T*)hz, (const int*)cz, (T*)gm, n, groups, chunks);
+  }
+  hv3d_sweep_kernel<T><<<dim3(groups, chunks), 32, 0, st>>>(
+      (const T*)ys, (const int*)zr, (const T*)width, (T)ref_y,
+      (const T*)gm, (const T*)hz, (const int*)cz, (T*)area, n, chunk_len);
+  hv3d_finalize_kernel<T><<<(n + threads - 1) / threads, threads, 0, st>>>(
+      (const T*)area, (const T*)dz, (T*)out, n, chunks);
   return (int)cudaGetLastError();
 }
 
@@ -155,15 +302,21 @@ int launch(const void* ys, const void* zr, const void* width, const void* dz,
 
 // ys, width, dz (n,) float32 (is_double = 0) or float64 (1); zr (n,) int32;
 // out (ceil(n / threads),) of the same type.  threads: a multiple of 32 in
-// [32, 1024].
+// [32, 1024], the prefixes of one partial.  chunks: the j range's split,
+// 1 <= chunks <= n.  Scratch of the same float type: area (chunks, n) and,
+// when chunks > 1, gm (chunks, ceil(n / 256)), hz (n,) and int32 cz (n,).
 extern "C" int hv3d_sweep(const void* ys, const void* zr, const void* width,
                           const void* dz, double ref_y, void* out, int n,
-                          int threads, int is_double, void* stream) {
+                          int threads, int chunks, void* area, void* gm,
+                          void* hz, void* cz, int is_double, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return 0;
-  if (threads < 32 || threads > kMaxThreads || threads % 32)
+  if (threads < 32 || threads > kMaxThreads || threads % 32 || chunks < 1 ||
+      chunks > n || chunks > 65535)
     return (int)cudaErrorInvalidValue;
   if (is_double)
-    return launch<double>(ys, zr, width, dz, ref_y, out, n, threads, st);
-  return launch<float>(ys, zr, width, dz, ref_y, out, n, threads, st);
+    return launch<double>(ys, zr, width, dz, ref_y, out, n, threads, chunks,
+                          area, gm, hz, cz, st);
+  return launch<float>(ys, zr, width, dz, ref_y, out, n, threads, chunks,
+                       area, gm, hz, cz, st);
 }

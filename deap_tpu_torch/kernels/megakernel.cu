@@ -11,8 +11,8 @@
 //                                partner, first child; Gaussian mutation; or
 //                                a copy) over parent rows gathered in-kernel.
 //
-// All run one __device__ function per output element (r, c) of the
-// unpadded (n, dim) layout.  K1/K2: own row r and partner row r ^ 16 (the
+// K1 and K3 run one __device__ function per output element (r, c) of the
+// unpadded (n, dim) layout.  K1: own row r and partner row r ^ 16 (the
 // 32-row mating quantum), the pair draw hashed at the a-row min(r, r ^ 16),
 // the row gate and the gene draw hashed at (r, c), swap, mutate, narrow,
 // store.  K3: the row's choice code, the cut pair (draw 4) only in crossover
@@ -21,14 +21,42 @@
 // compute what _vary_tile and _var_or_tile compute, not their tile
 // structure.
 //
+// K2 is laid out by mating pair instead.  A block owns 256 rows (eight
+// 32-row quanta): first one thread a row resolves its winner order[pos[r]]
+// and its gate (draw 2), and one thread a pair draw 1 at lanes 0..2 and the
+// cut points, into shared memory, so the block's index loads are in flight
+// together and every hash runs once per pair or row; then each warp varies
+// the pairs (a, a + 16) given to it, one after the other.  It reads both
+// parent rows once, with the widest vector access that the row pitch and
+// the base addresses allow (16 bytes for float32 rows of 100 genes; 8 and 4
+// bytes for the 200-byte bfloat16 and 100-byte int8 rows, whose odd rows are
+// not 16-byte aligned), issues the next pair's two row loads before it
+// varies this pair, swaps in registers and writes both children from
+// registers.  Row indices come from the block and the warp (no division by
+// dim).  Draw 3 runs only in gated rows; erf_inv runs only for masked genes,
+// one masked gene of each lane per pass of the warp.
+//
 // Bound on the card: bytes.  Each element is read once from the parents (K1)
 // or the parent row (K2, K3) and written once; K2 adds the order/pos/widx
 // words, K3 the ia/i2/code words and, in crossover rows, the partner's
-// swapped genes.  At 1e6 x 100 in float32 that is about 0.8 GB a call,
-// against a handful of integer ops per element for the hash.  This first
-// version keeps one thread per element with coalesced row reads (K1/K2's
-// partner row is the neighbour block's and is served from cache); TMA row
-// gathers, 16-byte vector accesses and a block-level hash are later work.
+// swapped genes.  At 1e6 x 100 in float32 that is about 0.8 GB a call.  K1
+// and K3 pay the hashes and the 64-bit index division once per element and
+// read the partner row a second time through cache; K2 pays them once per
+// pair or row, so what is left per gene is the load, the swap select, the
+// widening and narrowing and, in gated rows, draw 3.  A first form with one
+// warp a pair and no block pass walked three dependent loads a pair (pos,
+// order, the rows); the block-wide winner pass and the one-pair-ahead row
+// loads took 12% off float32 and 4-9% off the narrow types on an H100.
+// There, at 1e6 x 100, float32 runs at ~3/4 of its byte bound, with or
+// without mutation (the kernel as a pure gather and swap, mutpb = 0, takes
+// within 4% of the flagship's knobs); bfloat16 and int8 do not: as a gather
+// they take 1.6x and 2.7x their byte bounds, and mutation adds 50% and 90%
+// on top: per-gene instructions (draw 3 in gated rows, the widening and
+// narrowing, erf_inv passes in which most lanes idle), not bytes.  Queueing
+// the masked genes in shared memory to fill erf_inv's passes took 5% off
+// the narrow types and added 8% to float32, the flagship's storage: not
+// kept.  The reads are not staged through shared memory (no cp.async or
+// TMA): each row is used once, straight from registers.
 //
 // Arithmetic: uint32 wrap-around hashing, (bits >> 8) * 2^-24 uniforms,
 // floor(u * dim) cut points, and XLA's float32 erf_inv (Giles' polynomial
@@ -124,10 +152,34 @@ template <> __device__ __forceinline__ int8_t narrow<int8_t>(float v,
   return (int8_t)q;
 }
 
-// ---- the tile function, one element ----------------------------------------
-// own / partner: widened values of rows r and r ^ 16 at column c.
+// ---- the tile function -----------------------------------------------------
 // knobs: [cxpb, mutpb, mu, sigma, indpb].
 
+// the two-point crossover's swapped columns [lo, hi) from draw 1, lanes 1, 2
+__device__ __forceinline__ void cut_range(float u1, float u2, int dim,
+                                          int* lo, int* hi) {
+  int c1 = 1 + (int)floorf(__fmul_rn(u1, (float)dim));
+  c1 = c1 < dim ? c1 : dim;
+  int c2 = 1 + (int)floorf(__fmul_rn(u2, (float)(dim - 1)));
+  c2 = c2 < dim - 1 ? c2 : dim - 1;
+  if (c2 >= c1) c2 += 1;
+  *lo = c1 < c2 ? c1 : c2;
+  *hi = c1 < c2 ? c2 : c1;
+}
+
+// v plus the Gaussian noise of a masked gene whose draw is u < indpb:
+// mu + sigma * sqrt(2) * erf_inv(2un - 1), with XLA's association (the two
+// scalars multiply first, the rest is one FMA)
+__device__ __forceinline__ float add_noise(float v, float u, float mu,
+                                           float sigma, float indpb) {
+  float un = __fmul_rn(u, __fdiv_rn(1.0f, indpb));
+  un = fminf(fmaxf(un, 2.9802322387695312e-08f), 1.0f);
+  float e = xla_erf_inv(__fadd_rn(__fmul_rn(2.0f, un), -1.0f));
+  return __fadd_rn(v, __fmaf_rn(e, __fmul_rn(sigma, 1.4142135381698608f), mu));
+}
+
+// one element: own / partner are the widened values of rows r and r ^ 16 at
+// column c
 __device__ __forceinline__ float vary_element(float own, float partner,
                                               long long r, int c, int dim,
                                               uint32_t seed,
@@ -140,25 +192,14 @@ __device__ __forceinline__ float vary_element(float own, float partner,
   float u0 = uniform_at(seed, 1u, a_row, 0u);
   float u1 = uniform_at(seed, 1u, a_row, 1u);
   float u2 = uniform_at(seed, 1u, a_row, 2u);
-  int c1 = 1 + (int)floorf(__fmul_rn(u1, (float)dim));
-  c1 = c1 < dim ? c1 : dim;
-  int c2 = 1 + (int)floorf(__fmul_rn(u2, (float)(dim - 1)));
-  c2 = c2 < dim - 1 ? c2 : dim - 1;
-  if (c2 >= c1) c2 += 1;
-  int lo = c1 < c2 ? c1 : c2, hi = c1 < c2 ? c2 : c1;
+  int lo, hi;
+  cut_range(u1, u2, dim, &lo, &hi);
   float v = (u0 < cxpb && c >= lo && c < hi) ? partner : own;
   // Gaussian mutation: row gate (draw 2, lane 0), mask and noise (draw 3)
   uint32_t row = (uint32_t)(r + row_base0);
   if (uniform_at(seed, 2u, row, 0u) < mutpb) {
     float u = uniform_at(seed, 3u, row, (uint32_t)c);
-    if (u < indpb) {
-      float un = __fmul_rn(u, __fdiv_rn(1.0f, indpb));
-      un = fminf(fmaxf(un, 2.9802322387695312e-08f), 1.0f);
-      // mu + sigma * sqrt(2) * erf_inv(2un - 1), with XLA's association:
-      // the two scalars multiply first, the rest is one FMA
-      float e = xla_erf_inv(__fadd_rn(__fmul_rn(2.0f, un), -1.0f));
-      v = __fadd_rn(v, __fmaf_rn(e, __fmul_rn(sigma, 1.4142135381698608f), mu));
-    }
+    if (u < indpb) v = add_noise(v, u, mu, sigma, indpb);
   }
   return v;
 }
@@ -182,29 +223,192 @@ __global__ void vary_kernel(const T* __restrict__ parents, T* __restrict__ out,
   }
 }
 
+// ---- K2: one warp per mating pair -----------------------------------------
+
+template <int V> struct VecOf;
+template <> struct VecOf<16> { using type = uint4; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<4> { using type = unsigned int; };
+template <> struct VecOf<2> { using type = unsigned short; };
+template <> struct VecOf<1> { using type = unsigned char; };
+
+// an element's stored bits
+template <typename T> struct RawOf { using type = T; };
+template <> struct RawOf<__nv_bfloat16> { using type = unsigned short; };
+
+// V bytes of a row: one vector access, or its V / sizeof(T) elements
+template <typename T, int V>
+union Pack {
+  typename VecOf<V>::type v;
+  typename RawOf<T>::type e[V / sizeof(T)];
+};
+
+__device__ __forceinline__ float widen_raw(float v, const Storage&) {
+  return v;
+}
+__device__ __forceinline__ float widen_raw(unsigned short v,
+                                           const Storage&) {
+  return __bfloat162float(__ushort_as_bfloat16(v));
+}
+__device__ __forceinline__ float widen_raw(int8_t v, const Storage& s) {
+  return __fmul_rn((float)v, s.scale);
+}
 template <typename T>
-__global__ void gather_vary_kernel(const int* __restrict__ order,
-                                   const int* __restrict__ pos,
-                                   const T* __restrict__ genome,
-                                   T* __restrict__ out, int* __restrict__ widx,
-                                   long long out_n, int dim, Storage st,
-                                   const int* __restrict__ seed,
-                                   const float* __restrict__ knobs,
-                                   long long row_base0) {
+__device__ __forceinline__ typename RawOf<T>::type narrow_raw(
+    float v, const Storage& s) {
+  return narrow<T>(v, s);
+}
+template <>
+__device__ __forceinline__ unsigned short narrow_raw<__nv_bfloat16>(
+    float v, const Storage& s) {
+  return __bfloat16_as_ushort(narrow<__nv_bfloat16>(v, s));
+}
+
+constexpr int kPairWarps = 8;                 // warps a block
+constexpr int kBatchRows = 256;               // rows a block: 8 quanta
+constexpr int kBatchPairs = kBatchRows / 2;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kPairWarps * 32)
+gather_vary_kernel(const int* __restrict__ order, const int* __restrict__ pos,
+                   const T* __restrict__ genome, T* __restrict__ out,
+                   int* __restrict__ widx, long long out_n, int dim,
+                   Storage st, const int* __restrict__ seed,
+                   const float* __restrict__ knobs, long long row_base0) {
+  using Vec = typename VecOf<V>::type;
+  constexpr int E = V / (int)sizeof(T);       // elements a vector access
+  __shared__ int s_w[kBatchRows];             // winner of each row
+  __shared__ unsigned char s_gate[kBatchRows];
+  __shared__ int s_lo[kBatchPairs], s_hi[kBatchPairs];   // swapped columns
   const uint32_t s = (uint32_t)seed[0];
-  const long long total = out_n * (long long)dim;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    long long r = i / dim;
-    int c = (int)(i - r * dim);
-    long long w = order[pos[r]];
-    long long wp = order[pos[r ^ 16]];
-    if (c == 0) widx[r] = (int)w;
-    float own = widen(genome[w * dim + c], st);
-    float partner = widen(genome[wp * dim + c], st);
-    out[i] = narrow<T>(vary_element(own, partner, r, c, dim, s, knobs,
-                                    row_base0), st);
+  const float cxpb = knobs[0], mutpb = knobs[1], mu = knobs[2],
+              sigma = knobs[3], indpb = knobs[4];
+  const long long row0 = (long long)blockIdx.x * kBatchRows;
+  const int t = threadIdx.x;
+  // 1. per row, one thread: the winner, the gate (draw 2) and, in a-rows,
+  //    draw 1 at lanes 0..2 and the cut points; all rows' index loads are
+  //    in flight together
+  if (row0 + t < out_n) {
+    const long long r = row0 + t;
+    const int w = order[pos[r]];
+    widx[r] = w;
+    s_w[t] = w;
+    const uint32_t row = (uint32_t)(r + row_base0);
+    s_gate[t] = uniform_at(s, 2u, row, 0u) < mutpb;
+    if (!(t & 16)) {
+      int lo, hi;
+      cut_range(uniform_at(s, 1u, row, 1u), uniform_at(s, 1u, row, 2u), dim,
+                &lo, &hi);
+      if (!(uniform_at(s, 1u, row, 0u) < cxpb)) hi = lo;   // no mating
+      const int pi = ((t >> 5) << 4) | (t & 15);
+      s_lo[pi] = lo;
+      s_hi[pi] = hi;
+    }
   }
+  __syncthreads();
+  // 2. warp w varies the pairs w, w + 8, ... of the block: item (pair,
+  //    chunk of 32 vectors), the next item's two row loads issued before
+  //    this item is varied
+  const int lane = t & 31, warp = t >> 5;
+  const long long left = out_n - row0;
+  const int pairs_here = (left < kBatchRows ? (int)left : kBatchRows) / 2;
+  const int nvec = dim / E;
+  const int nch = (nvec + 31) / 32;
+  const int my_pairs = (pairs_here - warp + kPairWarps - 1) / kPairWarps;
+  const int items = my_pairs > 0 ? my_pairs * nch : 0;
+  Vec na{}, nb{};
+  auto fetch = [&](int it) {
+    const int j = it / nch;
+    const int pi = warp + kPairWarps * j;
+    const int al = ((pi >> 4) << 5) | (pi & 15);
+    const int vi = (it - j * nch) * 32 + lane;
+    if (vi < nvec) {
+      na = __ldg(reinterpret_cast<const Vec*>(
+                     genome + (long long)s_w[al] * dim) + vi);
+      nb = __ldg(reinterpret_cast<const Vec*>(
+                     genome + (long long)s_w[al + 16] * dim) + vi);
+    }
+  };
+  if (items) fetch(0);
+  for (int it = 0; it < items; ++it) {
+    Pack<T, V> pa, pb;
+    pa.v = na;
+    pb.v = nb;
+    if (it + 1 < items) fetch(it + 1);
+    const int j = it / nch;
+    const int pi = warp + kPairWarps * j;
+    const int al = ((pi >> 4) << 5) | (pi & 15);
+    const int vi = (it - j * nch) * 32 + lane;
+    if (vi >= nvec) continue;
+    const int lo = s_lo[pi], hi = s_hi[pi];
+    const bool gate_a = s_gate[al], gate_b = s_gate[al + 16];
+    const long long a = row0 + al;
+    const uint32_t ra = (uint32_t)(a + row_base0), rb = ra + 16u;
+    const int c0 = vi * E;
+    float xa[E], xb[E];
+    unsigned m = 0;           // masked genes: bit e of row a, E + e of row b
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float own = widen_raw(pa.e[e], st);
+      const float par = widen_raw(pb.e[e], st);
+      const bool swap = c0 + e >= lo && c0 + e < hi;
+      xa[e] = swap ? par : own;
+      xb[e] = swap ? own : par;
+      if (gate_a && uniform_at(s, 3u, ra, (uint32_t)(c0 + e)) < indpb)
+        m |= 1u << e;
+      if (gate_b && uniform_at(s, 3u, rb, (uint32_t)(c0 + e)) < indpb)
+        m |= 1u << (E + e);
+    }
+    // one masked gene of each lane per pass: the warp runs erf_inv as many
+    // times as its busiest lane has masked genes
+    while (m) {
+      const int bit = __ffs(m) - 1;
+      m &= m - 1;
+      const bool in_b = bit >= E;
+      const int e = in_b ? bit - E : bit;
+      float v = 0.0f;
+#pragma unroll
+      for (int q = 0; q < E; ++q)
+        if (q == e) v = in_b ? xb[q] : xa[q];
+      v = add_noise(v, uniform_at(s, 3u, in_b ? rb : ra, (uint32_t)(c0 + e)),
+                    mu, sigma, indpb);
+#pragma unroll
+      for (int q = 0; q < E; ++q)
+        if (q == e) {
+          if (in_b) xb[q] = v;
+          else xa[q] = v;
+        }
+    }
+    Pack<T, V> oa, ob;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      oa.e[e] = narrow_raw<T>(xa[e], st);
+      ob.e[e] = narrow_raw<T>(xb[e], st);
+    }
+    reinterpret_cast<Vec*>(out + a * dim)[vi] = oa.v;
+    reinterpret_cast<Vec*>(out + (a + 16) * dim)[vi] = ob.v;
+  }
+}
+
+// the widest access (bytes) that divides the row pitch and both base
+// addresses; at most 8 elements, so the row buffers stay in registers
+int pair_vector_bytes(int elt, int dim, const void* genome, const void* out) {
+  int v = elt == 1 ? 8 : 16;
+  while (v > elt && ((dim * elt) % v || (uintptr_t)genome % v ||
+                     (uintptr_t)out % v))
+    v >>= 1;
+  return v;
+}
+
+template <typename T, int V>
+void launch_pairs(const int* order, const int* pos, const void* genome,
+                  void* out, int* widx, long long out_n, int dim, Storage s,
+                  const int* seed, const float* knobs, long long row_base0,
+                  cudaStream_t st) {
+  const long long blocks = (out_n + kBatchRows - 1) / kBatchRows;
+  gather_vary_kernel<T, V><<<(unsigned)blocks, kPairWarps * 32, 0, st>>>(
+      order, pos, (const T*)genome, (T*)out, widx, out_n, dim, s, seed,
+      knobs, row_base0);
 }
 
 // ---- K3: the OR-choice variation of var_or ---------------------------------
@@ -253,26 +457,15 @@ __global__ void var_or_kernel(const T* __restrict__ genome,
     float v = widen(genome[(long long)ia[r] * dim + c], st);
     if (cr == 0) {
       // two-point crossover, first child: cut pair from draw 4, lanes 0, 1
-      float u0 = uniform_at(s, 4u, (uint32_t)r, 0u);
-      float u1 = uniform_at(s, 4u, (uint32_t)r, 1u);
-      int c1 = 1 + (int)floorf(__fmul_rn(u0, (float)dim));
-      c1 = c1 < dim ? c1 : dim;
-      int c2 = 1 + (int)floorf(__fmul_rn(u1, (float)(dim - 1)));
-      c2 = c2 < dim - 1 ? c2 : dim - 1;
-      if (c2 >= c1) c2 += 1;
-      int lo = c1 < c2 ? c1 : c2, hi = c1 < c2 ? c2 : c1;
+      int lo, hi;
+      cut_range(uniform_at(s, 4u, (uint32_t)r, 0u),
+                uniform_at(s, 4u, (uint32_t)r, 1u), dim, &lo, &hi);
       if (c >= lo && c < hi)
         v = widen(genome[(long long)i2[r] * dim + c], st);
     } else if (cr == 1) {
       // Gaussian mutation: mask and noise from one gene draw (draw 5)
       float u = uniform_at(s, 5u, (uint32_t)r, (uint32_t)c);
-      if (u < indpb) {
-        float un = __fmul_rn(u, __fdiv_rn(1.0f, indpb));
-        un = fminf(fmaxf(un, 2.9802322387695312e-08f), 1.0f);
-        float e = xla_erf_inv(__fadd_rn(__fmul_rn(2.0f, un), -1.0f));
-        v = __fadd_rn(v, __fmaf_rn(e, __fmul_rn(sigma, 1.4142135381698608f),
-                                   mu));
-      }
+      if (u < indpb) v = add_noise(v, u, mu, sigma, indpb);
     }
     out[i] = store_narrow<T>(v, st);
   }
@@ -333,28 +526,28 @@ extern "C" int megakernel_gather_vary(const int* order, const int* pos,
                                       long long row_base0, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Storage s{scale, inv_scale};
-  long long total = out_n * (long long)dim;
-  if (total == 0) return 0;
-  int grid = grid_for(total);
-  switch (dtype) {
-    case 0:
-      gather_vary_kernel<float><<<grid, kThreads, 0, st>>>(
-          order, pos, (const float*)genome, (float*)out, widx, out_n, dim, s,
-          seed, knobs, row_base0);
-      break;
-    case 1:
-      gather_vary_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          order, pos, (const __nv_bfloat16*)genome, (__nv_bfloat16*)out, widx,
-          out_n, dim, s, seed, knobs, row_base0);
-      break;
-    case 2:
-      gather_vary_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-          order, pos, (const int8_t*)genome, (int8_t*)out, widx, out_n, dim, s,
-          seed, knobs, row_base0);
-      break;
+  if (out_n <= 0 || dim <= 0) return 0;
+  if (out_n % 32) return (int)cudaErrorInvalidValue;
+  const int elt = dtype == 0 ? 4 : (dtype == 1 ? 2 : 1);
+  const int v = pair_vector_bytes(elt, dim, genome, out);
+#define K2_ARGS order, pos, genome, out, widx, out_n, dim, s, seed, knobs, \
+                row_base0, st
+  switch (dtype * 32 + v) {
+    case 0 * 32 + 16: launch_pairs<float, 16>(K2_ARGS); break;
+    case 0 * 32 + 8: launch_pairs<float, 8>(K2_ARGS); break;
+    case 0 * 32 + 4: launch_pairs<float, 4>(K2_ARGS); break;
+    case 1 * 32 + 16: launch_pairs<__nv_bfloat16, 16>(K2_ARGS); break;
+    case 1 * 32 + 8: launch_pairs<__nv_bfloat16, 8>(K2_ARGS); break;
+    case 1 * 32 + 4: launch_pairs<__nv_bfloat16, 4>(K2_ARGS); break;
+    case 1 * 32 + 2: launch_pairs<__nv_bfloat16, 2>(K2_ARGS); break;
+    case 2 * 32 + 8: launch_pairs<int8_t, 8>(K2_ARGS); break;
+    case 2 * 32 + 4: launch_pairs<int8_t, 4>(K2_ARGS); break;
+    case 2 * 32 + 2: launch_pairs<int8_t, 2>(K2_ARGS); break;
+    case 2 * 32 + 1: launch_pairs<int8_t, 1>(K2_ARGS); break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef K2_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,9 @@ inner loop by the entry's marker opcode:
   dominance test needs ``2m`` compares);
 * K5 in float32 and float64: among the innermost loops (backward
   branches whose range holds no other backward branch) holding the
-  product of a pair step (``FMUL`` / ``DMUL``), the one holding the
-  most — the unrolled sweep over a tile, not its remainder loop; one
-  product is one pair step.
+  fused multiply-add of a pair step (``FFMA`` / ``DFMA``), the one
+  holding the most — the unrolled sweep over a tile, not its remainder
+  loop; one FMA is one pair step of one prefix.
 
 And, for P5's token loop (not unrolled) in each mode, how its switch
 compiled (:data:`DISPATCH`): the whole function's branches (``BRA``,
@@ -45,8 +45,8 @@ _TARGET = re.compile(r"0x([0-9a-f]+)")
 #: label -> (mangled-name part, marker opcode, markers per pair, rule)
 KERNELS = {
     "K4": ("rows_dominate_counts_kernelILi3E", "FSETP", 6, "shortest"),
-    "K5_f32": ("hv3d_sweep_kernelIfE", "FMUL", 1, "most"),
-    "K5_f64": ("hv3d_sweep_kernelIdE", "DMUL", 1, "most"),
+    "K5_f32": ("hv3d_sweep_kernelIfE", "FFMA", 1, "most"),
+    "K5_f64": ("hv3d_sweep_kernelIdE", "DFMA", 1, "most"),
 }
 #: label -> mangled-name part of P5's token loop, not unrolled
 DISPATCH = {

@@ -17,13 +17,20 @@ __all__ = ["mut_gaussian", "mut_polynomial_bounded"]
 
 
 def mut_gaussian(key, ind, mu, sigma, indpb):
-    """Add N(mu, sigma) noise to each gene with probability ``indpb``
-    (``mu + sigma * z`` is one FMA, as XLA computes it).  The noise is
-    drawn in the genome's dtype, as in the JAX package; only float32
-    normals are ported, so a narrow genome raises ``TypeError``."""
+    """Add N(mu, sigma) noise to each gene with probability ``indpb``.
+    The noise is drawn in the genome's dtype, as in the JAX package:
+    float32 (``mu + sigma * z`` is one FMA, as XLA computes it) or
+    bfloat16 (each operation rounded to bfloat16, with Python scalars
+    taken as bfloat16 constants, as jax's weak types make them)."""
     k_mask, k_noise = random.split(key)
     mask = random.bernoulli(k_mask, indpb, ind.shape)
-    noise = fma(random.normal(k_noise, ind.shape, ind.dtype), sigma, mu)
+    z = random.normal(k_noise, ind.shape, ind.dtype)
+    if ind.dtype == torch.bfloat16:
+        mu, sigma = (torch.as_tensor(v, device=ind.device).to(torch.bfloat16)
+                     if not torch.is_tensor(v) else v for v in (mu, sigma))
+        noise = z * sigma + mu
+    else:
+        noise = fma(z, sigma, mu)
     return torch.where(mask, ind + noise, ind)
 
 

@@ -207,13 +207,36 @@ def randint(key: torch.Tensor, shape: Shape, minval, maxval) -> torch.Tensor:
     return randint_from_bits(higher, lower, minval, maxval)
 
 
+# bfloat16 values of jax's constants: nextafter(-1, 0), the span
+# 1 - nextafter(-1, 0) (2 after rounding) and sqrt(2)
+_BF16_LO, _BF16_SPAN, _BF16_SQRT2 = -0.99609375, 2.0, 1.4140625
+
+
+def _uniform_bf16(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """jax's bfloat16 uniform in ``[nextafter(-1, 0), 1)``: bfloat16 has
+    7 mantissa bits, fewer than 8, so jax draws 8 random bits (the low
+    byte of the 32-bit word) and keeps their top 7; every step is a
+    bfloat16 operation (XLA computes it in float32 and rounds)."""
+    b = bits(key, shape) & 0xFF
+    one = ((b >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16)
+    u = (one - 1.0) * _BF16_SPAN + _BF16_LO
+    return torch.clamp(u, min=_BF16_LO)
+
+
 def normal(key: torch.Tensor, shape: Shape = (),
            dtype=torch.float32) -> torch.Tensor:
     """Standard normals: ``sqrt(2) * erf_inv(u)`` with ``u`` uniform in
     ``(-1, 1)``.  ``erf_inv`` follows XLA's f32 expansion
-    (:mod:`deap_tpu_torch._xla_math`)."""
+    (:mod:`deap_tpu_torch._xla_math`).  float32 or bfloat16; in
+    bfloat16 the uniform and the product are bfloat16 operations and
+    ``erf_inv`` runs in float32 on the widened uniform and is rounded,
+    as in the HLO XLA's CPU backend compiles for ``jax.random.normal``."""
+    if dtype == torch.bfloat16:
+        z = erf_inv(_uniform_bf16(key, shape).float()).to(torch.bfloat16)
+        return z * torch.tensor(_BF16_SQRT2, dtype=torch.bfloat16,
+                                device=z.device)
     if dtype != torch.float32:
-        raise TypeError("normal is ported for float32 only")
+        raise TypeError("normal is ported for float32 and bfloat16 only")
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
     u = uniform(key, shape, torch.float32, lo, 1.0)
     return erf_inv(u) * 1.4142135381698608

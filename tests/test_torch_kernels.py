@@ -87,6 +87,40 @@ def test_kernels_equal_plain_versions_on_card(st):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("st", STORAGES, ids=lambda s: s.dtype)
+@pytest.mark.parametrize("dim", [1, 3, 12, 100, 1000])
+def test_k2_pair_layout_equals_plain_on_card(st, dim):
+    """K2 (one warp a mating pair, vector accesses as wide as the row
+    pitch and the base addresses allow) against its plain version, bit
+    for bit, with ``widx`` equal: 32 output rows, and 4096 rows from a
+    genome view one row past its allocation (bfloat16 and int8 rows at
+    odd dims are then not even 4-byte aligned) at ``row_base0`` not a
+    multiple of 32."""
+    dev = _cuda()
+    key = random.PRNGKey(dim, device=dev)
+    k_g, k_o, k_p, k_s = random.split(key, 4)
+    pop = 3001
+    full = st.to_storage(random.uniform(k_g, (pop + 1, dim), minval=-5.12,
+                                        maxval=5.12))
+    knobs = torch.tensor(KNOBS, dtype=torch.float32, device=dev)
+    seed = G._seed_from_key(k_s)
+    order = torch.argsort(random.uniform(k_o, (pop,))).to(torch.int32)
+    for g, out_n, row_base0 in ((full[:pop], 32, 0), (full[1:], 4096, 229),
+                                (full[1:], 4096, 1 << 20)):
+        pos = random.randint(random.fold_in(k_p, out_n + row_base0),
+                             (out_n,), 0, pop)
+        kernels.reset_launches()
+        k2, w2 = G.megakernel_gather_vary(order, pos, g, seed, knobs,
+                                          dim=dim, storage=st,
+                                          row_base0=row_base0)
+        p2, pw = G._gather_vary_plain(order, pos, g, seed, knobs, dim, st,
+                                      row_base0)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["megakernel_gather_vary"] == 1
+        assert _same(k2, p2) and torch.equal(w2, pw)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("gather", ["dma", "host"])
 def test_generation_on_card_equals_cpu(gather):
     dev = _cuda()
@@ -259,11 +293,11 @@ def test_launchers_refuse_cpu_tensors_before_building():
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
                                         (torch.float64, 1e-11)],
                          ids=["float32", "float64"])
-@pytest.mark.parametrize("n", [1, 33, 1025, 8192])
+@pytest.mark.parametrize("n", [1, 2, 33, 127, 1025, 8192])
 def test_k5_equals_plain_on_card(n, dtype, rtol):
     """K5 against the plain sweep on the card: the total and every slab
-    partial within the stated bound, two launches bitwise equal, one
-    launch per hypervolume."""
+    partial within the stated bound, two launches bitwise equal (total
+    and partials), one launch per hypervolume."""
     dev = _cuda()
     p = random.uniform(random.PRNGKey(n, device=dev), (n, 3), maxval=1.2)
     p[::5] = p[0].clone()                               # duplicates
@@ -281,7 +315,9 @@ def test_k5_equals_plain_on_card(n, dtype, rtol):
     assert float(got) == pytest.approx(float(want), rel=rtol)
     clipped, r = H._as_points(pts, ref)
     parts = H._hv3d_cuda_partials(clipped, r, float(r[1]), 128)
+    parts2 = H._hv3d_cuda_partials(clipped, r, float(r[1]), 128)
     plain_parts = H._slab_volumes(pts, ref, 128)
+    assert torch.equal(parts.view(torch.uint8), parts2.view(torch.uint8))
     assert float((parts - plain_parts).abs().max()) <= rtol * float(want)
 
 
@@ -294,6 +330,20 @@ def test_router_runs_k5_in_float64_on_card():
     assert kernels.LAUNCHES["hv3d_sweep"] == 1
     assert got == pytest.approx(host_hv.hypervolume(pts, [1.1] * 3),
                                 abs=1e-12)
+
+
+def test_k5_chunks_fill_the_card_and_stay_long():
+    """The j range splits only where the prefix groups alone would not
+    give each SM its warps, and never into chunks under 256 slots."""
+    assert [kernels.hv3d_chunks(n, 132) for n in (1, 2, 127, 300)] == [1] * 4
+    for n in (1, 2, 127, 8192, 100_000, 200_000, 10 ** 6):
+        c = kernels.hv3d_chunks(n, 132)
+        groups = -(-n // kernels.HV3D_GROUP)
+        assert 1 <= c <= max(1, n // kernels.HV3D_MIN_CHUNK)
+        assert (c == n // kernels.HV3D_MIN_CHUNK or c == 1
+                or groups * c >= kernels.HV3D_WARPS_PER_SM * 132)
+    assert kernels.hv3d_chunks(8192, 132) > 1
+    assert kernels.hv3d_chunks(10 ** 6, 132) == 1
 
 
 def test_cpu_var_or_and_counts_take_the_plain_version():

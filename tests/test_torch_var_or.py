@@ -125,17 +125,24 @@ def test_var_or_xla_engine_matches_jax_bitwise(lam):
 
 @pytest.mark.parametrize("dtype,bound", STORAGES[1:])
 def test_var_or_xla_engine_refuses_narrow_genomes(dtype, bound):
-    """Mutation on a narrow genome draws narrow normals in the JAX
-    package (int8 it rejects); the port has float32 normals only."""
+    """Mutation on a narrow genome draws normals in the genome's dtype:
+    both packages refuse int8; bfloat16 normals are drawn as jax draws
+    them, so a bfloat16 genome varies bitwise as in the JAX package."""
     jtb, ttb = _toolboxes("xla")
     jp, tp = _pops(dtype, bound)
     key = jax.random.PRNGKey(1)
     if dtype == "int8":
         with pytest.raises(ValueError):
             jalg.var_or(key, jp, jtb, LAMBDA, 0.5, 0.5)
-    with pytest.raises(TypeError, match="float32"):
-        talg.var_or(interop.key_to_torch(key, device="cpu"), tp, ttb,
-                    LAMBDA, 0.5, 0.5)
+        with pytest.raises(TypeError, match="float32 and bfloat16"):
+            talg.var_or(interop.key_to_torch(key, device="cpu"), tp, ttb,
+                        LAMBDA, 0.5, 0.5)
+        return
+    jo = jalg.var_or(key, jp, jtb, LAMBDA, 0.5, 0.5)
+    to = talg.var_or(interop.key_to_torch(key, device="cpu"), tp, ttb,
+                     LAMBDA, 0.5, 0.5)
+    assert to.genome.dtype == torch.bfloat16
+    assert _same(jo.genome, to.genome)
 
 
 @pytest.mark.parametrize("engine", ["megakernel", "xla"])
