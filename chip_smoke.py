@@ -14,7 +14,9 @@
              output against the CPU path's, bit for bit; then, bit for
              bit card against CPU, an ``ea_step(reevaluate_all=True)``
              generation on the xla engine (pop 1024 x 100) and
-             ``mut_gaussian`` on a bfloat16 genome (4096 x 100);
+             ``mut_gaussian`` on a float32 genome (4096 x 100: ``mu`` 0
+             and 0.5 as Python numbers, ``mu`` and ``sigma`` as tensors)
+             and on a bfloat16 one;
 5. main path — ``ea_simple`` with the megakernel engine on rastrigin, pop
              1e6 x dim 100 float32, NGEN and 2*NGEN generations, five
              pairs (median marginal time per generation), best fitness
@@ -43,8 +45,9 @@
              fronts peeled per generation;
 10. the NSGA-II ``ea_step`` head (``sel_nsga2`` then K1): K1 against its
              plain version on one generation's parents (1e5 x 12, the
-             head's knobs, float32 / bfloat16 / int8), then a few
-             generations at full width with K1's launches counted;
+             head's knobs, float32 / bfloat16 / int8; its device time
+             with the launches queued beside the host-paced one), then a
+             few generations at full width with K1's launches counted;
 11. reference — one GP bench generation (``bench_gp.py``: symbolic
              regression, pop 256 here) on the card against the CPU path:
              selection indices equal, trees bitwise after ``var_and``,
@@ -92,7 +95,9 @@
              24-step FMA chain, the rastrigin row reduce (dim 100), the
              counter-hash normals, the table lookup and the row gather;
              times beside the bound and the library call (``copy_``,
-             ``order[pos]``, ``index_select``);
+             ``order[pos]``, ``index_select``); the lookup and
+             ``order[pos]`` as the median of five readings each, host-paced
+             and with the launches queued (device time);
 19. probe tool — ``python -m deap_tpu_torch.probes.ga`` in process at
              2^20 x 100, every probe, ``--recommend``, ``--json
              chip_smoke_out/probe_ga.json``: P1-P4 launched on it, every
@@ -260,9 +265,11 @@ def tile_ops(c: dict, n: int, dim: int, dtype: str):
 
 def vary_check(kernels, G, parents, seed, knobs, dim: int, st):
     """K1 on stored ``parents`` against its plain version (widen, tile,
-    narrow) on the same inputs: ``(ulp_gap, max_abs_err, ms,
-    plain_ms)``."""
+    narrow) on the same inputs: ``(ulp_gap, max_abs_err, ms, plain_ms,
+    device_ms)``, ``device_ms`` with the launches queued
+    (:func:`deap_tpu_torch.kernels.kernel_times.queued_ms`)."""
     import torch
+    from deap_tpu_torch.kernels.kernel_times import queued_ms
 
     def plain_vary():
         return G._narrow(G._vary_tile_plain(
@@ -275,10 +282,13 @@ def vary_check(kernels, G, parents, seed, knobs, dim: int, st):
     torch.cuda.synchronize()
     gap = ulp_gap(k1, p1)
     err = float((k1.float() - p1.float()).abs().max().item())
-    ms = cuda_ms(lambda: kernels.launch_vary(
-        parents, seed, knobs, dim=dim, dtype=st.dtype, scale=st.scale))
+
+    def launch():
+        kernels.launch_vary(parents, seed, knobs, dim=dim, dtype=st.dtype,
+                            scale=st.scale)
+    ms = cuda_ms(launch)
     plain = cuda_ms(plain_vary, reps=3, warm=1)
-    return gap, err, ms, plain
+    return gap, err, ms, plain, queued_ms(launch)
 
 
 def _wall_ms(fn, reps: int = 5) -> float:
@@ -682,7 +692,8 @@ def nsga2_head_phase(kernels, G, card_line, key, pop, tb) -> tuple:
     then K1).  First K1 on one generation's parents and knobs against
     its plain version in the three storage dtypes; then a few generations
     at full width with the launches counted.  Returns the launches and
-    the per-dtype ``(max_abs_err, ms, plain_ms)`` of K1 at this shape."""
+    the per-dtype ``(max_abs_err, ms, plain_ms, device_ms, bound_ms,
+    bound_by)`` of K1 at this shape."""
     import torch
     from deap_tpu_torch import random
     from deap_tpu_torch.algorithms import ea_step
@@ -697,18 +708,19 @@ def nsga2_head_phase(kernels, G, card_line, key, pop, tb) -> tuple:
     for st in (G.GenomeStorage("float32"), G.GenomeStorage("bfloat16"),
                G.GenomeStorage("int8", 1.0)):       # DTLZ2 genes: [0, 1]
         parents = st.to_storage(pop.genome[idx.long()]).contiguous()
-        gap, err, ms, plain = vary_check(kernels, G, parents, seed, knobs,
-                                         MO_DIM, st)
+        gap, err, ms, plain, dev_ms = vary_check(kernels, G, parents, seed,
+                                                 knobs, MO_DIM, st)
         b, by = bound_ms(2 * MO_POP * MO_DIM * parents.element_size() + 24,
                          *tile_ops(counts, MO_POP, MO_DIM, st.dtype))
         phase("K1 megakernel_vary vs plain, NSGA-II head inputs", card_line,
               storage=st.dtype, shape=[MO_POP, MO_DIM], ulp_gap=gap,
-              ulp_bound=ULP_BOUND, max_abs_err=err, ms=ms, plain_ms=plain,
-              bound_ms=b, bound_by=by, work=counts)
+              ulp_bound=ULP_BOUND, max_abs_err=err, ms=ms,
+              device_ms=dev_ms, plain_ms=plain, bound_ms=b, bound_by=by,
+              work=counts)
         if gap > ULP_BOUND:
             fail(f"K1 {st.dtype} on the NSGA-II head's parents: {gap} ulp "
                  f"from its plain version (bound {ULP_BOUND})")
-        checks[st.dtype] = (err, ms, plain)
+        checks[st.dtype] = (err, ms, plain, dev_ms, b, by)
 
     d0 = front_distance(pop.fitness.values)
     kernels.reset_launches()
@@ -1028,14 +1040,16 @@ def gp_reference_phase(card_line, key, dev) -> None:
 def fault_reference_phase(card_line, key, dev) -> None:
     """Card against CPU, bit for bit: an ``ea_step(reevaluate_all=True)``
     generation on the xla engine (pop 1024 x 100, the flagship's
-    operators, the fitness the largest gene: exact on both devices) and
-    ``mut_gaussian`` on a bfloat16 genome (4096 x 100)."""
+    operators, the fitness the largest gene: exact on both devices), and
+    ``mut_gaussian`` on a float32 genome (4096 x 100; ``mu`` 0 and 0.5 as
+    Python numbers, ``mu`` and ``sigma`` as tensors: the three forms of
+    the jitted program) and on a bfloat16 one."""
     import torch
     from deap_tpu_torch import base, random
     from deap_tpu_torch.algorithms import ea_step, evaluate_population
     from deap_tpu_torch.ops import crossover, mutation, selection
     cpu = torch.device("cpu")
-    k_g, k_step, k_bf = random.split(key.cpu(), 3)
+    k_g, k_step, k_bf, k_f32 = random.split(key.cpu(), 4)
     genome = random.uniform(k_g, (1024, DIM), minval=-5.12, maxval=5.12)
     outs = []
     for d in (dev, cpu):
@@ -1062,6 +1076,23 @@ def fault_reference_phase(card_line, key, dev) -> None:
           bitwise_equal=same)
     if not same:
         fail("ea_step(reevaluate_all=True) on the card differs from the CPU")
+    g32 = genome.repeat(4, 1)
+    forms = {"mu 0": (0.0, SIGMA), "mu 0.5": (0.5, SIGMA),
+             "tensor mu and sigma": (torch.tensor(0.5), torch.tensor(SIGMA))}
+    equal = {}
+    for form, (mu, sigma) in forms.items():
+        m = [mutation.mut_gaussian(
+                 k_f32.to(d), g32.to(d),
+                 *(v.to(d) if torch.is_tensor(v) else v for v in (mu, sigma)),
+                 0.2).cpu() for d in (dev, cpu)]
+        equal[form] = torch.equal(m[0].view(torch.int32),
+                                  m[1].view(torch.int32))
+    phase("reference: float32 mut_gaussian card vs CPU", card_line,
+          shape=list(g32.shape), mutated_share=float(
+              (m[1] != g32).float().mean().item()), bitwise_equal=equal)
+    if not all(equal.values()):
+        fail(f"float32 mut_gaussian on the card differs from the CPU: "
+             f"{equal}")
     g16 = genome.repeat(4, 1).to(torch.bfloat16)
     m = [mutation.mut_gaussian(k_bf.to(d), g16.to(d), 0.5, SIGMA, 0.2).cpu()
          for d in (dev, cpu)]
@@ -1686,11 +1717,17 @@ PROBE_GP_UNROLL = (0, 63)
 
 
 def probe_check(label: str, card_line, kernel, plain, library, bound,
-                exact: bool = False, **fields) -> dict:
+                exact: bool = False, readings: int = 1, **fields) -> dict:
     """One probe kernel against its plain version on the same inputs:
     bitwise (``exact``: equal integers), times beside the bound and the
-    library call's time; fails on a mismatch."""
+    library call's time; fails on a mismatch.  ``readings`` > 1: the
+    kernel and the library call are timed that many times in turns, host
+    paced and with the launches queued (device time), and the medians
+    are kept."""
+    import statistics
+
     import torch
+    from deap_tpu_torch.kernels.kernel_times import queued_ms
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     if exact:
@@ -1699,17 +1736,31 @@ def probe_check(label: str, card_line, kernel, plain, library, bound,
     else:
         gap = ulp_gap(got, want)
         err = nan_gap(got, want)[1]         # overflowed stacks hold inf
-    ms = cuda_ms(kernel, reps=20, warm=2)
+    extra = {}
+    if readings > 1:
+        times = {k: [] for k in ("ms", "library_ms", "device_ms",
+                                 "library_device_ms")}
+        for _ in range(readings):
+            times["ms"].append(cuda_ms(kernel, reps=20, warm=2))
+            times["library_ms"].append(cuda_ms(library, reps=20, warm=2))
+            times["device_ms"].append(queued_ms(kernel))
+            times["library_device_ms"].append(queued_ms(library))
+        extra = {k: statistics.median(v) for k, v in times.items()}
+        ms, library_ms = extra.pop("ms"), extra.pop("library_ms")
+        extra["readings"] = times
+    else:
+        ms = cuda_ms(kernel, reps=20, warm=2)
+        library_ms = cuda_ms(library, reps=20, warm=2) if library else None
     plain_ms = cuda_ms(plain, reps=1, warm=0)
-    library_ms = cuda_ms(library, reps=20, warm=2) if library else None
     b, by = bound
     phase(f"{label} vs plain", card_line, ulp_gap=gap, ulp_bound=ULP_BOUND,
           max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-          bound_ms=b, bound_by=by, **fields)
+          bound_ms=b, bound_by=by, **extra, **fields)
     if gap > ULP_BOUND:
         fail(f"{label}: {gap} ulp from its plain version (bound {ULP_BOUND})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b, "bound_by": by}
+            "library_ms": library_ms, "bound_ms": b, "bound_by": by,
+            **{k: v for k, v in extra.items() if k != "readings"}}
 
 
 def probe_kernels_phase(card_line, key) -> dict:
@@ -1733,6 +1784,8 @@ def probe_kernels_phase(card_line, key) -> dict:
             lambda rows=rows: PGA.stream(x, rows), lambda: x.clone(),
             lambda: copy_out.copy_(x), PGA.kernel_bound("stream", pop),
             shape=shape, rows=rows)
+        res[f"stream_rows{rows}"]["tb_per_s"] = (
+            2 * x.numel() * 4 / res[f"stream_rows{rows}"]["ms"] / 1e9)
     res["chain"] = probe_check(
         "P1 probe_chain24", card_line, lambda: PGA.chain24(x),
         lambda: PGA._chain24_plain(x), None, PGA.kernel_bound("chain", pop),
@@ -1750,7 +1803,8 @@ def probe_kernels_phase(card_line, key) -> dict:
     res["lookup"] = probe_check(
         "P3 probe_lookup", card_line, lambda: PGA.lookup(order, pos),
         lambda: order[pos.long()], lambda: order[pos],
-        PGA.kernel_bound("lookup", pop), exact=True, queries=pop)
+        PGA.kernel_bound("lookup", pop), exact=True, readings=5,
+        queries=pop)
     res["dmagather"] = probe_check(
         "P4 probe_row_gather", card_line,
         lambda: PGA.row_gather(x, pos), lambda: x[pos.long()],
@@ -1910,14 +1964,14 @@ def main() -> int:
         gs = st.to_storage(genome)
         elt = gs.element_size()
         parents = gs[widx.long()].contiguous()
-        gap1, err1, ms1, plain1 = vary_check(kernels, G, parents, seed,
-                                             knobs, DIM, st)
+        gap1, err1, ms1, plain1, dev1 = vary_check(kernels, G, parents,
+                                                   seed, knobs, DIM, st)
         ops = tile_ops(counts, POP, DIM, st.dtype)
         b1, by1 = bound_ms(2 * POP * DIM * elt + 4 + 20, *ops)
         phase("K1 megakernel_vary vs plain", card_line, storage=st.dtype,
               ulp_gap=gap1, ulp_bound=ULP_BOUND, max_abs_err=err1,
-              ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
-              shape=[POP, DIM])
+              ms=ms1, device_ms=dev1, plain_ms=plain1, bound_ms=b1,
+              bound_by=by1, shape=[POP, DIM])
         if gap1 > ULP_BOUND:
             fail(f"K1 {st.dtype}: {gap1} ulp from its plain version "
                  f"(bound {ULP_BOUND})")
@@ -1945,7 +1999,7 @@ def main() -> int:
         if gap2 > ULP_BOUND:
             fail(f"K2 {st.dtype}: {gap2} ulp from its plain version "
                  f"(bound {ULP_BOUND})")
-        report[st.dtype] = {"K1": (err1, ms1, plain1, b1, by1),
+        report[st.dtype] = {"K1": (err1, ms1, plain1, b1, by1, dev1),
                             "K2": (err2, ms2, plain2, b2, by2)}
         del gs, parents, k2, p2
         torch.cuda.empty_cache()
@@ -2144,7 +2198,7 @@ def main() -> int:
             ("megakernel_gather_vary", "K2",
              "deap_tpu/ops/generation_pallas.py:441",
              launches_main["megakernel_gather_vary"])):
-        err, ms, plain, b, by = report["float32"][tag]
+        err, ms, plain, b, by = report["float32"][tag][:5]
         errs = [report[d][tag][0] for d in report]
         if tag == "K1":
             errs += [v[0] for v in k1_head.values()]
@@ -2157,6 +2211,20 @@ def main() -> int:
     rows[0]["launches_by_path"] = {
         "ea_step live-mask": launches_live["megakernel_vary"],
         "NSGA-II ea_step head": launches_head["megakernel_vary"]}
+    # K1 at the NSGA-II head's shape beside the flagship's: host-paced
+    # ms, device ms with the launches queued, and the bound
+    rows[0]["ms_by_shape"] = {
+        **{f"{POP} x {DIM} {d}": report[d]["K1"][1] for d in report},
+        **{f"{MO_POP} x {MO_DIM} {d} (NSGA-II head)": v[1]
+           for d, v in k1_head.items()}}
+    rows[0]["device_ms_by_shape"] = {
+        **{f"{POP} x {DIM} {d}": report[d]["K1"][5] for d in report},
+        **{f"{MO_POP} x {MO_DIM} {d} (NSGA-II head)": v[3]
+           for d, v in k1_head.items()}}
+    rows[0]["bound_ms_by_shape"] = {
+        **{f"{POP} x {DIM} {d}": report[d]["K1"][3] for d in report},
+        **{f"{MO_POP} x {MO_DIM} {d} (NSGA-II head)": v[4]
+           for d, v in k1_head.items()}}
     # K3 at the main path's shape (1e5 x 12 float32), K4 at its C = n call
     err, ms, plain, b, by = k3_mo["float32"]
     rows.append({
@@ -2237,6 +2305,13 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     rows[-6]["ms_by_rows"] = {k: v["ms"] for k, v in p14.items()
                               if k.startswith("stream_")}
+    rows[-6]["library_ms_by_rows"] = {k: v["library_ms"]
+                                      for k, v in p14.items()
+                                      if k.startswith("stream_")}
+    rows[-6]["tb_per_s_by_rows"] = {k: v["tb_per_s"] for k, v in p14.items()
+                                    if k.startswith("stream_")}
+    rows[-2]["device_ms"] = p14["lookup"]["device_ms"]
+    rows[-2]["library_device_ms"] = p14["lookup"]["library_device_ms"]
     r5 = p5[("dispatch", 8, 0)]
     rows.append({
         "name": "probe_gp", "route": "cuda",

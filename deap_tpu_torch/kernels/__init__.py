@@ -332,7 +332,15 @@ def _launch_rows(name: str, x, *extra) -> torch.Tensor:
 
 
 def launch_probe_stream_copy(x, *, rows: int) -> torch.Tensor:
-    """P1's copy on the card: ``(n, 128)`` float32, ``rows`` rows a block."""
+    """P1's copy on the card: ``(n, 128)`` float32 through the bulk copier
+    (TMA), the grid cut into tiles of ``rows`` rows.  The bulk copies
+    need 16-byte aligned addresses: a view that starts elsewhere is
+    refused."""
+    if rows < 1:
+        raise ValueError(f"rows {rows} must be at least 1")
+    if x.is_cuda and x.data_ptr() % 16:
+        raise ValueError("the bulk copy needs a 16-byte aligned x (got "
+                         f"address {x.data_ptr():#x})")
     return _launch_rows("probe_stream_copy", x, rows)
 
 

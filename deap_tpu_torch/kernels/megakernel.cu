@@ -11,52 +11,55 @@
 //                                partner, first child; Gaussian mutation; or
 //                                a copy) over parent rows gathered in-kernel.
 //
-// K1 and K3 run one __device__ function per output element (r, c) of the
-// unpadded (n, dim) layout.  K1: own row r and partner row r ^ 16 (the
-// 32-row mating quantum), the pair draw hashed at the a-row min(r, r ^ 16),
-// the row gate and the gene draw hashed at (r, c), swap, mutate, narrow,
-// store.  K3: the row's choice code, the cut pair (draw 4) only in crossover
-// rows and the gene draw (draw 5) only in mutation rows.  Every draw is the
-// JAX package's counter hash of (seed, draw, row, lane), so the kernels
-// compute what _vary_tile and _var_or_tile compute, not their tile
-// structure.
+// K3 runs one __device__ function per output element (r, c) of the
+// unpadded (n, dim) layout: the row's choice code, the cut pair (draw 4)
+// only in crossover rows and the gene draw (draw 5) only in mutation rows.
+// Every draw is the JAX package's counter hash of (seed, draw, row, lane),
+// so the kernels compute what _vary_tile and _var_or_tile compute, not
+// their tile structure.
 //
-// K2 is laid out by mating pair instead.  A block owns 256 rows (eight
-// 32-row quanta): first one thread a row resolves its winner order[pos[r]]
-// and its gate (draw 2), and one thread a pair draw 1 at lanes 0..2 and the
-// cut points, into shared memory, so the block's index loads are in flight
-// together and every hash runs once per pair or row; then each warp varies
-// the pairs (a, a + 16) given to it, one after the other.  It reads both
-// parent rows once, with the widest vector access that the row pitch and
-// the base addresses allow (16 bytes for float32 rows of 100 genes; 8 and 4
-// bytes for the 200-byte bfloat16 and 100-byte int8 rows, whose odd rows are
-// not 16-byte aligned), issues the next pair's two row loads before it
-// varies this pair, swaps in registers and writes both children from
-// registers.  Row indices come from the block and the warp (no division by
-// dim).  Draw 3 runs only in gated rows; erf_inv runs only for masked genes,
-// one masked gene of each lane per pass of the warp.
+// K1 and K2 are one kernel body (pair_vary_kernel), laid out by mating
+// pair; a template flag says where row r's source comes from (K2: genome
+// row order[pos[r]], written to widx; K1: parent row r).  A block owns 256
+// rows (eight 32-row quanta): first one thread a row resolves its gate
+// (draw 2) and, for K2, its winner, and one thread a pair draw 1 at lanes
+// 0..2 and the cut points, into shared memory, so the block's index loads
+// are in flight together and every hash runs once per pair or row; then
+// the warps vary the pairs (a, a + 16).  A pair is read once, with the
+// widest vector access that the row pitch and the base addresses allow (16
+// bytes for float32 rows of 100 genes; 8 and 4 bytes for the 200-byte
+// bfloat16 and 100-byte int8 rows, whose odd rows are not 16-byte aligned),
+// over 1 << lane_bits lanes: 32 lanes for rows of more than 16 vectors (a
+// compile-time constant there), else the fewest powers of two that cover
+// the row, so that one warp takes several pairs (eight pairs of four lanes
+// at the NSGA-II head's 12 genes).  A warp issues its next item's two row
+// loads before it varies this one, swaps in registers and writes both
+// children from registers; the items are walked by counters, without a
+// division.  Draw 3 runs only in gated rows; erf_inv runs only for masked
+// genes, one masked gene of each lane per pass of the warp.
 //
 // Bound on the card: bytes.  Each element is read once from the parents (K1)
 // or the parent row (K2, K3) and written once; K2 adds the order/pos/widx
 // words, K3 the ia/i2/code words and, in crossover rows, the partner's
-// swapped genes.  At 1e6 x 100 in float32 that is about 0.8 GB a call.  K1
-// and K3 pay the hashes and the 64-bit index division once per element and
-// read the partner row a second time through cache; K2 pays them once per
-// pair or row, so what is left per gene is the load, the swap select, the
-// widening and narrowing and, in gated rows, draw 3.  A first form with one
-// warp a pair and no block pass walked three dependent loads a pair (pos,
-// order, the rows); the block-wide winner pass and the one-pair-ahead row
-// loads took 12% off float32 and 4-9% off the narrow types on an H100.
-// There, at 1e6 x 100, float32 runs at ~3/4 of its byte bound, with or
-// without mutation (the kernel as a pure gather and swap, mutpb = 0, takes
-// within 4% of the flagship's knobs); bfloat16 and int8 do not: as a gather
-// they take 1.6x and 2.7x their byte bounds, and mutation adds 50% and 90%
-// on top: per-gene instructions (draw 3 in gated rows, the widening and
-// narrowing, erf_inv passes in which most lanes idle), not bytes.  Queueing
-// the masked genes in shared memory to fill erf_inv's passes took 5% off
-// the narrow types and added 8% to float32, the flagship's storage: not
-// kept.  The reads are not staged through shared memory (no cp.async or
-// TMA): each row is used once, straight from registers.
+// swapped genes.  At 1e6 x 100 in float32 that is about 0.8 GB a call.  K3
+// pays the hashes and the 64-bit index division once per element; K1 and
+// K2 pay them once per pair or row, so what is left per gene is the load,
+// the swap select, the widening and narrowing and, in gated rows, draw 3.
+// On an H100 at 1e6 x 100: one thread an element, K1 took 0.74 ms in each
+// type (four hashes and a division a gene, every gene read twice); in the
+// pair layout 0.30 / 0.26 / 0.29 ms (float32 / bfloat16 / int8).  K2's
+// block pass and one-pair-ahead row loads took 12% off float32 and 4-9% off
+// the narrow types against a first form that walked three dependent loads a
+// pair (pos, order, the rows).  A runtime lane count with a division a work
+// item added 10% to the narrow types, which are bound by per-gene
+// instructions: the full-warp layout is a compile-time case and the items
+// are counted.  float32 runs at ~3/4 of its byte bound, with or without
+// mutation; bfloat16 and int8 do not (draw 3 in gated rows, the widening
+// and narrowing, erf_inv passes in which most lanes idle).  Queueing the
+// masked genes in shared memory to fill erf_inv's passes took 5% off the
+// narrow types and added 8% to float32, the flagship's storage: not kept.
+// The reads are not staged through shared memory (no cp.async or TMA):
+// each row is used once, straight from registers.
 //
 // Arithmetic: uint32 wrap-around hashing, (bits >> 8) * 2^-24 uniforms,
 // floor(u * dim) cut points, and XLA's float32 erf_inv (Giles' polynomial
@@ -178,52 +181,7 @@ __device__ __forceinline__ float add_noise(float v, float u, float mu,
   return __fadd_rn(v, __fmaf_rn(e, __fmul_rn(sigma, 1.4142135381698608f), mu));
 }
 
-// one element: own / partner are the widened values of rows r and r ^ 16 at
-// column c
-__device__ __forceinline__ float vary_element(float own, float partner,
-                                              long long r, int c, int dim,
-                                              uint32_t seed,
-                                              const float* knobs,
-                                              long long row_base0) {
-  const float cxpb = knobs[0], mutpb = knobs[1], mu = knobs[2],
-              sigma = knobs[3], indpb = knobs[4];
-  // two-point crossover: pair draw 1 at the a-row, lanes 0..2
-  uint32_t a_row = (uint32_t)((r & ~16LL) + row_base0);
-  float u0 = uniform_at(seed, 1u, a_row, 0u);
-  float u1 = uniform_at(seed, 1u, a_row, 1u);
-  float u2 = uniform_at(seed, 1u, a_row, 2u);
-  int lo, hi;
-  cut_range(u1, u2, dim, &lo, &hi);
-  float v = (u0 < cxpb && c >= lo && c < hi) ? partner : own;
-  // Gaussian mutation: row gate (draw 2, lane 0), mask and noise (draw 3)
-  uint32_t row = (uint32_t)(r + row_base0);
-  if (uniform_at(seed, 2u, row, 0u) < mutpb) {
-    float u = uniform_at(seed, 3u, row, (uint32_t)c);
-    if (u < indpb) v = add_noise(v, u, mu, sigma, indpb);
-  }
-  return v;
-}
-
-template <typename T>
-__global__ void vary_kernel(const T* __restrict__ parents, T* __restrict__ out,
-                            long long n, int dim, Storage st,
-                            const int* __restrict__ seed,
-                            const float* __restrict__ knobs,
-                            long long row_base0) {
-  const uint32_t s = (uint32_t)seed[0];
-  const long long total = n * (long long)dim;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    long long r = i / dim;
-    int c = (int)(i - r * dim);
-    float own = widen(parents[i], st);
-    float partner = widen(parents[(r ^ 16) * dim + c], st);
-    out[i] = narrow<T>(vary_element(own, partner, r, c, dim, s, knobs,
-                                    row_base0), st);
-  }
-}
-
-// ---- K2: one warp per mating pair -----------------------------------------
+// ---- K1 and K2: mating pairs over the lanes of a warp ----------------------
 
 template <int V> struct VecOf;
 template <> struct VecOf<16> { using type = uint4; };
@@ -268,16 +226,23 @@ constexpr int kPairWarps = 8;                 // warps a block
 constexpr int kBatchRows = 256;               // rows a block: 8 quanta
 constexpr int kBatchPairs = kBatchRows / 2;
 
-template <typename T, int V>
+// K1 (kGather false: output row r varies parent row r) and K2 (kGather
+// true: output row r varies genome row order[pos[r]], written to widx[r])
+// share this body.  A warp takes 32 >> lane_bits mating pairs at a time,
+// 1 << lane_bits lanes each; a lane moves one V-byte vector of both rows of
+// its pair.  kFull: one pair a warp (lane_bits 5, a compile-time constant:
+// rows of more than 16 vectors, the flagship's).
+template <typename T, int V, bool kGather, bool kFull>
 __global__ void __launch_bounds__(kPairWarps * 32)
-gather_vary_kernel(const int* __restrict__ order, const int* __restrict__ pos,
-                   const T* __restrict__ genome, T* __restrict__ out,
-                   int* __restrict__ widx, long long out_n, int dim,
-                   Storage st, const int* __restrict__ seed,
-                   const float* __restrict__ knobs, long long row_base0) {
+pair_vary_kernel(const int* __restrict__ order, const int* __restrict__ pos,
+                 const T* __restrict__ genome, T* __restrict__ out,
+                 int* __restrict__ widx, long long out_n, int dim,
+                 Storage st, const int* __restrict__ seed,
+                 const float* __restrict__ knobs, long long row_base0,
+                 int lane_bits_arg) {
   using Vec = typename VecOf<V>::type;
   constexpr int E = V / (int)sizeof(T);       // elements a vector access
-  __shared__ int s_w[kBatchRows];             // winner of each row
+  __shared__ int s_w[kGather ? kBatchRows : 1];   // winner of each row
   __shared__ unsigned char s_gate[kBatchRows];
   __shared__ int s_lo[kBatchPairs], s_hi[kBatchPairs];   // swapped columns
   const uint32_t s = (uint32_t)seed[0];
@@ -285,14 +250,16 @@ gather_vary_kernel(const int* __restrict__ order, const int* __restrict__ pos,
               sigma = knobs[3], indpb = knobs[4];
   const long long row0 = (long long)blockIdx.x * kBatchRows;
   const int t = threadIdx.x;
-  // 1. per row, one thread: the winner, the gate (draw 2) and, in a-rows,
-  //    draw 1 at lanes 0..2 and the cut points; all rows' index loads are
-  //    in flight together
+  // 1. per row, one thread: the winner (K2), the gate (draw 2) and, in
+  //    a-rows, draw 1 at lanes 0..2 and the cut points; all rows' index
+  //    loads are in flight together
   if (row0 + t < out_n) {
     const long long r = row0 + t;
-    const int w = order[pos[r]];
-    widx[r] = w;
-    s_w[t] = w;
+    if (kGather) {
+      const int w = order[pos[r]];
+      widx[r] = w;
+      s_w[t] = w;
+    }
     const uint32_t row = (uint32_t)(r + row_base0);
     s_gate[t] = uniform_at(s, 2u, row, 0u) < mutpb;
     if (!(t & 16)) {
@@ -306,40 +273,52 @@ gather_vary_kernel(const int* __restrict__ order, const int* __restrict__ pos,
     }
   }
   __syncthreads();
-  // 2. warp w varies the pairs w, w + 8, ... of the block: item (pair,
-  //    chunk of 32 vectors), the next item's two row loads issued before
-  //    this item is varied
+  // 2. warp w varies the pair groups w, w + 8, ... of the block: item
+  //    (group, chunk of 1 << lane_bits vectors), lane (pair of the group,
+  //    vector of the chunk), walked without a division; the next item's
+  //    two row loads are issued before this item is varied
+  const int lane_bits = kFull ? 5 : lane_bits_arg;
   const int lane = t & 31, warp = t >> 5;
+  const int sub = lane >> lane_bits, vl = lane & ((1 << lane_bits) - 1);
+  const int per_group = 32 >> lane_bits;
   const long long left = out_n - row0;
   const int pairs_here = (left < kBatchRows ? (int)left : kBatchRows) / 2;
+  const int groups = (pairs_here + per_group - 1) / per_group;
   const int nvec = dim / E;
-  const int nch = (nvec + 31) / 32;
-  const int my_pairs = (pairs_here - warp + kPairWarps - 1) / kPairWarps;
-  const int items = my_pairs > 0 ? my_pairs * nch : 0;
+  const int nch = ((nvec - 1) >> lane_bits) + 1;
+  const int my_groups = (groups - warp + kPairWarps - 1) / kPairWarps;
+  const int items = my_groups > 0 ? my_groups * nch : 0;
+  auto src = [&](int local) -> const T* {
+    if constexpr (kGather) return genome + (long long)s_w[local] * dim;
+    else return genome + (row0 + local) * dim;
+  };
+  // the lane's pair and vector in the item to vary (pi, vi) and in the
+  // next one to fetch (npi, nvi), and the next one's chunk
+  int pi = warp * per_group + sub, vi = vl;
+  int npi = pi, nvi = vi, nch_at = 0;
   Vec na{}, nb{};
-  auto fetch = [&](int it) {
-    const int j = it / nch;
-    const int pi = warp + kPairWarps * j;
-    const int al = ((pi >> 4) << 5) | (pi & 15);
-    const int vi = (it - j * nch) * 32 + lane;
-    if (vi < nvec) {
-      na = __ldg(reinterpret_cast<const Vec*>(
-                     genome + (long long)s_w[al] * dim) + vi);
-      nb = __ldg(reinterpret_cast<const Vec*>(
-                     genome + (long long)s_w[al + 16] * dim) + vi);
+  auto fetch = [&]() {
+    if (npi < pairs_here && nvi < nvec) {
+      const int al = ((npi >> 4) << 5) | (npi & 15);
+      na = __ldg(reinterpret_cast<const Vec*>(src(al)) + nvi);
+      nb = __ldg(reinterpret_cast<const Vec*>(src(al + 16)) + nvi);
     }
   };
-  if (items) fetch(0);
-  for (int it = 0; it < items; ++it) {
+  if (items) fetch();
+  for (int it = 0; it < items; ++it, pi = npi, vi = nvi) {
     Pack<T, V> pa, pb;
     pa.v = na;
     pb.v = nb;
-    if (it + 1 < items) fetch(it + 1);
-    const int j = it / nch;
-    const int pi = warp + kPairWarps * j;
+    if (++nch_at == nch) {
+      nch_at = 0;
+      npi += kPairWarps * per_group;
+      nvi = vl;
+    } else {
+      nvi += 1 << lane_bits;
+    }
+    if (it + 1 < items) fetch();
+    if (pi >= pairs_here || vi >= nvec) continue;
     const int al = ((pi >> 4) << 5) | (pi & 15);
-    const int vi = (it - j * nch) * 32 + lane;
-    if (vi >= nvec) continue;
     const int lo = s_lo[pi], hi = s_hi[pi];
     const bool gate_a = s_gate[al], gate_b = s_gate[al + 16];
     const long long a = row0 + al;
@@ -400,15 +379,60 @@ int pair_vector_bytes(int elt, int dim, const void* genome, const void* out) {
   return v;
 }
 
-template <typename T, int V>
+// log2 of the lanes a pair takes: the fewest powers of two that cover the
+// row's nvec vectors, at most 32 (a wider row is walked in chunks of 32)
+int pair_lane_bits(int nvec) {
+  int b = 0;
+  while (b < 5 && (1 << b) < nvec) ++b;
+  return b;
+}
+
+template <typename T, int V, bool kGather>
 void launch_pairs(const int* order, const int* pos, const void* genome,
                   void* out, int* widx, long long out_n, int dim, Storage s,
                   const int* seed, const float* knobs, long long row_base0,
                   cudaStream_t st) {
   const long long blocks = (out_n + kBatchRows - 1) / kBatchRows;
-  gather_vary_kernel<T, V><<<(unsigned)blocks, kPairWarps * 32, 0, st>>>(
+  const int lane_bits = pair_lane_bits(dim / (V / (int)sizeof(T)));
+  auto kernel = lane_bits == 5 ? pair_vary_kernel<T, V, kGather, true>
+                               : pair_vary_kernel<T, V, kGather, false>;
+  kernel<<<(unsigned)blocks, kPairWarps * 32, 0, st>>>(
       order, pos, (const T*)genome, (T*)out, widx, out_n, dim, s, seed,
-      knobs, row_base0);
+      knobs, row_base0, lane_bits);
+}
+
+// K1 and K2's launch: the storage type and the vector width from the row
+// pitch and the base addresses
+template <bool kGather>
+int launch_pair_kernel(const int* order, const int* pos, const void* genome,
+                       void* out, int* widx, long long out_n, int dim,
+                       int dtype, Storage s, const int* seed,
+                       const float* knobs, long long row_base0,
+                       cudaStream_t st) {
+  if (out_n <= 0 || dim <= 0) return 0;
+  if (out_n % 32 || (out_n + kBatchRows - 1) / kBatchRows > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  const int elt = dtype == 0 ? 4 : (dtype == 1 ? 2 : 1);
+  const int v = pair_vector_bytes(elt, dim, genome, out);
+#define PAIR_ARGS order, pos, genome, out, widx, out_n, dim, s, seed, knobs, \
+                  row_base0, st
+  switch (dtype * 32 + v) {
+    case 0 * 32 + 16: launch_pairs<float, 16, kGather>(PAIR_ARGS); break;
+    case 0 * 32 + 8: launch_pairs<float, 8, kGather>(PAIR_ARGS); break;
+    case 0 * 32 + 4: launch_pairs<float, 4, kGather>(PAIR_ARGS); break;
+    case 1 * 32 + 16: launch_pairs<__nv_bfloat16, 16, kGather>(PAIR_ARGS); break;
+    case 1 * 32 + 8: launch_pairs<__nv_bfloat16, 8, kGather>(PAIR_ARGS); break;
+    case 1 * 32 + 4: launch_pairs<__nv_bfloat16, 4, kGather>(PAIR_ARGS); break;
+    case 1 * 32 + 2: launch_pairs<__nv_bfloat16, 2, kGather>(PAIR_ARGS); break;
+    case 2 * 32 + 8: launch_pairs<int8_t, 8, kGather>(PAIR_ARGS); break;
+    case 2 * 32 + 4: launch_pairs<int8_t, 4, kGather>(PAIR_ARGS); break;
+    case 2 * 32 + 2: launch_pairs<int8_t, 2, kGather>(PAIR_ARGS); break;
+    case 2 * 32 + 1: launch_pairs<int8_t, 1, kGather>(PAIR_ARGS); break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PAIR_ARGS
+  return (int)cudaGetLastError();
 }
 
 // ---- K3: the OR-choice variation of var_or ---------------------------------
@@ -485,37 +509,16 @@ int grid_for(long long total) {
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 int8
+// dtype codes: 0 float32, 1 bfloat16, 2 int8; n a multiple of 32
 extern "C" int megakernel_vary(const void* parents, void* out, long long n,
                                int dim, int dtype, float scale,
                                float inv_scale, const int* seed,
                                const float* knobs, long long row_base0,
                                void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  Storage s{scale, inv_scale};
-  long long total = n * (long long)dim;
-  if (total == 0) return 0;
-  int grid = grid_for(total);
-  switch (dtype) {
-    case 0:
-      vary_kernel<float><<<grid, kThreads, 0, st>>>(
-          (const float*)parents, (float*)out, n, dim, s, seed, knobs,
-          row_base0);
-      break;
-    case 1:
-      vary_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          (const __nv_bfloat16*)parents, (__nv_bfloat16*)out, n, dim, s, seed,
-          knobs, row_base0);
-      break;
-    case 2:
-      vary_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-          (const int8_t*)parents, (int8_t*)out, n, dim, s, seed, knobs,
-          row_base0);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_pair_kernel<false>(nullptr, nullptr, parents, out, nullptr, n,
+                                   dim, dtype, Storage{scale, inv_scale},
+                                   seed, knobs, row_base0,
+                                   (cudaStream_t)stream);
 }
 
 extern "C" int megakernel_gather_vary(const int* order, const int* pos,
@@ -524,31 +527,9 @@ extern "C" int megakernel_gather_vary(const int* order, const int* pos,
                                       float scale, float inv_scale,
                                       const int* seed, const float* knobs,
                                       long long row_base0, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  Storage s{scale, inv_scale};
-  if (out_n <= 0 || dim <= 0) return 0;
-  if (out_n % 32) return (int)cudaErrorInvalidValue;
-  const int elt = dtype == 0 ? 4 : (dtype == 1 ? 2 : 1);
-  const int v = pair_vector_bytes(elt, dim, genome, out);
-#define K2_ARGS order, pos, genome, out, widx, out_n, dim, s, seed, knobs, \
-                row_base0, st
-  switch (dtype * 32 + v) {
-    case 0 * 32 + 16: launch_pairs<float, 16>(K2_ARGS); break;
-    case 0 * 32 + 8: launch_pairs<float, 8>(K2_ARGS); break;
-    case 0 * 32 + 4: launch_pairs<float, 4>(K2_ARGS); break;
-    case 1 * 32 + 16: launch_pairs<__nv_bfloat16, 16>(K2_ARGS); break;
-    case 1 * 32 + 8: launch_pairs<__nv_bfloat16, 8>(K2_ARGS); break;
-    case 1 * 32 + 4: launch_pairs<__nv_bfloat16, 4>(K2_ARGS); break;
-    case 1 * 32 + 2: launch_pairs<__nv_bfloat16, 2>(K2_ARGS); break;
-    case 2 * 32 + 8: launch_pairs<int8_t, 8>(K2_ARGS); break;
-    case 2 * 32 + 4: launch_pairs<int8_t, 4>(K2_ARGS); break;
-    case 2 * 32 + 2: launch_pairs<int8_t, 2>(K2_ARGS); break;
-    case 2 * 32 + 1: launch_pairs<int8_t, 1>(K2_ARGS); break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef K2_ARGS
-  return (int)cudaGetLastError();
+  return launch_pair_kernel<true>(order, pos, genome, out, widx, out_n, dim,
+                                  dtype, Storage{scale, inv_scale}, seed,
+                                  knobs, row_base0, (cudaStream_t)stream);
 }
 
 extern "C" int megakernel_var_or(const void* genome, const int* ia,

@@ -18,20 +18,36 @@ __all__ = ["mut_gaussian", "mut_polynomial_bounded"]
 
 def mut_gaussian(key, ind, mu, sigma, indpb):
     """Add N(mu, sigma) noise to each gene with probability ``indpb``.
-    The noise is drawn in the genome's dtype, as in the JAX package:
-    float32 (``mu + sigma * z`` is one FMA, as XLA computes it) or
-    bfloat16 (each operation rounded to bfloat16, with Python scalars
-    taken as bfloat16 constants, as jax's weak types make them)."""
+    The noise is drawn in the genome's dtype, as in the JAX package.
+
+    float32 follows the program XLA compiles under ``jit``: the normal's
+    ``sqrt(2)`` and ``sigma`` become one float32 factor ``c =
+    float32(sigma * float32(sqrt(2)))`` (a constant folded in float32
+    when ``sigma`` is a number, one multiply when it is a tensor), and
+    the gene is ``ind + fma(erf_inv(u), c, mu)``; a Python ``mu`` of 0
+    drops out, and the add to the gene becomes the FMA, ``fma(erf_inv(u),
+    c, ind)``.  bfloat16 rounds each operation to bfloat16, with Python
+    scalars taken as bfloat16 constants, as jax's weak types make them."""
     k_mask, k_noise = random.split(key)
     mask = random.bernoulli(k_mask, indpb, ind.shape)
-    z = random.normal(k_noise, ind.shape, ind.dtype)
     if ind.dtype == torch.bfloat16:
+        z = random.normal(k_noise, ind.shape, ind.dtype)
         mu, sigma = (torch.as_tensor(v, device=ind.device).to(torch.bfloat16)
                      if not torch.is_tensor(v) else v for v in (mu, sigma))
-        noise = z * sigma + mu
+        return torch.where(mask, ind + (z * sigma + mu), ind)
+    if ind.dtype != torch.float32:
+        raise TypeError("mut_gaussian is ported for float32 and bfloat16 "
+                        "genomes only")
+    e = random.normal_erf_inv(k_noise, ind.shape)
+    if torch.is_tensor(sigma):
+        c = sigma.to(device=ind.device, dtype=torch.float32) * random.SQRT2
     else:
-        noise = fma(z, sigma, mu)
-    return torch.where(mask, ind + noise, ind)
+        c = float(np.float32(np.float32(sigma) * np.float32(random.SQRT2)))
+    if not torch.is_tensor(mu) and mu == 0:
+        mutated = fma(e, c, ind)
+    else:
+        mutated = ind + fma(e, c, mu)
+    return torch.where(mask, mutated, ind)
 
 
 batched_op(mut_gaussian, mut_gaussian)

@@ -237,6 +237,16 @@ def normal(key: torch.Tensor, shape: Shape = (),
                                 device=z.device)
     if dtype != torch.float32:
         raise TypeError("normal is ported for float32 and bfloat16 only")
+    return normal_erf_inv(key, shape) * SQRT2
+
+
+# float32(sqrt(2)), the scale jax puts on erf_inv(u)
+SQRT2 = 1.4142135381698608
+
+
+def normal_erf_inv(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """The float32 ``erf_inv(u)`` of :func:`normal`, before its scale by
+    :data:`SQRT2`: under ``jit`` XLA folds that scale into the constants
+    that multiply the normal (``mut_gaussian``'s ``sigma``)."""
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(key, shape, torch.float32, lo, 1.0)
-    return erf_inv(u) * 1.4142135381698608
+    return erf_inv(uniform(key, shape, torch.float32, lo, 1.0))

@@ -121,6 +121,55 @@ def test_k2_pair_layout_equals_plain_on_card(st, dim):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("st", STORAGES, ids=lambda s: s.dtype)
+@pytest.mark.parametrize("dim", [1, 3, 12, 100, 1000])
+def test_k1_pair_layout_equals_plain_on_card(st, dim):
+    """K1 (K2's pair layout without the index pass: several pairs a warp
+    when a row has at most 16 vectors) against its plain version, bit
+    for bit: 32 rows, and 4096 rows from a genome view one row past its
+    allocation at ``row_base0`` 229 and 2**20."""
+    dev = _cuda()
+    key = random.PRNGKey(100 + dim, device=dev)
+    k_g, k_s = random.split(key)
+    full = st.to_storage(random.uniform(k_g, (4097, dim), minval=-5.12,
+                                        maxval=5.12))
+    knobs = torch.tensor(KNOBS, dtype=torch.float32, device=dev)
+    seed = G._seed_from_key(k_s)
+    for g, row_base0 in ((full[:32], 0), (full[1:], 229),
+                         (full[1:], 1 << 20)):
+        kernels.reset_launches()
+        k1 = G.megakernel_vary(g, seed, knobs, dim=dim, storage=st,
+                               row_base0=row_base0)
+        p1 = G._narrow(G._vary_tile_plain(G._widen(g, st.dtype, st.scale),
+                                          seed, knobs, dim, row_base0),
+                       st.dtype, st.scale)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["megakernel_vary"] == 1
+        assert _same(k1, p1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("st", [G.GenomeStorage("float32"),
+                                G.GenomeStorage("bfloat16"),
+                                G.GenomeStorage("int8", 1.0)],
+                         ids=lambda s: s.dtype)
+def test_k1_at_the_nsga2_head_shape_equals_plain_on_card(st):
+    """K1 at the NSGA-II head's 1e5 x 12 and knobs (several pairs a
+    warp), bit for bit."""
+    dev = _cuda()
+    k_g, k_s = random.split(random.PRNGKey(12, device=dev))
+    g = st.to_storage(random.uniform(k_g, (100_000, 12)))
+    knobs = torch.tensor([0.6, 0.3, 0.0, 0.1, 1.0 / 12], dtype=torch.float32,
+                         device=dev)
+    seed = G._seed_from_key(k_s)
+    k1 = G.megakernel_vary(g, seed, knobs, dim=12, storage=st)
+    p1 = G._narrow(G._vary_tile_plain(G._widen(g, st.dtype, st.scale), seed,
+                                      knobs, 12), st.dtype, st.scale)
+    torch.cuda.synchronize()
+    assert _same(k1, p1)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("gather", ["dma", "host"])
 def test_generation_on_card_equals_cpu(gather):
     dev = _cuda()
@@ -524,6 +573,40 @@ def test_probe_stream_and_chain_equal_plain_on_card(rows):
     assert kernels.LAUNCHES["probe_stream_copy"] == 1
     assert kernels.LAUNCHES["probe_chain24"] == 1
     assert _same(copy, x) and _same(chain, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [512, 2048, 8192])
+@pytest.mark.parametrize("n_rows", [1, 33, 3 * 8192 + 5, (1 << 20) - 7])
+def test_probe_stream_copy_exact_at_ragged_sizes_on_card(rows, n_rows):
+    """P1's bulk copy equals ``x.clone()`` exactly when ``n_rows`` is not
+    a multiple of ``rows`` (a ragged last tile, and a last chunk shorter
+    than a stage), and from a view one row into its allocation."""
+    dev = _cuda()
+    full = random.uniform(random.PRNGKey(rows + n_rows, device=dev),
+                          (n_rows + 1, PGA.LANE))
+    for x in (full[:n_rows], full[1:]):
+        kernels.reset_launches()
+        copy = PGA.stream(x, rows)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["probe_stream_copy"] == 1
+        assert _same(copy, x.clone())
+
+
+@pytest.mark.gpu
+def test_probe_stream_copy_refuses_a_misaligned_view_on_card():
+    """The bulk copier needs 16-byte aligned addresses: a view that
+    starts one float into its allocation is refused, not copied some
+    other way, and nothing is launched."""
+    dev = _cuda()
+    flat = torch.zeros(64 * PGA.LANE + 1, device=dev)
+    x = flat[1:].view(64, PGA.LANE)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        PGA.stream(x, 512)
+    with pytest.raises(ValueError, match="rows"):
+        PGA.stream(flat[:-1].view(64, PGA.LANE), 0)
+    assert kernels.LAUNCHES["probe_stream_copy"] == 0
 
 
 @pytest.mark.gpu

@@ -12,7 +12,13 @@ numpy):
   bitwise, fitness equal (the parity fitness counts rows: exact);
 * ``make_population_evaluator(..., block_trees=...)``: accepted,
   ``ValueError`` below 1;
-* bfloat16 ``random.normal`` and ``mut_gaussian``: bitwise.
+* bfloat16 ``random.normal`` and ``mut_gaussian``: bitwise;
+* float32 ``mut_gaussian`` against the program XLA compiles under
+  ``jit`` (``sigma * sqrt(2)`` folded into one float32 factor, the add to
+  the gene an FMA where a Python ``mu`` is 0): bitwise with Python
+  numbers, tensors and per-gene arrays for ``mu`` and ``sigma``, and
+  inside the xla engine's generation (``bench.py``'s body and
+  ``ea_step``), three generations scanned.
 """
 
 import itertools
@@ -59,9 +65,7 @@ def _ga_toolboxes():
     """The same GA in both packages; the fitness is the largest gene, exact
     in any reduction order, and polynomial mutation is bitwise under
     ``jit`` (``tests/test_torch_sbx_poly.py``), so the trajectories can be
-    compared bitwise.  (float32 ``mut_gaussian`` is not: jitted XLA folds
-    ``sigma * sqrt(2)`` and, at ``mu = 0``, fuses the add into the genome
-    into one FMA; ``tests/test_torch_generation.py`` states its 1e-5.)"""
+    compared bitwise."""
     jtb = jbase.Toolbox()
     jtb.register("evaluate", lambda g: (jnp.max(g),))
     jtb.register("mate", jcx.cx_two_point)
@@ -346,3 +350,127 @@ def test_bfloat16_mut_gaussian_matches_jit(mu, sigma, indpb):
         assert got.dtype == torch.bfloat16
         assert np.array_equal(_bits(want), got.view(torch.int16).numpy()
                               .view(np.uint16))
+
+
+# ---------------------------------------------------------------------------
+# float32 mut_gaussian against the jitted program
+# ---------------------------------------------------------------------------
+
+MG_POP, MG_DIM, MG_INDPB = 64, 8, 0.2
+MG_PER_GENE = np.linspace(0.1, 1.7, MG_DIM).astype(np.float32)
+
+
+def _mg_genome():
+    return np.random.default_rng(5).normal(size=(MG_POP, MG_DIM)).astype(
+        np.float32)
+
+
+def _mg_check(jit_fn, jargs, mu, sigma):
+    """Four keys through ``jit_fn(key, genome, *jargs)`` and the port's
+    ``mut_gaussian(key, genome, mu, sigma, MG_INDPB)``: bitwise, and some
+    genes moved."""
+    x = _mg_genome()
+    moved = 0
+    for seed in range(4):
+        want = np.asarray(jit_fn(jax.random.PRNGKey(seed), jnp.asarray(x),
+                                 *jargs))
+        got = tmut.mut_gaussian(tr.PRNGKey(seed, device="cpu"),
+                                torch.from_numpy(x), mu, sigma,
+                                MG_INDPB).numpy()
+        assert got.dtype == np.float32
+        assert np.array_equal(_bits(want), _bits(got))
+        moved += int((got != x).sum())
+    assert moved > 0
+
+
+@pytest.mark.parametrize("mu,sigma", [(0.0, 0.3), (0.5, 0.3),
+                                      (0.0, 0.013987996), (-1.25, 2.7)])
+def test_float32_mut_gaussian_matches_jit_python_scalars(mu, sigma):
+    """``sigma`` and ``mu`` as Python numbers: constants of the program.
+    0.013987996 is a ``sigma`` where ``float32(float32(sigma) * float32(
+    sqrt 2))`` and the product rounded once from double differ; XLA
+    folds the former."""
+    fn = jax.jit(lambda k, v: jmut.mut_gaussian(k, v, mu, sigma, MG_INDPB))
+    _mg_check(fn, (), mu, sigma)
+
+
+@pytest.mark.parametrize("mu,sigma", [(0.0, 0.3), (0.5, 0.3),
+                                      (0.0, MG_PER_GENE),
+                                      (MG_PER_GENE - 0.8, 0.3)])
+def test_float32_mut_gaussian_matches_jit_tensor_parameters(mu, sigma):
+    """``mu`` and ``sigma`` as arrays the program takes as arguments
+    (scalars and per-gene rows): a traced ``mu`` of 0 is an add like any
+    other, so the gene is ``ind + fma(erf_inv(u), c, mu)``."""
+    fn = jax.jit(lambda k, v, m, s: jmut.mut_gaussian(k, v, m, s, MG_INDPB))
+    m, s = (np.asarray(a, np.float32) for a in (mu, sigma))
+    _mg_check(fn, (jnp.asarray(m), jnp.asarray(s)), torch.from_numpy(m),
+              torch.from_numpy(s))
+
+
+@pytest.mark.parametrize("sigma", [np.float32(0.3), MG_PER_GENE])
+def test_float32_mut_gaussian_matches_jit_python_zero_mu_tensor_sigma(sigma):
+    """A Python ``mu`` of 0 with a traced ``sigma``: the add of 0 is
+    dropped and the add to the gene is the FMA, as with constants."""
+    fn = jax.jit(lambda k, v, s: jmut.mut_gaussian(k, v, 0.0, s, MG_INDPB))
+    _mg_check(fn, (jnp.asarray(sigma),), 0.0, torch.from_numpy(
+        np.asarray(sigma)))
+
+
+def _mg_toolboxes(mu):
+    """``bench.py``'s operators at a small size, with an exact fitness
+    (the largest gene) so that selection cannot hide a gene's last bit."""
+    jtb, ttb = jbase.Toolbox(), tbase.Toolbox()
+    jtb.register("evaluate", lambda g: (jnp.max(g),))
+    ttb.register("evaluate", lambda g: (torch.max(g),))
+    jtb.register("mate", jcx.cx_two_point)
+    ttb.register("mate", tcx.cx_two_point)
+    jtb.register("mutate", jmut.mut_gaussian, mu=mu, sigma=0.3,
+                 indpb=MG_INDPB)
+    ttb.register("mutate", tmut.mut_gaussian, mu=mu, sigma=0.3,
+                 indpb=MG_INDPB)
+    jtb.register("select", jsel.sel_tournament, tournsize=3,
+                 tie_break="rank")
+    ttb.register("select", tsel.sel_tournament, tournsize=3,
+                 tie_break="rank")
+    jpop, tpop = _ga_populations(2)
+    return jtb, ttb, j_eval(jtb, jpop)[0], t_eval(ttb, tpop)[0]
+
+
+@pytest.mark.parametrize("mu", [0.0, 0.5])
+def test_float32_mut_gaussian_in_the_xla_engine_generation(mu):
+    """The program the xla engine's generation compiles: ``bench.py``'s
+    body (split, ``sel_tournament``, row gather, ``vary_genome(pairing=
+    "halves")``, evaluation) scanned over three generations, and the
+    jitted ``ea_step``; both bitwise to the port."""
+    from deap_tpu.algorithms import vary_genome as j_vary
+    from deap_tpu_torch.algorithms import vary_genome as t_vary
+    jtb, ttb, jpop, tpop = _mg_toolboxes(mu)
+
+    def body(carry, _):
+        key, pop = carry
+        key, k_sel, k_var = jax.random.split(key, 3)
+        idx = jtb.select(k_sel, pop.fitness, POP)
+        genome, _ = j_vary(k_var, pop.genome[idx], jtb, CXPB, MUTPB,
+                           pairing="halves")
+        off = jbase.Population(genome, jbase.Fitness.empty(POP, (1.0,)))
+        return (key, j_eval(jtb, off)[0]), None
+
+    (_, jfin), _ = jax.jit(lambda k, p: jax.lax.scan(
+        body, (k, p), None, length=NGEN))(jax.random.PRNGKey(5), jpop)
+    key, pop = tr.PRNGKey(5, device="cpu"), tpop
+    for _ in range(NGEN):
+        key, k_sel, k_var = tr.split(key, 3)
+        idx = ttb.select(k_sel, pop.fitness, POP)
+        genome, _ = t_vary(k_var, pop.genome[idx], ttb, CXPB, MUTPB,
+                           pairing="halves")
+        off = tbase.Population(genome, tbase.Fitness.empty(
+            POP, (1.0,), device="cpu"))
+        pop = t_eval(ttb, off)[0]
+    _same_population(jfin, pop)
+
+    step = jax.jit(lambda k, p: j_ea_step(k, p, jtb, CXPB, MUTPB))
+    jkey, tkey = jax.random.PRNGKey(7), tr.PRNGKey(7, device="cpu")
+    for _ in range(NGEN):
+        jkey, jpop, _ = step(jkey, jpop)
+        tkey, tpop, _ = ea_step(tkey, tpop, ttb, CXPB, MUTPB)
+    _same_population(jpop, tpop)

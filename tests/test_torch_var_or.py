@@ -113,11 +113,15 @@ def test_all_reproduction_copies_parents(dtype, bound):
 
 @pytest.mark.parametrize("lam", [64, 96, 192])
 def test_var_or_xla_engine_matches_jax_bitwise(lam):
+    """Against the jitted ``var_or`` (the parity oracle): under ``jit``
+    XLA folds ``sigma * sqrt(2)`` and fuses ``mut_gaussian``'s add into
+    an FMA, as the port computes it; eager JAX rounds otherwise."""
     jtb, ttb = _toolboxes("xla")
     jp, tp = _pops(seed=lam)
     key = jax.random.PRNGKey(lam)
     for cxpb, mutpb in ((0.6, 0.3), (0.0, 0.0), (0.2, 0.8)):
-        jo = jalg.var_or(key, jp, jtb, lam, cxpb, mutpb)
+        jo = jax.jit(lambda k, p: jalg.var_or(k, p, jtb, lam, cxpb, mutpb))(
+            key, jp)
         to = talg.var_or(interop.key_to_torch(key, device="cpu"), tp, ttb,
                          lam, cxpb, mutpb)
         assert _same(jo.genome, to.genome)
