@@ -26,7 +26,9 @@
              and read after: each kernel must have run on its path.
 6. K3      — ``megakernel_var_or`` against ``index_select`` plus the
              plain OR-choice variation: lambda 1e6 x dim 100 in float32 /
-             bfloat16 / int8, and the NSGA-II slice's 1e5 x 12;
+             bfloat16 / int8, and the NSGA-II slice's 1e5 x 12 (device
+             time with the launches queued beside the host-paced one);
+             then dims 1, 3, 12, 100 and 1000 with lambda != mu;
 7. K4      — ``rows_dominate_counts`` against the plain counts, C = 1024
              and C = n rows against n = 2e5 DTLZ2 points of a real pool
              (with -inf sentinel rows and duplicated points): equal counts;
@@ -64,7 +66,13 @@
 13. K6        — ``gp_interp`` against the plain interpreter, bitwise, on
              the initial population, the population after 2N generations,
              the same with every other row skipped, and a set with every
-             opcode of the table (4096 x 64 x 1024, 2 arguments);
+             opcode of the table (4096 x 64 x 1024, 2 arguments); then
+             comb trees of exactly 64 tokens at the deepest stack (``if``
+             at depth) at 1024, 1, 1000 and 4097 points, the evolved
+             population at 4097 points, a single tree, every row
+             skipped, and comb trees of 256 tokens at cap 256 at 1024
+             and 4097 points (device time with the launches queued
+             beside each);
 14. reference — one generation of ``bench_nsga2.py`` as published (SBX,
              polynomial mutation, ``sel_nsga2(nd="auto")``) at POP 1024 on
              the card against the CPU path, for DTLZ2 (A) and ZDT1 (B):
@@ -163,6 +171,10 @@ HV_UNIFORM_N = 8192                # bench_weakscaling.py's hv layout, 1 chip
 HV_SUBSAMPLE = 512                 # what the host tier takes in a moment
 HV_RTOL = {"float32": 1e-4, "float64": 1e-11}
 CXPB, MUTPB, MU, SIGMA, INDPB = 0.9, 0.5, 0.0, 0.3, 0.05
+# K3 beyond the two main-path shapes: (parents, children, genes)
+K3_EDGES = ((100_000, 123_457, 1), (100_000, 65_537, 3),
+            (100_000, 77_777, 12), (100_000, 54_321, 100),
+            (20_000, 30_011, 1000))
 
 
 def fail(msg: str) -> None:
@@ -466,11 +478,15 @@ def nsga2_toolbox():
 
 
 def k3_phase(kernels, G, genome, key, card_line, n: int, dim: int,
-             knobs_vals, storages) -> dict:
-    """K3 against its plain version at ``(n, dim)``; returns per dtype
-    ``(max_abs_err, ms, plain_ms, bound_ms, bound_by)``."""
+             knobs_vals, storages, lam: int | None = None) -> dict:
+    """K3 against its plain version: ``lam`` (default ``n``) children of
+    ``n`` parents of ``dim`` genes; returns per dtype ``(max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, device_ms)``, ``device_ms`` with the
+    launches queued (:func:`deap_tpu_torch.kernels.kernel_times.queued_ms`)."""
     import torch
-    ia, i2, code, seed = G._var_or_draws(key, n, n, MO_CXPB, MO_MUTPB)
+    from deap_tpu_torch.kernels.kernel_times import queued_ms
+    lam = n if lam is None else lam
+    ia, i2, code, seed = G._var_or_draws(key, n, lam, MO_CXPB, MO_MUTPB)
     knobs = torch.tensor(knobs_vals, dtype=torch.float32,
                          device=genome.device)
     counts = var_or_counts(ia, i2, code, seed, knobs, dim)
@@ -484,22 +500,25 @@ def k3_phase(kernels, G, genome, key, card_line, n: int, dim: int,
         torch.cuda.synchronize()
         gap = ulp_gap(k3, p3)
         err = float((k3.float() - p3.float()).abs().max().item())
-        ms = cuda_ms(lambda: kernels.launch_var_or(
-            gs, ia, i2, code, seed, knobs, dim=dim, dtype=st.dtype,
-            scale=st.scale))
+        launches = kernels.LAUNCHES["megakernel_var_or"] - before
+
+        def launch():
+            kernels.launch_var_or(gs, ia, i2, code, seed, knobs, dim=dim,
+                                  dtype=st.dtype, scale=st.scale)
+        ms = cuda_ms(launch)
+        dev_ms = queued_ms(launch)
         plain = cuda_ms(lambda: G._var_or_plain(gs, ia, i2, code, seed,
                                                 knobs, dim, st),
                         reps=3, warm=1)
         b, by = var_or_bound(counts, dim, gs.element_size(), st.dtype)
         phase("K3 megakernel_var_or vs plain", card_line, storage=st.dtype,
-              shape=[n, dim], ulp_gap=gap, ulp_bound=ULP_BOUND,
-              max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-              bound_by=by, work=counts,
-              launches=kernels.LAUNCHES["megakernel_var_or"] - before)
+              shape=[n, dim], lam=lam, ulp_gap=gap, ulp_bound=ULP_BOUND,
+              max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+              bound_ms=b, bound_by=by, work=counts, launches=launches)
         if gap > ULP_BOUND:
-            fail(f"K3 {st.dtype} at {n}x{dim}: {gap} ulp from its plain "
-                 f"version (bound {ULP_BOUND})")
-        out[st.dtype] = (err, ms, plain, b, by)
+            fail(f"K3 {st.dtype} at {lam} x {dim} from {n} parents: {gap} "
+                 f"ulp from its plain version (bound {ULP_BOUND})")
+        out[st.dtype] = (err, ms, plain, b, by, dev_ms)
         del gs, k3, p3
         torch.cuda.empty_cache()
     return out
@@ -817,78 +836,24 @@ GP_OP_COST = {
 
 
 def gp_toolbox(dev, pset_kind: str = "bench", per_tree: bool = False):
-    """bench_gp.py's primitive set, data and toolbox on ``dev``: the GP
-    operators are registered with their ``rowwise_op`` mark, or with
-    ``per_tree`` as the reference examples register them (a lambda over
-    one key and one tree, called once a row).  ``"all"`` is a second set
-    with every opcode of K6's table."""
-    import torch
-    from deap_tpu_torch import base, gp, random
-    from deap_tpu_torch.ops import selection
-    if pset_kind == "bench":
-        ps = gp.PrimitiveSet("MAIN", 1)
-        ops = {k: gp.safe_ops[k] for k in ("add", "sub", "mul", "div",
-                                           "neg", "cos", "sin")}
-    else:
-        ps = gp.PrimitiveSet("ALL", 2)
-        ops = {**gp.safe_ops, **gp.bool_ops}
-        ps.add_terminal(1.0, name="one")
-    for name, (f, a) in ops.items():
-        ps.add_primitive(f, a, name=name)
-    ps.add_ephemeral_constant(
-        "rand101", lambda keys: random.randint(keys, (), -1, 2).float())
-    X = torch.linspace(-1, 1, GP_NPOINTS, dtype=torch.float32,
-                       device=dev)[None, :]
-    x = X[0]
-    target = x ** 4 + x ** 3 + x ** 2 + x
-    pop_ev = gp.make_population_evaluator(ps, GP_CAP)
-    gen_mut = gp.make_generator(ps, GP_CAP, "full")
-
-    def evaluate_all(genome, skip=None):
-        codes, consts, lengths = genome
-        if skip is not None:
-            # skipped rows run no stack-machine step (length 0)
-            lengths = torch.where(skip, 0, lengths)
-        out = pop_ev(codes, consts, lengths, X)
-        mse = ((out - target[None, :]) ** 2).mean(dim=1)
-        return torch.where(torch.isfinite(mse), mse, 1e6)[:, None]
-
-    tb = base.Toolbox()
-    tb.register("evaluate_population", evaluate_all)
-    if per_tree:
-        tb.register("mate", lambda k, a, b: gp.cx_one_point(k, a, b, ps))
-        tb.register("mutate", lambda k, t: gp.mut_uniform(
-            k, t, lambda kk: gen_mut(kk, 0, 2), ps))
-    else:
-        tb.register("mate", gp.cx_one_point, pset=ps)
-        tb.register("mutate", gp.mut_uniform,
-                    expr=lambda kk: gen_mut(kk, 0, 2), pset=ps)
-    tb.register("select", selection.sel_tournament, tournsize=3)
-    gen_init = gp.make_generator(ps, GP_CAP, "half_and_half")
-    return ps, tb, pop_ev, gen_init, X
+    """bench_gp.py's primitive set, data and toolbox on ``dev``
+    (``deap_tpu_torch.probes.gp.bench_toolbox``); ``"all"`` is a second
+    set with every opcode of K6's table."""
+    from deap_tpu_torch.probes.gp import bench_toolbox
+    return bench_toolbox(dev, pset_kind, per_tree, GP_CAP, GP_NPOINTS)
 
 
 def gp_initial(tb, gen_init, key, n: int):
     """``n`` half-and-half trees of depth 1-3, evaluated."""
-    from deap_tpu_torch import base, random
-    from deap_tpu_torch.algorithms import evaluate_population
-    genome = gen_init(random.split(key, n), 1, 3)
-    pop = base.Population(genome, base.Fitness.empty(
-        n, (-1.0,), device=key.device))
-    return evaluate_population(tb, pop)[0]
+    from deap_tpu_torch.probes.gp import bench_initial
+    return bench_initial(tb, gen_init, key, n)
 
 
 def gp_generation(tb, key, pop):
-    """bench_gp.py's generation: select, ``var_and(pairing="halves")``,
-    evaluate the rows it touched.  Returns ``(key, offspring, idx)``."""
-    from deap_tpu_torch import random
-    from deap_tpu_torch.algorithms import evaluate_population, var_and
-    key, k_sel, k_var = random.split(key, 3)
-    idx = tb.select(k_sel, pop.fitness, pop.size)
-    off = var_and(k_var, pop.take(idx), tb, GP_CXPB, GP_MUTPB,
-                  pairing="halves")
-    off, _ = evaluate_population(tb, off)
-    return key, off, idx
+    """bench_gp.py's generation (``probes.gp.bench_generation``).
+    Returns ``(key, offspring, idx)``."""
+    from deap_tpu_torch.probes.gp import bench_generation
+    return bench_generation(tb, key, pop, GP_CXPB, GP_MUTPB)
 
 
 def gp_token_work(frozen, codes, lengths, n_points: int):
@@ -937,6 +902,7 @@ def k6_check(kernels, card_line, label: str, frozen, genome, X) -> dict:
     bound; fails on a mismatch."""
     import torch
     from deap_tpu_torch import gp
+    from deap_tpu_torch.kernels.kernel_times import queued_ms
     codes, consts, lengths = (g.contiguous() for g in genome)
     t = frozen.tables(X.device)
 
@@ -946,20 +912,21 @@ def k6_check(kernels, card_line, label: str, frozen, genome, X) -> dict:
 
     def plain():
         return gp.run_stack_machine(codes, consts, lengths, X, frozen,
-                                    GP_CAP)
+                                    codes.shape[1])
 
     k6, p6 = kernel(), plain()
     torch.cuda.synchronize()
     equal, err = nan_gap(k6, p6)
     ms = cuda_ms(kernel, reps=20, warm=2)
+    dev_ms = queued_ms(kernel)
     plain_ms = cuda_ms(plain, reps=1, warm=0)
     tokens, n_bytes = gp_token_work(frozen, codes, lengths, X.shape[1])
     b, by = gp_bound(tokens, n_bytes, X.shape[1])
     run = lengths > 0
     phase(f"K6 gp_interp vs plain: {label}", card_line,
-          shape=[codes.shape[0], GP_CAP, X.shape[1]], n_args=X.shape[0],
+          shape=[*codes.shape, X.shape[1]], n_args=X.shape[0],
           bitwise_equal=equal, ulp_bound=ULP_BOUND, max_abs_err=err, ms=ms,
-          plain_ms=plain_ms, bound_ms=b, bound_by=by,
+          device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
           rows_run=int(run.sum().item()),
           mean_length_run=float(lengths[run].float().mean().item())
           if bool(run.any()) else 0.0,
@@ -967,8 +934,8 @@ def k6_check(kernels, card_line, label: str, frozen, genome, X) -> dict:
     if not equal:
         fail(f"K6 on {label}: differs from the plain interpreter "
              f"(max abs err {err})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by}
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by}
 
 
 def gp_reference_phase(card_line, key, dev) -> None:
@@ -1196,9 +1163,17 @@ def gp_main_path(kernels, card_line, key, dev):
 def gp_k6_phase(kernels, card_line, key, pop0, pop2, dev) -> dict:
     """K6 against the plain interpreter at the bench's shapes: the
     initial population, the population after 2N generations, the same
-    with every other row skipped, and the every-opcode set."""
+    with every other row skipped, and the every-opcode set; then the
+    design's edges: comb trees of exactly ``cap`` tokens at the deepest
+    stack (``if`` at depth) at 1024, 1, 1000 and 4097 points (there ``X``
+    is too large to stage and goes through L1), the evolved population
+    at 4097 points, a single tree, every row skipped, and comb trees of
+    256 tokens at cap 256 (a block holds 6 warps, not 8) at 1024 and 4097
+    points."""
+    import numpy as np
     import torch
     from deap_tpu_torch import random
+    from deap_tpu_torch.probes.gp import comb_trees
     ps, _, _, _, X = gp_toolbox(dev)
     frozen = ps.freeze()
     out = {"initial": k6_check(kernels, card_line, "initial population",
@@ -1212,12 +1187,33 @@ def gp_k6_phase(kernels, card_line, key, pop0, pop2, dev) -> dict:
                               "evolved, every other row skipped", frozen,
                               (codes, consts, half), X)
     ps_all, _, _, gen_all, _ = gp_toolbox(dev, "all")
-    X2 = torch.stack([torch.linspace(-1, 1, GP_NPOINTS, device=dev),
-                      torch.linspace(3, -2, GP_NPOINTS, device=dev)])
+    frozen_all = ps_all.freeze()
+
+    def two_args(n):
+        return torch.stack([torch.linspace(-1, 1, n, device=dev),
+                            torch.linspace(3, -2, n, device=dev)])
     trees = gen_all(random.split(key, GP_POP), 2, 6)
     out["all_ops"] = k6_check(kernels, card_line,
                               "every opcode (safe_ops + bool_ops, 2 args)",
-                              ps_all.freeze(), trees, X2)
+                              frozen_all, trees, two_args(GP_NPOINTS))
+    comb = comb_trees(ps_all, np.random.default_rng(8), GP_POP, GP_CAP, dev)
+    for n in (GP_NPOINTS, 1, 1000, 4097):
+        out[f"comb {n}"] = k6_check(
+            kernels, card_line, f"comb trees of {GP_CAP} tokens, the deepest "
+            f"stack, if at depth, {n} points", frozen_all, comb, two_args(n))
+    out["evolved 4097"] = k6_check(
+        kernels, card_line, "evolved at 4097 points", frozen, pop2.genome,
+        torch.linspace(-1, 1, 4097, device=dev)[None, :])
+    out["single"] = k6_check(kernels, card_line, "a single evolved tree",
+                             frozen, tuple(g[:1] for g in pop2.genome), X)
+    out["all skipped"] = k6_check(kernels, card_line, "every row skipped",
+                                  frozen, (codes, consts,
+                                           torch.zeros_like(lengths)), X)
+    comb256 = comb_trees(ps_all, np.random.default_rng(9), GP_POP, 256, dev)
+    for n in (GP_NPOINTS, 4097):
+        out[f"comb cap 256 {n}"] = k6_check(
+            kernels, card_line, f"comb trees of 256 tokens at cap 256, {n} "
+            "points", frozen_all, comb256, two_args(n))
     return out
 
 
@@ -2134,6 +2130,15 @@ def main() -> int:
     k3_mo = k3_phase(kernels, G, g_mo, k_k3s, card_line, MO_POP, MO_DIM,
                      (0.0, MO_SIGMA, MO_INDPB), storages)
     del g_mo
+    # the vector walk's edges: rows of one vector, of a few, of many;
+    # lambda != mu and not a multiple of a block's 256 rows
+    k3_edges = {}
+    for n, lam, dim in K3_EDGES:
+        k_e = random.fold_in(k_k3s, dim)
+        g_e = random.uniform(k_e, (n, dim), minval=-5.12, maxval=5.12)
+        k3_edges[dim] = k3_phase(kernels, G, g_e, k_e, card_line, n, dim,
+                                 (MU, SIGMA, INDPB), storages, lam=lam)
+        del g_e
     k4 = k4_phase(kernels, D, k_k4, card_line)
 
     # ---- 8. an NSGA-II generation on a small input, card against CPU ------
@@ -2225,15 +2230,24 @@ def main() -> int:
         **{f"{POP} x {DIM} {d}": report[d]["K1"][3] for d in report},
         **{f"{MO_POP} x {MO_DIM} {d} (NSGA-II head)": v[4]
            for d, v in k1_head.items()}}
-    # K3 at the main path's shape (1e5 x 12 float32), K4 at its C = n call
-    err, ms, plain, b, by = k3_mo["float32"]
+    # K3 at the NSGA-II path's shape (1e5 x 12 float32), and both shapes
+    # by type
+    err, ms, plain, b, by, dev_ms = k3_mo["float32"]
+    k3_main = (((POP, DIM), k3_big), ((MO_POP, MO_DIM), k3_mo))
     rows.append({
         "name": "megakernel_var_or", "route": "cuda", "source": src,
         "replaces": "deap_tpu/ops/generation_pallas.py:566",
         "launches": launches_mo["megakernel_var_or"],
-        "max_abs_err": max(v[0] for d in (k3_big, k3_mo) for v in d.values()),
+        "max_abs_err": max(v[0] for d in (k3_big, k3_mo, *k3_edges.values())
+                           for v in d.values()),
         "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
-        "library_ms": None})
+        "library_ms": None, "device_ms": dev_ms,
+        "ms_by_shape": {f"{n} x {dm} {d}": v[1] for (n, dm), k3 in k3_main
+                        for d, v in k3.items()},
+        "device_ms_by_shape": {f"{n} x {dm} {d}": v[5]
+                               for (n, dm), k3 in k3_main
+                               for d, v in k3.items()}})
+    # K4 at its C = n call
     err, ms, plain, b, by = k4[2 * MO_POP]
     rows.append({
         "name": "rows_dominate_counts", "route": "cuda",
@@ -2280,7 +2294,9 @@ def main() -> int:
         "bound_by": ev["bound_by"], "library_ms": None,
         "launches_by_path": {"bench generation": launches_gp["gp_interp"],
                              "ea_simple": launches_gp_ea["gp_interp"]},
-        "ms_by_input": {k: v["ms"] for k, v in k6.items()}})
+        "ms_by_input": {k: v["ms"] for k, v in k6.items()},
+        "device_ms_by_input": {k: v["device_ms"] for k, v in k6.items()},
+        "bound_ms_by_input": {k: v["bound_ms"] for k, v in k6.items()}})
     rows[-1]["launches_by_path"]["probes.gp real63"] = launches_pgp[
         "gp_interp"]
     # P1-P4 at the GA tool's shape (stream and the row tiles at 2048

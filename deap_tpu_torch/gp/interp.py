@@ -13,8 +13,8 @@ by its code (what ``lax.switch`` does under ``vmap``), with the same
 active mask, clamped stack rows and result row.  On the card
 :func:`make_population_evaluator` runs the CUDA kernel K6 instead
 (:mod:`deap_tpu_torch.gp.interp_cuda`), which walks only ``length``
-tokens with the stack in shared memory; both give zeros for a row of
-length 0.
+tokens, decoded once per tree, with the stack in shared memory; both
+give zeros for a row of length 0.
 """
 
 from __future__ import annotations
@@ -119,8 +119,9 @@ def make_population_evaluator(pset, cap: int, *, backend: str = "auto",
 
     ``block_trees`` is the JAX package's trees per Pallas grid step; it
     is validated as there (``ValueError`` below 1) and otherwise
-    ignored: K6 runs one thread block per tree and tile of 128 points
-    (``kernels/gp_interp.cu``), so it has no tree blocking to tune."""
+    ignored: K6's warps take items of one tree and 256 of its points in
+    turn (``kernels/gp_interp.cu``), so it has no tree blocking to
+    tune."""
     if backend not in ("auto", "plain", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
     if block_trees < 1:

@@ -75,7 +75,8 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.megakernel_var_or.restype = i
             lib.rows_dominate_counts.argtypes = [p, p, p, ll, ll, i, p]
             lib.rows_dominate_counts.restype = i
-            lib.gp_interp.argtypes = [p, p, p, p, p, p, i, p, ll, i, i, i, p]
+            lib.gp_interp.argtypes = [p, p, p, p, p, p, i, p, ll, i, i, i, p,
+                                      p]
             lib.gp_interp.restype = i
             lib.hv3d_sweep.argtypes = [p, p, p, p, ctypes.c_double, p, i, i,
                                        i, p, p, p, p, i, p]
@@ -230,13 +231,15 @@ def launch_gp_interp(codes, consts, lengths, X, op_kind,
     _check(op_kind, "op_kind", torch.int32, (n_nodes,))
     _check(arg_index, "arg_index", torch.int32, (n_nodes,))
     out = torch.empty((pop, n_points), dtype=torch.float32, device=X.device)
+    next_item = torch.empty((1,), dtype=torch.int32, device=X.device)
     lib = load()
     stream = torch.cuda.current_stream(X.device).cuda_stream
     with torch.cuda.device(X.device):
         rc = lib.gp_interp(codes.data_ptr(), consts.data_ptr(),
                            lengths.data_ptr(), X.data_ptr(),
                            op_kind.data_ptr(), arg_index.data_ptr(), n_nodes,
-                           out.data_ptr(), pop, cap, n_args, n_points, stream)
+                           out.data_ptr(), pop, cap, n_args, n_points,
+                           next_item.data_ptr(), stream)
     _raise_on(lib, rc, "gp_interp")
     LAUNCHES["gp_interp"] += 1
     return out

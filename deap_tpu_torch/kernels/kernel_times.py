@@ -1,7 +1,7 @@
-"""Time K1, K2, K5 and P1 of a checkout of this package on the card.
+"""Time K1, K2, K3, K5, K6 and P1 of a checkout of this package on the card.
 
     python deap_tpu_torch/kernels/kernel_times.py [--root DIR] [--label L]
-        [--ablate] [--profile]
+        [--ablate] [--profile] [--only k1,k2,k3,k5,k6,p1] [--inputs FILE]
 
 Imports ``deap_tpu_torch`` from ``DIR`` (default: the checkout that
 holds this file), builds its kernels and prints one JSON line per kernel
@@ -17,16 +17,34 @@ power limit:
 * K2 ``launch_gather_vary`` at 10⁶ × 100 in float32, bfloat16 and int8
   (the flagship's shape and knobs; winners from a random order and
   random positions);
+* K3 ``launch_var_or`` in float32, bfloat16 and int8 at 10⁶ × 100 (mu
+  0, sigma 0.3, indpb 0.05; int8 scale 5.12) and at the NSGA-II slice's
+  10⁵ × 12 (sigma 0.1, indpb 1/12; int8 scale 1), the choices drawn as
+  ``var_or`` draws them (cxpb 0.6, mutpb 0.3), with ``device_ms``;
 * K5 ``launch_hv3d_sweep`` (128 prefixes a partial) on 8192 uniform
   points at ref (1, 1, 1) and on 10⁵ points of the DTLZ2 front (the unit
   sphere's positive octant) at ref (1.1, 1.1, 1.1), float32 and float64;
+* K6 ``launch_gp_interp`` on ``chip_smoke.py``'s phase-13 inputs at
+  ``bench_gp.py``'s 4096 × 64 × 1024 (:func:`k6_inputs`): the initial
+  population, the one after 20 generations (the same keys), it with
+  every other row skipped, the every-opcode set, the comb trees
+  (``probes.gp.comb_trees``) at 1024 and 4097 points, the evolved
+  population at 4097 points and comb trees of 256 tokens at cap 256,
+  with ``device_ms``.  ``--inputs FILE`` reads these tensors from FILE,
+  or builds them and writes them there when it does not exist, so that
+  a checkout without the input helpers is timed on the same inputs; with
+  ``--ablate``, K6 is timed again on copies of the checkout whose
+  ``gp_interp.cu`` has one part of the design switched off
+  (:data:`K6_ABLATIONS`: points a lane at most 1 / 2 / 4, no folded
+  terminals, ``X`` through L1, ``X`` staged even where an SM then holds
+  fewer blocks), each built and timed in a process of its own;
 * P1 ``launch_probe_stream_copy`` at rows 512, 2048 and 8192 on 2²⁰ ×
   128 float32, with ``copy_`` into a preallocated tensor timed beside
   it, and ``launch_probe_chain24``.
 
 ``--ablate`` adds K1 and K2 without mutation (mutpb 0) and as a gather
-and copy (cxpb 0 too); ``--profile`` adds K5's device time by kernel;
-``--only k1,k2,k5,p1`` times a subset.
+and copy (cxpb 0 too), and K6's parts; ``--profile`` adds K5's device
+time by kernel; ``--only`` times a subset (default: all).
 Only the wrappers' public signatures are used, so two checkouts can be
 timed in one call on one card (parent, change, change, parent).  Needs a
 card; exits 1 without one.
@@ -37,7 +55,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 POP, DIM = 1_000_000, 100
@@ -45,6 +66,16 @@ KNOBS = (0.9, 0.5, 0.0, 0.3, 0.05)
 HEAD_POP, HEAD_DIM = 100_000, 12
 HEAD_KNOBS = (0.6, 0.3, 0.0, 0.1, 1.0 / 12)
 PROBE_POP, PROBE_LANE = 1 << 20, 128
+#: K6's parts, each switched off in a copy of gp_interp.cu: (name, the
+#: source line, its replacement)
+K6_ABLATIONS = (
+    ("points a lane 1", "int k = kMaxK;", "int k = 1;"),
+    ("points a lane 2", "int k = kMaxK;", "int k = 2;"),
+    ("points a lane 4", "int k = kMaxK;", "int k = 4;"),
+    ("no fold", "after_push = true;", "after_push = false;"),
+    ("X through L1", "if (x_bytes <= (size_t)kXStageMax &&",
+     "if (false && x_bytes <= (size_t)kXStageMax &&"),
+    ("X staged where it fits", "xs = staged >= per_sm;", "xs = true;"))
 
 
 def cuda_ms(fn, reps: int, warm: int) -> float:
@@ -107,9 +138,12 @@ def main(argv=None) -> int:
                     help="also print K5's device time by CUDA kernel")
     ap.add_argument("--ablate", action="store_true",
                     help="also time K1 and K2 without mutation and as a "
-                    "copy")
-    ap.add_argument("--only", default="k1,k2,k5,p1",
-                    help="comma-separated subset of k1, k2, k5, p1")
+                    "copy, and K6 with each part of its design off")
+    ap.add_argument("--only", default="k1,k2,k3,k5,k6,p1",
+                    help="comma-separated subset of k1, k2, k3, k5, k6, p1")
+    ap.add_argument("--inputs", type=Path, default=None,
+                    help="K6's inputs: read from this file, or built and "
+                    "written there")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
     sys.path.insert(0, str(args.root.resolve()))
@@ -182,6 +216,13 @@ def main(argv=None) -> int:
     del genome, head
     torch.cuda.empty_cache()
 
+    if "k3" in only:
+        k3_times(emit, G, kernels, random.fold_in(k_s, 3), dev)
+    if "k6" in only:
+        k6_times(emit, kernels, k6_inputs(random.fold_in(k_s, 6), dev,
+                                          args.inputs))
+        if args.ablate:
+            k6_ablations(args.root.resolve(), label, args.inputs)
     if "p1" in only:
         x = random.uniform(k_o, (PROBE_POP, PROBE_LANE))
         into = torch.empty_like(x)
@@ -219,6 +260,124 @@ def main(argv=None) -> int:
             emit(kernel="hv3d_sweep", input=name, n=pts.shape[0],
                  dtype=str(dtype).split(".")[1], ms=ms, device_ms_by=by)
     return 0
+
+
+def k3_times(emit, G, kernels, key, dev) -> None:
+    """K3 at the flagship's and the NSGA-II slice's shapes, three types,
+    host-paced and with the launches queued."""
+    import torch
+    from deap_tpu_torch import random
+    for (n, dim, knobs, scale) in ((POP, DIM, (0.0, 0.3, 0.05), 5.12),
+                                   (HEAD_POP, HEAD_DIM,
+                                    (0.0, 0.1, 1.0 / 12), 1.0)):
+        k_g, k_d = random.split(random.fold_in(key, dim))
+        genome = random.uniform(k_g, (n, dim), minval=-scale, maxval=scale)
+        ia, i2, code, seed = G._var_or_draws(k_d, n, n, 0.6, 0.3)
+        kn = torch.tensor(knobs, dtype=torch.float32, device=dev)
+        for st in (G.GenomeStorage("float32"), G.GenomeStorage("bfloat16"),
+                   G.GenomeStorage("int8", scale)):
+            gs = st.to_storage(genome)
+
+            def call():
+                kernels.launch_var_or(gs, ia, i2, code, seed, kn, dim=dim,
+                                      dtype=st.dtype, scale=st.scale)
+            emit(kernel="megakernel_var_or", dtype=st.dtype, shape=[n, dim],
+                 ms=cuda_ms(call, reps=20, warm=3),
+                 device_ms=queued_ms(call, reps=20, warm=3))
+            del gs
+        del genome
+        torch.cuda.empty_cache()
+
+
+def k6_inputs(key, dev, path=None) -> dict:
+    """K6's inputs by name, each ``(codes, consts, lengths, X, op_kind,
+    arg_index)`` on ``dev``: read from ``path`` when it exists, else built
+    with ``probes.gp``'s bench helpers (the keys of ``chip_smoke.py``'s
+    phase 13) and written to ``path`` when one is given."""
+    import numpy as np
+    import torch
+    if path is not None and Path(path).exists():
+        return {k: tuple(t.to(dev) for t in v)
+                for k, v in torch.load(path).items()}
+    from deap_tpu_torch import random
+    from deap_tpu_torch.probes import gp as P
+    k_gp = random.split(random.fold_in(random.PRNGKey(0, device=dev), 3),
+                        3)[1]
+    k_init, k_run, _ = random.split(k_gp, 3)
+    ps, tb, _, gen_init, X = P.bench_toolbox(dev)
+    pop = pop0 = P.bench_initial(tb, gen_init, k_init, P.BENCH_POP)
+    k = k_run
+    for _ in range(20):                   # chip_smoke.py's 2 N generations
+        k, pop, _ = P.bench_generation(tb, k, pop)
+    codes, consts, lengths = pop.genome
+    half = torch.where(torch.arange(P.BENCH_POP, device=dev) % 2 == 0, 0,
+                       lengths)
+    ps_all, _, _, gen_all, _ = P.bench_toolbox(dev, "all")
+
+    def two_args(n):
+        return torch.stack([torch.linspace(-1, 1, n, device=dev),
+                            torch.linspace(3, -2, n, device=dev)])
+    comb = P.comb_trees(ps_all, np.random.default_rng(8), P.BENCH_POP,
+                        P.BENCH_CAP, dev)
+    comb256 = P.comb_trees(ps_all, np.random.default_rng(9), P.BENCH_POP,
+                           256, dev)
+    x4097 = torch.linspace(-1, 1, 4097, device=dev)[None, :]
+    sets = {
+        "initial": (ps, pop0.genome, X),
+        "evolved": (ps, pop.genome, X),
+        "skipped": (ps, (codes, consts, half), X),
+        "all_ops": (ps_all, gen_all(random.split(key, P.BENCH_POP), 2, 6),
+                    two_args(P.BENCH_NPOINTS)),
+        "comb": (ps_all, comb, two_args(P.BENCH_NPOINTS)),
+        "comb 4097": (ps_all, comb, two_args(4097)),
+        "evolved 4097": (ps, pop.genome, x4097),
+        "comb cap 256": (ps_all, comb256, two_args(P.BENCH_NPOINTS))}
+    out = {}
+    for name, (pset, genome, x) in sets.items():
+        t = pset.freeze().tables(dev)
+        out[name] = (*(g.contiguous() for g in genome), x.contiguous(),
+                     t["op_kind"], t["arg_index"])
+    if path is not None:
+        torch.save({k: tuple(t.cpu() for t in v) for k, v in out.items()},
+                   path)
+    return out
+
+
+def k6_times(emit, kernels, inputs: dict) -> None:
+    """K6 on each input, host-paced and with the launches queued."""
+    for name, (c, k_, l_, x, op_kind, arg_index) in inputs.items():
+        def call():
+            return kernels.launch_gp_interp(c, k_, l_, x, op_kind, arg_index)
+        emit(kernel="gp_interp", input=name,
+             shape=[*c.shape, x.shape[1]], tokens=int(l_.sum().item()),
+             ms=cuda_ms(call, reps=20, warm=3),
+             device_ms=queued_ms(call, reps=20, warm=3))
+
+
+def k6_ablations(root: Path, label: str, inputs) -> None:
+    """K6 with each part of :data:`K6_ABLATIONS` switched off: a copy of
+    ``root``'s package under the build directory with that one edit,
+    built and timed by this script in a process of its own on the same
+    inputs (``inputs`` is written first when it does not exist)."""
+    build_dir = Path(__file__).resolve().parent.parent / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        if inputs is None:
+            inputs = Path(tmp) / "k6_inputs.pt"
+        for name, old, new in K6_ABLATIONS:
+            copy = Path(tmp) / "root"
+            shutil.rmtree(copy, ignore_errors=True)
+            shutil.copytree(root / "deap_tpu_torch", copy / "deap_tpu_torch",
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+            src = copy / "deap_tpu_torch" / "kernels" / "gp_interp.cu"
+            text = src.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"{src}: no single {old!r} to switch off")
+            src.write_text(text.replace(old, new))
+            subprocess.run([sys.executable, __file__, "--root", str(copy),
+                            "--label", f"{label} {name}", "--only", "k6",
+                            "--inputs", str(inputs)], check=True)
 
 
 def _device_ms(fn, reps: int = 5) -> dict:

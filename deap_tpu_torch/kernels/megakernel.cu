@@ -11,12 +11,10 @@
 //                                partner, first child; Gaussian mutation; or
 //                                a copy) over parent rows gathered in-kernel.
 //
-// K3 runs one __device__ function per output element (r, c) of the
-// unpadded (n, dim) layout: the row's choice code, the cut pair (draw 4)
-// only in crossover rows and the gene draw (draw 5) only in mutation rows.
 // Every draw is the JAX package's counter hash of (seed, draw, row, lane),
 // so the kernels compute what _vary_tile and _var_or_tile compute, not
-// their tile structure.
+// their tile structure.  K3 is laid out by row as K1 and K2 are by pair
+// (below, at its kernel).
 //
 // K1 and K2 are one kernel body (pair_vary_kernel), laid out by mating
 // pair; a template flag says where row r's source comes from (K2: genome
@@ -41,10 +39,10 @@
 // Bound on the card: bytes.  Each element is read once from the parents (K1)
 // or the parent row (K2, K3) and written once; K2 adds the order/pos/widx
 // words, K3 the ia/i2/code words and, in crossover rows, the partner's
-// swapped genes.  At 1e6 x 100 in float32 that is about 0.8 GB a call.  K3
-// pays the hashes and the 64-bit index division once per element; K1 and
-// K2 pay them once per pair or row, so what is left per gene is the load,
-// the swap select, the widening and narrowing and, in gated rows, draw 3.
+// swapped genes.  At 1e6 x 100 in float32 that is about 0.8 GB a call.
+// The index loads and the cut hashes are paid once per pair or row, so what
+// is left per gene is the load, the swap select, the widening and narrowing
+// and, in gated (K1, K2) or mutation (K3) rows, the gene draw.
 // On an H100 at 1e6 x 100: one thread an element, K1 took 0.74 ms in each
 // type (four hashes and a division a gene, every gene read twice); in the
 // pair layout 0.30 / 0.26 / 0.29 ms (float32 / bfloat16 / int8).  K2's
@@ -130,14 +128,6 @@ struct Storage {
   float scale;      // int8: float32(bound / 127)
   float inv_scale;  // int8: float32(127 / bound)
 };
-
-__device__ __forceinline__ float widen(float v, const Storage&) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v, const Storage&) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float widen(int8_t v, const Storage& s) {
-  return __fmul_rn((float)v, s.scale);
-}
 
 template <typename T> __device__ T narrow(float v, const Storage& s);
 template <> __device__ __forceinline__ float narrow<float>(float v,
@@ -439,11 +429,28 @@ int launch_pair_kernel(const int* order, const int* pos, const void* genome,
 // Per output row r: code[r] 0 = crossover (first child of genome[ia[r]] with
 // partner genome[i2[r]]), 1 = Gaussian mutation of genome[ia[r]], 2 = copy.
 // The parent rows are gathered here, so no (lambda, dim) copy of either
-// parent is materialised; the partner is read only where it is taken.  The
-// cut pair is draw 4 at lanes 0 and 1 of the row, the gene grid draw 5, both
-// at absolute row coordinates.  knobs: [mu, sigma, indpb].  The narrowing is
-// GenomeStorage.to_storage's (int8: round(v / scale)), not K1's multiply by
-// the reciprocal.
+// parent is materialised.  The cut pair is draw 4 at lanes 0 and 1 of the
+// row, the gene grid draw 5, both at absolute row coordinates.  knobs: [mu,
+// sigma, indpb].  The narrowing is GenomeStorage.to_storage's (int8:
+// rint of the rounded quotient v / scale), not K1's rint(v * (1 / scale));
+// the two differ where v * (1 / scale) lies near a half-integer, so K3
+// takes the product and falls back to the division only there.
+//
+// K1/K2's one-pass layout in a kernel of its own (K3 does not share their
+// body: a runtime layout there costs K2 10%): a block owns 256 rows; first
+// one thread a row reads code, ia and, in crossover rows, i2, and hashes
+// the cut pair, into one shared int4; then the block's rows are walked as
+// one run of V-byte vectors, consecutive threads on consecutive vectors
+// (no lane idles at any dim; a vector's row is a float estimate of the
+// quotient, corrected by one, not a division).  The partner's vector is
+// read only where it meets the cut, draw 5 runs only in mutation rows,
+// erf_inv one masked gene of each lane per pass; the next vector's loads
+// are issued before this one is varied.  On an H100 at 1e6 x 100 (float32 /
+// bfloat16 / int8): one thread a gene took 0.58 / 0.53 / 0.60 ms; a lane
+// group a row, as K1/K2, 0.39 / 0.35 / 0.42 (idle lanes: 25 vectors on 32);
+// this walk 0.36 / 0.31 / 0.37, and 0.35 for int8 by the product.  Loading
+// a group of vectors (32 bytes a thread) before varying them was slower in
+// every type (0.45 / 0.40 / 0.71).
 
 template <typename T>
 __device__ __forceinline__ T store_narrow(float v, const Storage& s);
@@ -457,54 +464,133 @@ store_narrow<__nv_bfloat16>(float v, const Storage&) {
 }
 template <> __device__ __forceinline__ int8_t store_narrow<int8_t>(
     float v, const Storage& s) {
-  float q = rintf(__fdiv_rn(v, s.scale));          // round half to even
+  // rint(v / scale) from v * (1 / scale) where that is more than 1e-4 from
+  // a half-integer (the two quotients differ by < 5e-5 below 256)
+  float p = __fmul_rn(v, s.inv_scale);
+  const float f = __fsub_rn(p, floorf(p));
+  if (!(fabsf(p) < 256.0f) || fabsf(__fsub_rn(f, 0.5f)) < 1e-4f)
+    p = __fdiv_rn(v, s.scale);
+  float q = rintf(p);                              // round half to even
   q = fminf(fmaxf(q, -127.0f), 127.0f);
   return (int8_t)q;
 }
-
 template <typename T>
-__global__ void var_or_kernel(const T* __restrict__ genome,
-                              const int* __restrict__ ia,
-                              const int* __restrict__ i2,
-                              const int* __restrict__ code,
-                              T* __restrict__ out, long long lam, int dim,
-                              Storage st, const int* __restrict__ seed,
-                              const float* __restrict__ knobs) {
+__device__ __forceinline__ typename RawOf<T>::type store_narrow_raw(
+    float v, const Storage& s) {
+  return store_narrow<T>(v, s);
+}
+template <>
+__device__ __forceinline__ unsigned short store_narrow_raw<__nv_bfloat16>(
+    float v, const Storage& s) {
+  return __bfloat16_as_ushort(store_narrow<__nv_bfloat16>(v, s));
+}
+
+constexpr int kOrRows = 256;                  // rows a block, a thread each
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kOrRows)
+var_or_kernel(const T* __restrict__ genome, const int* __restrict__ ia,
+              const int* __restrict__ i2, const int* __restrict__ code,
+              T* __restrict__ out, long long lam, int dim, Storage st,
+              const int* __restrict__ seed, const float* __restrict__ knobs,
+              float inv_nvec) {
+  using Vec = typename VecOf<V>::type;
+  constexpr int E = V / (int)sizeof(T);       // elements a vector access
+  // per row: parent, partner (-1 in a mutation row), taken columns [lo, hi)
+  __shared__ int4 s_row[kOrRows];
   const uint32_t s = (uint32_t)seed[0];
   const float mu = knobs[0], sigma = knobs[1], indpb = knobs[2];
-  const long long total = lam * (long long)dim;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    long long r = i / dim;
-    int c = (int)(i - r * dim);
+  const long long row0 = (long long)blockIdx.x * kOrRows;
+  const int t = threadIdx.x;
+  // 1. per row, one thread: the choice, the parent and, in crossover rows,
+  //    the partner and the cut pair (draw 4, lanes 0 and 1)
+  if (row0 + t < lam) {
+    const long long r = row0 + t;
     const int cr = code[r];
-    float v = widen(genome[(long long)ia[r] * dim + c], st);
+    const int a = ia[r];
+    int lo = 0, hi = 0, b = cr == 1 ? -1 : a;
     if (cr == 0) {
-      // two-point crossover, first child: cut pair from draw 4, lanes 0, 1
-      int lo, hi;
       cut_range(uniform_at(s, 4u, (uint32_t)r, 0u),
                 uniform_at(s, 4u, (uint32_t)r, 1u), dim, &lo, &hi);
-      if (c >= lo && c < hi)
-        v = widen(genome[(long long)i2[r] * dim + c], st);
-    } else if (cr == 1) {
-      // Gaussian mutation: mask and noise from one gene draw (draw 5)
-      float u = uniform_at(s, 5u, (uint32_t)r, (uint32_t)c);
-      if (u < indpb) v = add_noise(v, u, mu, sigma, indpb);
+      b = i2[r];
     }
-    out[i] = store_narrow<T>(v, st);
+    s_row[t] = make_int4(a, b, lo, hi);
+  }
+  __syncthreads();
+  // 2. the block's rows as one run of V-byte vectors, a thread every
+  //    kOrRows-th: consecutive threads take consecutive vectors (a row's
+  //    vectors, then the next row's), no lane idles; a vector's row is a
+  //    float estimate of v / nvec, corrected by one; the next vector's
+  //    loads are issued before this one is varied
+  const long long left = lam - row0;
+  const int rows_here = left < kOrRows ? (int)left : kOrRows;
+  const int nvec = dim / E;
+  const int total = rows_here * nvec;
+  int nv = t, nrl = 0, nc0 = 0;
+  int4 nm = make_int4(0, 0, 0, 0);
+  Vec na{}, nb{};
+  auto fetch = [&]() {
+    if (nv >= total) return;
+    int q = __float2int_rz(__int2float_rn(nv) * inv_nvec);
+    if (q * nvec > nv) --q;
+    else if ((q + 1) * nvec <= nv) ++q;
+    nrl = q;
+    nc0 = (nv - q * nvec) * E;
+    nm = s_row[q];
+    na = __ldg(reinterpret_cast<const Vec*>(genome + (long long)nm.x * dim +
+                                            nc0));
+    if (nc0 < nm.w && nc0 + E > nm.z)
+      nb = __ldg(reinterpret_cast<const Vec*>(genome + (long long)nm.y * dim +
+                                              nc0));
+  };
+  fetch();
+  while (nv < total) {
+    Pack<T, V> pa, pb;
+    pa.v = na;
+    pb.v = nb;
+    const int rl = nrl, c0 = nc0;
+    const int4 m = nm;
+    nv += kOrRows;
+    fetch();
+    const long long r = row0 + rl;
+    const bool mut = m.y < 0;
+    float x[E], u[E];
+    unsigned mask = 0;                        // masked genes
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const bool take = c0 + e >= m.z && c0 + e < m.w;
+      x[e] = widen_raw(take ? pb.e[e] : pa.e[e], st);
+      u[e] = 1.0f;
+      if (mut) {
+        u[e] = uniform_at(s, 5u, (uint32_t)r, (uint32_t)(c0 + e));
+        if (u[e] < indpb) mask |= 1u << e;
+      }
+    }
+    // one masked gene of each lane per pass
+    while (mask) {
+      const int e = __ffs(mask) - 1;
+      mask &= mask - 1;
+#pragma unroll
+      for (int q = 0; q < E; ++q)
+        if (q == e) x[q] = add_noise(x[q], u[q], mu, sigma, indpb);
+    }
+    Pack<T, V> o;
+#pragma unroll
+    for (int e = 0; e < E; ++e) o.e[e] = store_narrow_raw<T>(x[e], st);
+    *reinterpret_cast<Vec*>(out + r * dim + c0) = o.v;
   }
 }
 
-constexpr int kThreads = 256;
-
-int grid_for(long long total) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (total + kThreads - 1) / kThreads;
-  long long cap = (long long)sms * 32;     // grid-stride beyond 32 blocks/SM
-  if (blocks > cap) blocks = cap;
-  return blocks < 1 ? 1 : (int)blocks;
+template <typename T, int V>
+void launch_var_or_kernel(const void* genome, const int* ia, const int* i2,
+                          const int* code, void* out, long long lam, int dim,
+                          Storage s, const int* seed, const float* knobs,
+                          cudaStream_t st) {
+  const long long blocks = (lam + kOrRows - 1) / kOrRows;
+  const float inv_nvec = 1.0f / (float)(dim / (V / (int)sizeof(T)));
+  var_or_kernel<T, V><<<(unsigned)blocks, kOrRows, 0, st>>>(
+      (const T*)genome, ia, i2, code, (T*)out, lam, dim, s, seed, knobs,
+      inv_nvec);
 }
 
 }  // namespace
@@ -537,30 +623,35 @@ extern "C" int megakernel_var_or(const void* genome, const int* ia,
                                  long long lam, int dim, int dtype,
                                  float scale, const int* seed,
                                  const float* knobs, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  Storage s{scale, 0.0f};
-  long long total = lam * (long long)dim;
-  if (total == 0) return 0;
-  int grid = grid_for(total);
-  switch (dtype) {
-    case 0:
-      var_or_kernel<float><<<grid, kThreads, 0, st>>>(
-          (const float*)genome, ia, i2, code, (float*)out, lam, dim, s, seed,
-          knobs);
+  if (lam <= 0 || dim <= 0) return 0;
+  // a block's vectors, kOrRows rows of them, are counted in an int, which
+  // runs up to a stride past the last (one element a vector at worst)
+  if ((lam + kOrRows - 1) / kOrRows > 0x7FFFFFFF ||
+      (long long)dim * kOrRows + kOrRows >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int elt = dtype == 0 ? 4 : (dtype == 1 ? 2 : 1);
+  const int v = pair_vector_bytes(elt, dim, genome, out);
+  const Storage s{scale, 1.0f / scale};
+#define OR_ARGS genome, ia, i2, code, out, lam, dim, s, seed, knobs, \
+                (cudaStream_t)stream
+  switch (dtype * 32 + v) {
+    case 0 * 32 + 16: launch_var_or_kernel<float, 16>(OR_ARGS); break;
+    case 0 * 32 + 8: launch_var_or_kernel<float, 8>(OR_ARGS); break;
+    case 0 * 32 + 4: launch_var_or_kernel<float, 4>(OR_ARGS); break;
+    case 1 * 32 + 16:
+      launch_var_or_kernel<__nv_bfloat16, 16>(OR_ARGS);
       break;
-    case 1:
-      var_or_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          (const __nv_bfloat16*)genome, ia, i2, code, (__nv_bfloat16*)out,
-          lam, dim, s, seed, knobs);
-      break;
-    case 2:
-      var_or_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-          (const int8_t*)genome, ia, i2, code, (int8_t*)out, lam, dim, s,
-          seed, knobs);
-      break;
+    case 1 * 32 + 8: launch_var_or_kernel<__nv_bfloat16, 8>(OR_ARGS); break;
+    case 1 * 32 + 4: launch_var_or_kernel<__nv_bfloat16, 4>(OR_ARGS); break;
+    case 1 * 32 + 2: launch_var_or_kernel<__nv_bfloat16, 2>(OR_ARGS); break;
+    case 2 * 32 + 8: launch_var_or_kernel<int8_t, 8>(OR_ARGS); break;
+    case 2 * 32 + 4: launch_var_or_kernel<int8_t, 4>(OR_ARGS); break;
+    case 2 * 32 + 2: launch_var_or_kernel<int8_t, 2>(OR_ARGS); break;
+    case 2 * 32 + 1: launch_var_or_kernel<int8_t, 1>(OR_ARGS); break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef OR_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -28,6 +28,11 @@ the interpreter's time that the stripped loop demonstrates it needs.
 ``PROBE_POP`` / ``PROBE_CAP`` / ``PROBE_POINTS`` / ``PROBE_ITERS`` set the
 shape and k as in the JAX tool; the result is printed as one JSON line
 with the card's name and power limit.
+
+The module also holds ``bench_gp.py``'s toolbox, initial population and
+generation (:func:`bench_toolbox`, :func:`bench_initial`,
+:func:`bench_generation`) and :func:`comb_trees`, from which
+``chip_smoke.py`` and ``kernels/kernel_times.py`` build K6's inputs.
 """
 
 from __future__ import annotations
@@ -40,16 +45,24 @@ import sys
 import numpy as np
 import torch
 
-from .. import _xla_math, gp, kernels, random
+from .. import _xla_math, base, gp, kernels, random
+from ..algorithms import evaluate_population, var_and
 from .._device import resolve_device
 from ..gp.pset import Argument, Ephemeral, Primitive, freeze_pset
 from ..kernels.peaks import bound_ms
+from ..ops import selection
 from . import ProbeRun
 
-__all__ = ["LEN", "PROBES", "settings", "bench_pset", "full_binary_trees",
-           "make_probe_kernel", "probe_bound", "main"]
+__all__ = ["LEN", "PROBES", "BENCH_POP", "BENCH_CAP", "BENCH_NPOINTS",
+           "BENCH_CXPB", "BENCH_MUTPB", "settings", "bench_pset",
+           "bench_toolbox", "bench_initial", "bench_generation",
+           "full_binary_trees", "comb_trees", "make_probe_kernel",
+           "probe_bound", "main"]
 
 LEN = 63                     # full binary tree of depth 5
+#: bench_gp.py's configuration at full width
+BENCH_POP, BENCH_CAP, BENCH_NPOINTS = 4096, 64, 1024
+BENCH_CXPB, BENCH_MUTPB = 0.5, 0.1
 N_BRANCHES = 9               # the bench set's nodes
 PROBES = ["noswitch", "dispatch", "stackrw", "real63", "noswitch_tb32",
           "dispatch_tb32", "real63_tb32", "dispatch_unrollfull",
@@ -75,6 +88,74 @@ def bench_pset():
     ps.add_ephemeral_constant(
         "rand101", lambda keys: random.randint(keys, (), -1, 2).float())
     return ps
+
+
+def bench_toolbox(dev, pset_kind: str = "bench", per_tree: bool = False,
+                  cap: int = BENCH_CAP, n_points: int = BENCH_NPOINTS):
+    """``(pset, toolbox, evaluator, initial generator, X)``: bench_gp.py's
+    primitive set, data and toolbox on ``dev`` (symbolic regression of
+    x^4 + x^3 + x^2 + x on ``n_points`` points of [-1, 1]).  The GP
+    operators are registered with their ``rowwise_op`` mark, or with
+    ``per_tree`` as the reference examples register them (a lambda over
+    one key and one tree, called once a row).  ``"all"`` is a second set
+    with every opcode of K6's table (two arguments and a terminal)."""
+    if pset_kind == "bench":
+        ps = bench_pset()
+    else:
+        ps = gp.PrimitiveSet("ALL", 2)
+        ps.add_terminal(1.0, name="one")
+        for name, (f, a) in {**gp.safe_ops, **gp.bool_ops}.items():
+            ps.add_primitive(f, a, name=name)
+        ps.add_ephemeral_constant(
+            "rand101", lambda keys: random.randint(keys, (), -1, 2).float())
+    X = torch.linspace(-1, 1, n_points, dtype=torch.float32,
+                       device=dev)[None, :]
+    x = X[0]
+    target = x ** 4 + x ** 3 + x ** 2 + x
+    pop_ev = gp.make_population_evaluator(ps, cap)
+    gen_mut = gp.make_generator(ps, cap, "full")
+
+    def evaluate_all(genome, skip=None):
+        codes, consts, lengths = genome
+        if skip is not None:
+            # skipped rows run no stack-machine step (length 0)
+            lengths = torch.where(skip, 0, lengths)
+        out = pop_ev(codes, consts, lengths, X)
+        mse = ((out - target[None, :]) ** 2).mean(dim=1)
+        return torch.where(torch.isfinite(mse), mse, 1e6)[:, None]
+
+    tb = base.Toolbox()
+    tb.register("evaluate_population", evaluate_all)
+    if per_tree:
+        tb.register("mate", lambda k, a, b: gp.cx_one_point(k, a, b, ps))
+        tb.register("mutate", lambda k, t: gp.mut_uniform(
+            k, t, lambda kk: gen_mut(kk, 0, 2), ps))
+    else:
+        tb.register("mate", gp.cx_one_point, pset=ps)
+        tb.register("mutate", gp.mut_uniform,
+                    expr=lambda kk: gen_mut(kk, 0, 2), pset=ps)
+    tb.register("select", selection.sel_tournament, tournsize=3)
+    gen_init = gp.make_generator(ps, cap, "half_and_half")
+    return ps, tb, pop_ev, gen_init, X
+
+
+def bench_initial(tb, gen_init, key, n: int):
+    """``n`` half-and-half trees of depth 1-3, evaluated."""
+    genome = gen_init(random.split(key, n), 1, 3)
+    pop = base.Population(genome, base.Fitness.empty(
+        n, (-1.0,), device=key.device))
+    return evaluate_population(tb, pop)[0]
+
+
+def bench_generation(tb, key, pop, cxpb: float = BENCH_CXPB,
+                     mutpb: float = BENCH_MUTPB):
+    """bench_gp.py's generation: select, ``var_and(pairing="halves")``,
+    evaluate the rows it touched.  Returns ``(key, offspring, idx)``."""
+    key, k_sel, k_var = random.split(key, 3)
+    idx = tb.select(k_sel, pop.fitness, pop.size)
+    off = var_and(k_var, pop.take(idx), tb, cxpb, mutpb, pairing="halves")
+    off, _ = evaluate_population(tb, off)
+    return key, off, idx
 
 
 def full_binary_trees(pset, rng, pop: int, cap: int, device=None):
@@ -116,6 +197,55 @@ def full_binary_trees(pset, rng, pop: int, cap: int, device=None):
                           device=dev)
     return codes, consts, torch.full((pop,), LEN, dtype=torch.int32,
                                      device=dev)
+
+
+def comb_trees(pset, rng, pop: int, cap: int, device=None):
+    """``(codes, consts, lengths)``: ``pop`` prefix programs at the
+    interpreter's edges, from the numpy generator ``rng``, three shapes
+    in turn: a left comb of binary primitives, every leaf pushed before
+    the first operator runs (the deepest stack ``cap`` tokens of binary
+    operators make), topped with unary primitives to exactly ``cap``
+    tokens; the same comb of ternary primitives (``if`` at depth), when
+    the set has one; and a right comb (a stack two deep, each operator's
+    first operand a leaf).  Leaves are the set's arguments and
+    terminals, an ephemeral's constant uniform in [-2, 2)."""
+    f = freeze_pset(pset)
+    prim = f.is_primitive
+    unary, binary, ternary = (np.nonzero(prim & (f.arity == a))[0]
+                              for a in (1, 2, 3))
+    leaves = np.nonzero(~prim)[0]
+    if not len(binary) or not len(leaves):
+        raise ValueError("comb trees need a binary primitive and a leaf")
+    kinds = ["left", "ternary", "right"] if len(ternary) else ["left",
+                                                              "right"]
+    codes = np.zeros((pop, cap), np.int32)
+    consts = np.zeros((pop, cap), np.float32)
+    lengths = np.zeros((pop,), np.int32)
+
+    def leaf():
+        c = int(rng.choice(leaves))
+        return c, (rng.uniform(-2.0, 2.0) if f.is_ephemeral[c]
+                   else f.const_value[c])
+
+    for r in range(pop):
+        kind = kinds[r % len(kinds)]
+        a = 3 if kind == "ternary" else 2
+        k = (cap - 1) // a                     # operators: k a + 1 tokens
+        ops = [(int(rng.choice(ternary if a == 3 else binary)), 0.0)
+               for _ in range(k)]
+        if kind == "right":
+            body = [t for op in ops for t in (op, leaf())] + [leaf()]
+        else:
+            body = ops + [leaf() for _ in range(k * (a - 1) + 1)]
+        roots = [(int(rng.choice(unary)), 0.0)
+                 for _ in range(cap - len(body))] if len(unary) else []
+        toks = roots + body
+        lengths[r] = len(toks)
+        codes[r, :len(toks)] = [c for c, _ in toks]
+        consts[r, :len(toks)] = [v for _, v in toks]
+    dev = resolve_device(device)
+    return (torch.tensor(codes, device=dev), torch.tensor(consts, device=dev),
+            torch.tensor(lengths, device=dev))
 
 
 def _scales(n_branches: int, device) -> torch.Tensor:

@@ -434,6 +434,29 @@ def test_interpreter_length_zero_rows_give_zeros():
     assert (port[::3] == 0).all()
 
 
+@pytest.mark.parametrize("which", ["bench", "all"])
+@pytest.mark.parametrize("n_points", [1, 1000])
+def test_interpreter_deepest_stack_bitwise(which, n_points):
+    """The plain interpreter against the JAX package's
+    ``run_stack_machine`` (jitted, vmapped) on comb trees of exactly
+    ``cap`` = 64 tokens: a left comb (every leaf pushed before the first
+    operator runs, the deepest stack 64 tokens make), ``if`` combs at
+    depth (the every-opcode set) and right combs, at 1 and 1000 points."""
+    from deap_tpu_torch.probes.gp import comb_trees
+    jp, tp = _bench_psets() if which == "bench" else _all_ops_psets()
+    cap = 64
+    tt = comb_trees(tp, np.random.default_rng(5), 6, cap, device="cpu")
+    assert (tt[2] == cap).all()
+    X = np.stack([np.linspace(-1, 1, n_points), np.linspace(3, -2, n_points)]
+                 )[:len(tp.arguments)].astype(np.float32)
+    jev = jax.jit(jax.vmap(jgp.make_evaluator(jp, cap),
+                           in_axes=(0, 0, 0, None)))
+    jout = jev(*(jnp.asarray(t.numpy()) for t in tt), X)
+    port = tgp.run_stack_machine(*tt, torch.from_numpy(X), tp.freeze(), cap)
+    assert port.shape == (6, n_points)
+    assert _same(jout, port.numpy())
+
+
 def test_make_evaluator_and_compile_tree():
     jp, tp = _bench_psets()
     tree = tgp.from_string("add(mul(ARG0, ARG0), sin(ARG0))", tp, cap=CAP)

@@ -17,6 +17,7 @@ CPU tensors, and a missing compiler raises instead of falling back.
 import json
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -205,7 +206,12 @@ def _dtlz2_w(dev, n, seed=7):
 @pytest.mark.gpu
 @pytest.mark.parametrize("st", STORAGES, ids=lambda s: s.dtype)
 @pytest.mark.parametrize("shape", [(100_000, 100_000, 12),
-                                   (1_000_000, 1_000_000, DIM)])
+                                   (1_000_000, 1_000_000, DIM),
+                                   (100_000, 123_457, 1),
+                                   (100_000, 65_537, 3),
+                                   (100_000, 77_777, 12),
+                                   (100_000, 54_321, DIM),
+                                   (20_000, 30_011, 1000)])
 def test_var_or_kernel_equals_plain_on_card(st, shape):
     dev = _cuda()
     n, lam, dim = shape
@@ -306,6 +312,56 @@ def test_gp_interp_kernel_equals_plain_on_card(which, skip):
     assert _nan_equal(k6, plain)
     if skip:
         assert (k6[::2] == 0).all()
+
+
+def _gp_edge_inputs(dev, case):
+    """chip_smoke.py's K6 edges: comb trees of exactly 64 tokens (the
+    deepest stack, ``if`` at depth) at 1024, 1, 1000 and 4097 points,
+    deep bench trees at 4097 points, a single tree, every row skipped;
+    ``_capN``: comb trees of exactly N tokens, where a block holds fewer
+    warps (6 at cap 256, 3 at cap 447; at 4097 points ``X`` is not
+    staged)."""
+    from deap_tpu_torch.probes.gp import comb_trees
+    pop, cap = 4096, 64
+    kind, _, n = case.partition("_")
+    if n.startswith("cap"):
+        c, _, n = n[3:].partition("_")
+        cap = int(c)
+    n = int(n) if n.isdigit() else 1024
+    ps = _gp_pset("all" if kind == "comb" else "bench")
+    if kind == "comb":
+        codes, consts, lengths = comb_trees(ps, np.random.default_rng(8),
+                                            pop, cap, dev)
+    else:
+        keys = random.split(random.PRNGKey(4, device=dev), pop)
+        codes, consts, lengths = gp.make_generator(ps, cap, "half_and_half")(
+            keys, 2, 6)
+    if kind == "single":
+        codes, consts, lengths = codes[:1], consts[:1], lengths[:1]
+    if kind == "skipped":
+        lengths = torch.zeros_like(lengths)
+    X = torch.stack([torch.linspace(-1, 1, n, device=dev) * (i + 1)
+                     for i in range(len(ps.arguments))])
+    return ps, cap, (codes, consts, lengths), X
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["comb", "comb_1", "comb_1000", "comb_4097",
+                                  "deep_4097", "single", "skipped",
+                                  "comb_cap128", "comb_cap256",
+                                  "comb_cap256_4097", "comb_cap447"])
+def test_gp_interp_kernel_edges_on_card(case):
+    dev = _cuda()
+    ps, cap, trees, X = _gp_edge_inputs(dev, case)
+    kernels.reset_launches()
+    k6 = gp.make_population_evaluator(ps, cap, backend="cuda")(*trees, X)
+    plain = gp.run_stack_machine(*trees, X, ps.freeze(), cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gp_interp"] == 1
+    assert k6.shape == (trees[0].shape[0], X.shape[1])
+    assert _nan_equal(k6, plain)
+    if case == "skipped":
+        assert (k6 == 0).all()
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -655,7 +711,6 @@ def test_probe_lookup_and_row_gather_equal_plain_on_card():
 @pytest.mark.parametrize("tb", [8, 32])
 @pytest.mark.parametrize("mode", ["noswitch", "dispatch", "stackrw"])
 def test_probe_gp_equals_plain_on_card(mode, tb, unroll):
-    import numpy as np
     dev = _cuda()
     codes, consts, lengths = PGP.full_binary_trees(
         PGP.bench_pset(), np.random.default_rng(1), 200, 64, dev)

@@ -10,8 +10,9 @@
   narrow genome the JAX package draws its Gaussian noise in the genome's
   dtype (and rejects int8); the port has float32 normals only and raises.
 
-Also the all-reproduction case, the ``cxpb + mutpb > 1`` assertion,
-lambda != mu, and the clip at the slice's indpb = 1/12.
+Also the genome widths 1, 3 and 1000, the all-reproduction case, the
+``cxpb + mutpb > 1`` assertion, lambda != mu, and the clip at the
+slice's indpb = 1/12.
 """
 
 import numpy as np
@@ -55,8 +56,8 @@ def _toolboxes(engine, dtype="float32", bound=0.0):
     return out
 
 
-def _pops(dtype="float32", bound=0.0, n=N, seed=0):
-    g = np.random.default_rng(seed).uniform(-5.12, 5.12, (n, DIM))
+def _pops(dtype="float32", bound=0.0, n=N, seed=0, dim=DIM):
+    g = np.random.default_rng(seed).uniform(-5.12, 5.12, (n, dim))
     jg = gp.GenomeStorage(dtype, bound).to_storage(
         jnp.asarray(g, jnp.float32))
     jp = jbase.Population(jg, jbase.Fitness.empty(n, WEIGHTS))
@@ -93,6 +94,22 @@ def test_fused_var_or_matches_jax_bitwise(dtype, bound, cxpb, mutpb):
     assert tuple(to.genome.shape) == (LAMBDA, DIM)
     assert _same(jo.genome, to.genome)
     assert not to.fitness.valid.any() and to.fitness.weights == WEIGHTS
+
+
+@pytest.mark.parametrize("dtype,bound", STORAGES)
+@pytest.mark.parametrize("dim", [1, 3, 1000])
+def test_fused_var_or_matches_jax_bitwise_at_dims(dtype, bound, dim):
+    """As above at other genome widths: one gene (the cut pair over a
+    single gene), three, and 1000 (many vector chunks a row on the
+    card)."""
+    jtb, ttb = _toolboxes("megakernel", dtype, bound)
+    jp, tp = _pops(dtype, bound, dim=dim)
+    key = jax.random.PRNGKey(dim)
+    jo = gp.fused_var_or(key, jp, jtb, LAMBDA, 0.6, 0.3, vary_exec="xla")
+    to = talg.var_or(interop.key_to_torch(key, device="cpu"), tp, ttb,
+                     LAMBDA, 0.6, 0.3)
+    assert tuple(to.genome.shape) == (LAMBDA, dim)
+    assert _same(jo.genome, to.genome)
 
 
 @pytest.mark.parametrize("dtype,bound", STORAGES)
