@@ -105,7 +105,9 @@
              times beside the bound and the library call (``copy_``,
              ``order[pos]``, ``index_select``); the lookup and
              ``order[pos]`` as the median of five readings each, host-paced
-             and with the launches queued (device time);
+             and with the launches queued (device time); the normals
+             also at 1, 2047 and 2049 rows under this run's seed and a
+             second one;
 19. probe tool — ``python -m deap_tpu_torch.probes.ga`` in process at
              2^20 x 100, every probe, ``--recommend``, ``--json
              chip_smoke_out/probe_ga.json``: P1-P4 launched on it, every
@@ -114,7 +116,11 @@
              recommended gather;
 20. P5      — ``probe_gp`` against its plain version on the GP tool's
              4096 full binary trees (capacity 64) at 1024 points: every
-             mode, tb 8 and 32, unroll 1 and 63;
+             mode, tb 8 and 32, unroll 1 and 63; then in every form on
+             ``probes.gp.probe_edges``: 4097 trees (a group with
+             missing trees), 1000 points and 1 point, cap 256 with trees
+             shorter than 63 tokens and up to 256, codes outside the
+             branches;
 21. probe tool — ``python -m deap_tpu_torch.probes.gp`` in process: the
              nine probes and ``fraction_of_floor``, P5 and K6 (``real63``)
              launched on it;
@@ -1796,6 +1802,17 @@ def probe_kernels_phase(card_line, key) -> dict:
         lambda: PGA.hash_normal(seed, pop),
         lambda: PGA._hash_normal_plain(seed, pop), None,
         PGA.kernel_bound("rng", pop), shape=shape, seed=int(seed.item()))
+    # P2's edges: a row, a block's worth of rows less one and more one,
+    # under this run's seed and a second one
+    gaps = {}
+    for s in (seed, torch.tensor([12345], dtype=torch.int32, device=dev)):
+        for rows in (1, 2047, 2049):
+            gaps[f"seed {int(s.item())}, {rows} rows"] = ulp_gap(
+                PGA.hash_normal(s, rows), PGA._hash_normal_plain(s, rows))
+    phase("P2 probe_hash_normal edges vs plain", card_line, ulp_gap=gaps,
+          ulp_bound=ULP_BOUND)
+    if max(gaps.values()) > ULP_BOUND:
+        fail(f"P2 probe_hash_normal: edges {gaps} (bound {ULP_BOUND})")
     res["lookup"] = probe_check(
         "P3 probe_lookup", card_line, lambda: PGA.lookup(order, pos),
         lambda: order[pos.long()], lambda: order[pos],
@@ -1852,7 +1869,8 @@ def probe_ga_tool_phase(kernels, card_line) -> dict:
 def probe_gp_phase(card_line, key) -> dict:
     """P5 against its plain version, bitwise, on the GP tool's 4096 x 64
     full binary trees at 1024 points: every mode, tb 8 and 32, unroll 1
-    and 63."""
+    and 63; then on its edges, every form.  Returns the forms' results
+    and the edges' largest error."""
     import numpy as np
     import torch
     from deap_tpu_torch.probes import gp as PGP
@@ -1874,7 +1892,27 @@ def probe_gp_phase(card_line, key) -> dict:
                                         tb, bool(unroll), 9),
                     None, PGP.probe_bound(mode, codes, npts),
                     shape=[pop, cap, npts])
-    return res
+    # P5's edges (probes.gp.probe_edges): groups with missing trees, ragged
+    # and single points, cap 256, codes outside the branches; every form
+    edge_err = 0.0
+    for name, (c, k, ln, n_points, nb) in PGP.probe_edges(key.device).items():
+        gaps = {}
+        for mode in ("noswitch", "dispatch", "stackrw"):
+            for tb in PROBE_GP_TB:
+                for unroll in PROBE_GP_UNROLL:
+                    got = PGP.make_probe_kernel(mode, nb, tb, unroll,
+                                                n_points=n_points)(c, k, ln, x)
+                    want = PGP._probe_gp_plain(c, k, ln, n_points, mode, tb,
+                                               bool(unroll), nb)
+                    gaps[f"{mode} tb {tb} unroll {unroll or 1}"] = ulp_gap(
+                        got, want)
+                    edge_err = max(edge_err, nan_gap(got, want)[1])
+        phase(f"P5 probe_gp edge vs plain: {name}", card_line,
+              shape=[*c.shape, n_points], n_branches=nb, ulp_gap=gaps,
+              ulp_bound=ULP_BOUND)
+        if max(gaps.values()) > ULP_BOUND:
+            fail(f"P5 probe_gp, {name}: {gaps} (bound {ULP_BOUND})")
+    return res, edge_err
 
 
 def probe_gp_tool_phase(kernels, card_line) -> tuple:
@@ -2188,7 +2226,7 @@ def main() -> int:
     p14 = probe_kernels_phase(card_line, k_pr)
     launches_pga = probe_ga_tool_phase(kernels, card_line)
     torch.cuda.empty_cache()
-    p5 = probe_gp_phase(card_line, k_pr5)
+    p5, p5_edge_err = probe_gp_phase(card_line, k_pr5)
     launches_pgp, gp_probes = probe_gp_tool_phase(kernels, card_line)
 
     # ---- 22. the kernels line and the result -------------------------------
@@ -2334,7 +2372,8 @@ def main() -> int:
         "source": "deap_tpu_torch/kernels/probes.cu",
         "replaces": "tools/pallas_probe_gp.py:184",
         "launches": launches_pgp["probe_gp"],
-        "max_abs_err": max(v["max_abs_err"] for v in p5.values()),
+        "max_abs_err": max(p5_edge_err,
+                           *(v["max_abs_err"] for v in p5.values())),
         "ms": r5["ms"], "plain_ms": r5["plain_ms"], "bound_ms": r5["bound_ms"],
         "bound_by": r5["bound_by"], "library_ms": None,
         "ms_by_form": {f"{m} tb{tb} unroll{u or 1}": v["ms"]

@@ -1,7 +1,9 @@
-"""Time K1, K2, K3, K5, K6 and P1 of a checkout of this package on the card.
+"""Time K1, K2, K3, K5, K6, P1, P2 and P5 of a checkout of this package on
+the card.
 
     python deap_tpu_torch/kernels/kernel_times.py [--root DIR] [--label L]
-        [--ablate] [--profile] [--only k1,k2,k3,k5,k6,p1] [--inputs FILE]
+        [--ablate] [--profile] [--only k1,k2,k3,k5,k6,p1,p2,p5]
+        [--inputs FILE]
 
 Imports ``deap_tpu_torch`` from ``DIR`` (default: the checkout that
 holds this file), builds its kernels and prints one JSON line per kernel
@@ -40,7 +42,15 @@ power limit:
   fewer blocks), each built and timed in a process of its own;
 * P1 ``launch_probe_stream_copy`` at rows 512, 2048 and 8192 on 2²⁰ ×
   128 float32, with ``copy_`` into a preallocated tensor timed beside
-  it, and ``launch_probe_chain24``.
+  it, and ``launch_probe_chain24``;
+* P2 ``launch_probe_hash_normal`` at 2²⁰ × 128 (seed 12345), with
+  ``device_ms``;
+* P5 ``launch_probe_gp`` on the GP probe tool's input (4096 full binary
+  trees of 63 tokens, cap 64, 1024 points) in every mode at tb 8 and 32,
+  the token loop not unrolled and unrolled over 63 tokens, with
+  ``device_ms``; and K6 on the same trees (``real63``), so that the
+  stripped loop's device time stands beside the interpreter's in one
+  run (``fraction_of_floor``: stackrw at tb 8 over K6).
 
 ``--ablate`` adds K1 and K2 without mutation (mutpb 0) and as a gather
 and copy (cxpb 0 too), and K6's parts; ``--profile`` adds K5's device
@@ -139,8 +149,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ablate", action="store_true",
                     help="also time K1 and K2 without mutation and as a "
                     "copy, and K6 with each part of its design off")
-    ap.add_argument("--only", default="k1,k2,k3,k5,k6,p1",
-                    help="comma-separated subset of k1, k2, k3, k5, k6, p1")
+    ap.add_argument("--only", default="k1,k2,k3,k5,k6,p1,p2,p5",
+                    help="comma-separated subset of k1, k2, k3, k5, k6, p1, "
+                    "p2, p5")
     ap.add_argument("--inputs", type=Path, default=None,
                     help="K6's inputs: read from this file, or built and "
                     "written there")
@@ -238,6 +249,17 @@ def main(argv=None) -> int:
         emit(kernel="probe_chain24", shape=[PROBE_POP, PROBE_LANE], ms=ms)
         del x, into
         torch.cuda.empty_cache()
+    if "p2" in only:
+        seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+
+        def p2_call():
+            return kernels.launch_probe_hash_normal(seed, PROBE_POP)
+        emit(kernel="probe_hash_normal", shape=[PROBE_POP, PROBE_LANE],
+             ms=cuda_ms(p2_call, reps=20, warm=3),
+             device_ms=queued_ms(p2_call, reps=20, warm=3))
+        torch.cuda.empty_cache()
+    if "p5" in only:
+        p5_times(emit, kernels, dev)
     if "k5" not in only:
         return 0
 
@@ -287,6 +309,41 @@ def k3_times(emit, G, kernels, key, dev) -> None:
             del gs
         del genome
         torch.cuda.empty_cache()
+
+
+def p5_times(emit, kernels, dev) -> None:
+    """P5 in every form on the GP probe tool's input, and K6 on the same
+    trees, host-paced and with the launches queued."""
+    import numpy as np
+    import torch
+    from deap_tpu_torch.probes import gp as P
+    ps = P.bench_pset()
+    codes, consts, lengths = P.full_binary_trees(
+        ps, np.random.default_rng(0), P.BENCH_POP, P.BENCH_CAP, dev)
+    shape = [P.BENCH_POP, P.BENCH_CAP, P.BENCH_NPOINTS]
+    device = {}
+    for mode in ("noswitch", "dispatch", "stackrw"):
+        for tb in (8, 32):
+            for unroll in (False, True):
+                def call():
+                    return kernels.launch_probe_gp(
+                        codes, consts, lengths, n_points=P.BENCH_NPOINTS,
+                        mode=mode, tb=tb, unroll=unroll, n_branches=9)
+                device[mode, tb, unroll] = queued_ms(call, reps=20, warm=3)
+                emit(kernel="probe_gp", mode=mode, tb=tb,
+                     unroll=63 if unroll else 1, shape=shape,
+                     ms=cuda_ms(call, reps=20, warm=3),
+                     device_ms=device[mode, tb, unroll])
+    t = ps.freeze().tables(dev)
+    X = torch.linspace(-1, 1, P.BENCH_NPOINTS, device=dev)[None, :]
+
+    def real63():
+        return kernels.launch_gp_interp(codes, consts, lengths, X,
+                                        t["op_kind"], t["arg_index"])
+    k6 = queued_ms(real63, reps=20, warm=3)
+    emit(kernel="gp_interp", input="real63 (the probe's trees)", shape=shape,
+         ms=cuda_ms(real63, reps=20, warm=3), device_ms=k6,
+         fraction_of_floor=device["stackrw", 8, False] / k6)
 
 
 def k6_inputs(key, dev, path=None) -> dict:

@@ -16,12 +16,23 @@ inner loop by the entry's marker opcode:
   holding the most — the unrolled sweep over a tile, not its remainder
   loop; one FMA is one pair step of one prefix.
 
-And, for P5's token loop (not unrolled) in each mode, how its switch
-compiled (:data:`DISPATCH`): the whole function's branches (``BRA``,
-``BRX``), selects (``FSEL``, ``SEL``) and ``FFMA`` with the distinct
-float immediates they multiply by — nine scales mean nine case bodies.
+And, for P5's token loop in each mode, not unrolled and unrolled
+(:data:`DISPATCH`), how its switch compiled: the whole function's
+instructions, branches (``BRA``, ``BRX``), selects (``FSEL``, ``SEL``)
+and ``FFMA`` with the distinct branch scales they multiply by, and its
+case bodies (a basic block holding an ``FFMA`` by a branch scale)
+counted by their ``FFMA``, ``FADD``, ``LDS`` and ``STS``: eight float
+operations a body, one for each of a lane's eight points, show that no
+tree is computed once and broadcast, and a shared access in every
+``stackrw`` body, a load in the even (read) ones and a store in the odd
+(write) ones, that its stack row stays a memory access.
 
-Prints one JSON object per kernel, each on a line: the loop's opcodes
+And, for P2 (:data:`NORMALS`), its loop's instructions an element (the
+elements are four a 16-byte store): float64 operations, conversions,
+selects and branches, calls included.
+
+Prints one JSON object per kernel, each on a line, with its registers a
+thread (``cuobjdump --dump-resource-usage``): the loop's opcodes
 with their counts, the pairs per iteration and each opcode's count per
 pair.  With ``--out`` each function's whole SASS, predicate guards
 included, is written there too.  Needs the CUDA toolkit (``nvcc`` and
@@ -48,13 +59,24 @@ KERNELS = {
     "K5_f32": ("hv3d_sweep_kernelIfE", "FFMA", 1, "most"),
     "K5_f64": ("hv3d_sweep_kernelIdE", "DFMA", 1, "most"),
 }
-#: label -> mangled-name part of P5's token loop, not unrolled
+#: label -> mangled-name part of P5's token loop, not unrolled and
+#: unrolled over 63 tokens
 DISPATCH = {
     "P5_noswitch": "probe_gp_kernelILi0ELb0E",
     "P5_dispatch": "probe_gp_kernelILi1ELb0E",
     "P5_stackrw": "probe_gp_kernelILi2ELb0E",
+    "P5_noswitch_unroll63": "probe_gp_kernelILi0ELb1E",
+    "P5_dispatch_unroll63": "probe_gp_kernelILi1ELb1E",
+    "P5_stackrw_unroll63": "probe_gp_kernelILi2ELb1E",
 }
-_FLOAT_IMM = re.compile(r"\b(0x3f8[0-9a-f]{5}|1\.0000\d*)\b", re.I)
+#: a branch scale as an FFMA's multiplier: 1 (branch 0) or just above it
+_SCALE = re.compile(r"1(\.0000\d*)?|0x3f8[0-9a-f]{5}", re.I)
+#: label -> mangled-name part of P2's kernel
+NORMALS = {"P2": "hash_normal_kernel"}
+#: opcodes that end a basic block
+_CONTROL = {"BRA", "BRX", "JMP", "JMX", "EXIT", "RET", "CALL", "BREAK",
+            "BSYNC"}
+_CONVERSIONS = ("F2F", "F2I", "I2F", "F2FP", "I2FP")
 
 
 def functions(sass: str) -> dict:
@@ -142,39 +164,132 @@ def report(label: str, sass_funcs: dict, out_dir=None) -> dict:
         "per_pair_total": len(loop) / pairs}
 
 
-def dispatch_report(label: str, sass_funcs: dict, out_dir=None) -> dict:
+def dispatch_report(label: str, sass_funcs: dict, out_dir=None,
+                    regs=None) -> dict:
     """How one entry of :data:`DISPATCH` compiled its switch: branches,
-    selects and the ``FFMA`` scales of the whole function."""
+    selects and the ``FFMA`` scales of the whole function, and its case
+    bodies (:func:`case_bodies`) counted by their shape: how many bodies
+    hold so many ``FFMA``, ``FADD``, ``LDS`` and ``STS``."""
     name, instrs = _function(DISPATCH[label], sass_funcs, out_dir)
     ops = Counter(o.split(".")[0] for _, o, _, _ in instrs)
-    scales = sorted({m.group(1).lower() for _, o, r, _ in instrs
-                     if o.startswith("FFMA") for m in _FLOAT_IMM.finditer(r)})
-    return {"kernel": label, "function": name, "instructions": len(instrs),
+    scales = sorted({_scale(o, r) for _, o, r, _ in instrs} - {None})
+    bodies = case_bodies(instrs)
+    shapes = Counter((b["ffma"], b["fadd"], b["lds"], b["sts"])
+                     for b in bodies)
+    return {"kernel": label, "function": name,
+            "registers": (regs or {}).get(name), "instructions": len(instrs),
             "branches": ops["BRA"] + ops["BRX"], "indexed_branches": ops["BRX"],
             "selects": ops["FSEL"] + ops["SEL"], "ffma": ops["FFMA"],
-            "ffma_scales": scales, "opcodes": dict(ops.most_common())}
+            "ffma_scales": scales, "case_bodies": len(bodies),
+            "body_shapes": [{"ffma": f, "fadd": a, "lds": l, "sts": st,
+                             "bodies": n}
+                            for (f, a, l, st), n in sorted(shapes.items())],
+            "opcodes": dict(ops.most_common())}
 
 
-def disassemble() -> dict:
-    """Build the library and return :func:`functions` of its SASS."""
+def basic_blocks(instrs):
+    """``instrs`` cut into basic blocks: after every control instruction
+    and before every address a branch names (an indexed branch's targets
+    follow the bodies' closing branches)."""
+    targets = {int(t.group(1), 16) for _, o, r, _ in instrs
+               if o.split(".")[0] in {"BRA", "JMP", "CALL", "BSSY"}
+               for t in [_TARGET.search(r)] if t is not None}
+    out, cur = [], []
+    for ins in instrs:
+        if cur and ins[0] in targets:
+            out.append(cur)
+            cur = []
+        cur.append(ins)
+        if ins[1].split(".")[0] in _CONTROL:
+            out.append(cur)
+            cur = []
+    return out + ([cur] if cur else [])
+
+
+def _scale(op: str, args: str):
+    """The multiplier of an ``FFMA`` when it is a branch scale, else
+    ``None``."""
+    parts = [a.strip() for a in args.split(",")]
+    if op.startswith("FFMA") and len(parts) == 4 and _SCALE.fullmatch(
+            parts[2]):
+        return parts[2].lower()
+    return None
+
+
+def case_bodies(instrs) -> list:
+    """Each basic block holding an ``FFMA`` by a branch scale: its scales
+    and its ``FFMA``, ``FADD``, ``LDS`` and ``STS`` counts."""
+    out = []
+    for block in basic_blocks(instrs):
+        scales = sorted({_scale(o, r) for _, o, r, _ in block} - {None})
+        if scales:
+            ops = Counter(o.split(".")[0] for _, o, _, _ in block)
+            out.append({"scales": scales, **{k.lower(): ops[k] for k in (
+                "FFMA", "FADD", "LDS", "STS")}})
+    return out
+
+
+def normals_report(label: str, sass_funcs: dict, out_dir=None,
+                   regs=None) -> dict:
+    """P2's loop (the backward branch holding its 16-byte stores) counted
+    an element: four elements a store."""
+    name, instrs = _function(NORMALS[label], sass_funcs, out_dir)
+    loops = [l for l in _loops(instrs, "STG") if l[1]]
+    if not loops:
+        raise SystemExit(f"no loop with a store in {name}")
+    body = max((l[2] for l in loops), key=len)
+    ops = Counter(o.split(".")[0] for _, o, _, _ in body)
+    elems = 4 * sum(1 for _, o, _, _ in body if o.startswith("STG")
+                    and ".128" in o)
+    per = {
+        "float64": sum(c for o, c in ops.items() if o in ("DADD", "DMUL",
+                                                          "DFMA")),
+        "conversions": sum(c for o, c in ops.items()
+                           if o.startswith(_CONVERSIONS)),
+        "selects": ops["SEL"] + ops["FSEL"],
+        "branches": ops["BRA"] + ops["BRX"] + ops["CALL"],
+        "calls": ops["CALL"], "all": len(body)}
+    return {"kernel": label, "function": name,
+            "registers": (regs or {}).get(name),
+            "elements_per_iteration": elems,
+            "per_element": {k: v / elems for k, v in per.items()},
+            "opcodes": dict(ops.most_common())}
+
+
+def resource_usage(lib) -> dict:
+    """``{mangled name: registers a thread}`` of the library's kernels."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "--dump-resource-usage", str(lib)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"cuobjdump failed: {proc.stderr}")
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"Function (\S+):\s*REG:(\d+)", proc.stdout)}
+
+
+def disassemble() -> tuple:
+    """Build the library; :func:`functions` of its SASS and
+    :func:`resource_usage`."""
     lib = build()
     tool = Path(nvcc_path()).with_name("cuobjdump")
     proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True)
     if proc.returncode != 0:
         raise KernelBuildError(f"cuobjdump failed: {proc.stderr}")
-    return functions(proc.stdout)
+    return functions(proc.stdout), resource_usage(lib)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
-    funcs = disassemble()
+    funcs, regs = disassemble()
     for label in KERNELS:
         print(json.dumps(report(label, funcs, args.out)))
     for label in DISPATCH:
-        print(json.dumps(dispatch_report(label, funcs, args.out)))
+        print(json.dumps(dispatch_report(label, funcs, args.out, regs)))
+    for label in NORMALS:
+        print(json.dumps(normals_report(label, funcs, args.out, regs)))
     return 0
 
 

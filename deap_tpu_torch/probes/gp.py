@@ -56,8 +56,8 @@ from . import ProbeRun
 __all__ = ["LEN", "PROBES", "BENCH_POP", "BENCH_CAP", "BENCH_NPOINTS",
            "BENCH_CXPB", "BENCH_MUTPB", "settings", "bench_pset",
            "bench_toolbox", "bench_initial", "bench_generation",
-           "full_binary_trees", "comb_trees", "make_probe_kernel",
-           "probe_bound", "main"]
+           "full_binary_trees", "comb_trees", "probe_edges",
+           "make_probe_kernel", "probe_bound", "main"]
 
 LEN = 63                     # full binary tree of depth 5
 #: bench_gp.py's configuration at full width
@@ -246,6 +246,41 @@ def comb_trees(pset, rng, pop: int, cap: int, device=None):
     dev = resolve_device(device)
     return (torch.tensor(codes, device=dev), torch.tensor(consts, device=dev),
             torch.tensor(lengths, device=dev))
+
+
+def probe_edges(device=None) -> dict:
+    """P5's edge inputs by name, each ``(codes, consts, lengths, n_points,
+    n_branches)``, from fixed numpy seeds: 4097 full binary trees (no
+    multiple of 8 or 32 trees a group), 1000 of them at 1000 points and at
+    1 point, random programs at cap 256 shorter than 63 tokens and at cap
+    256 up to its whole length, and codes outside ``[0, n_branches)``
+    (nine branches and four).  Constants lie in [-1, 1); ``stackrw``'s
+    sums overflow to inf on some rows, as on the full trees, and reach no
+    NaN."""
+    dev = resolve_device(device)
+    full = full_binary_trees(bench_pset(), np.random.default_rng(11), 4097,
+                             BENCH_CAP, dev)
+    part = tuple(t[:1000] for t in full)
+    rng = np.random.default_rng(12)
+
+    def programs(cap, max_len, lo, hi):
+        return tuple(torch.tensor(a, device=dev) for a in (
+            rng.integers(lo, hi, (1000, cap), dtype=np.int32),
+            rng.uniform(-1.0, 1.0, (1000, cap)).astype(np.float32),
+            rng.integers(0, max_len + 1, 1000, dtype=np.int32)))
+
+    return {
+        "pop 4097": (*full, BENCH_NPOINTS, N_BRANCHES),
+        "1000 points": (*part, 1000, N_BRANCHES),
+        "1 point": (*part, 1, N_BRANCHES),
+        "cap 256, lengths below 63": (*programs(256, LEN - 1, 0, 9),
+                                      BENCH_NPOINTS, N_BRANCHES),
+        "cap 256, lengths up to 256": (*programs(256, 256, 0, 9), 300,
+                                       N_BRANCHES),
+        "codes outside 9 branches": (*programs(BENCH_CAP, BENCH_CAP, -4, 14),
+                                     BENCH_NPOINTS, N_BRANCHES),
+        "codes outside 4 branches": (*programs(BENCH_CAP, BENCH_CAP, -4, 14),
+                                     BENCH_NPOINTS, 4)}
 
 
 def _scales(n_branches: int, device) -> torch.Tensor:

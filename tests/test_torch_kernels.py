@@ -609,6 +609,108 @@ def test_sass_reads_how_p5_compiled_its_switch():
                                   "1.0000002384185791016"]
 
 
+_SASS_P5_STACKRW = """
+		Function : _ZN12_GLOBAL__N_115probe_gp_kernelILi2ELb0EEEvPKiPKfS2_Pfxiiii
+        /*0000*/                   LDC R22, c[0x2][R44] ;
+        /*0010*/                   BRX R22 -0x20 ;
+        /*0020*/                   LDS R40, [R30+0x400] ;
+        /*0030*/                   LDS R43, [R30+0x480] ;
+        /*0040*/                   FFMA R5, R5, 1.0000002384185791016, R40 ;
+        /*0050*/                   FFMA R4, R4, 1.0000002384185791016, R43 ;
+        /*0060*/                   FADD R5, R5, R32 ;
+        /*0070*/                   FADD R4, R4, R32 ;
+        /*0080*/                   BRA 0x100 ;
+        /*0090*/                   STS [R30+0x400], R5 ;
+        /*00a0*/                   STS [R30+0x480], R4 ;
+        /*00b0*/                   FFMA R5, R5, 1.0000001192092895508, R32 ;
+        /*00c0*/                   FFMA R4, R4, 1.0000001192092895508, R32 ;
+        /*00d0*/                   BRA 0x100 ;
+        /*00e0*/                   FFMA R5, R5, 1, R32 ;
+        /*00f0*/                   FFMA R4, R4, 1, R32 ;
+        /*0100*/                   BSYNC B3 ;
+        /*0110*/                   FFMA R6, R6, 2, R7 ;
+        /*0120*/                   EXIT ;
+"""
+
+
+def test_sass_counts_p5s_case_bodies_by_shape():
+    """Blocks cut at control instructions and branch targets; a body is a
+    block with an FFMA by a branch scale (1 counts: branch 0)."""
+    from deap_tpu_torch.kernels import sass
+    funcs = sass.functions(_SASS_P5_STACKRW)
+    bodies = sass.case_bodies(next(iter(funcs.values())))
+    assert [b["scales"] for b in bodies] == [
+        ["1.0000002384185791016"], ["1.0000001192092895508"], ["1"]]
+    rep = sass.dispatch_report("P5_stackrw", funcs)
+    assert rep["case_bodies"] == 3 and rep["indexed_branches"] == 1
+    assert rep["body_shapes"] == [
+        {"ffma": 2, "fadd": 0, "lds": 0, "sts": 0, "bodies": 1},
+        {"ffma": 2, "fadd": 0, "lds": 0, "sts": 2, "bodies": 1},
+        {"ffma": 2, "fadd": 2, "lds": 2, "sts": 0, "bodies": 1}]
+
+
+_SASS_P2 = """
+		Function : _ZN12_GLOBAL__N_118hash_normal_kernelEPKiP6float4x
+        /*0000*/                   S2R R2, SR_TID.X ;
+        /*0010*/                   F2F.F64.F32 R4, R3 ;
+        /*0020*/                   DMUL R6, R4, c[0x3][0x0] ;
+        /*0030*/                   F2I.F64.TRUNC R8, R6 ;
+        /*0040*/                   DADD R6, R4, -R6 ;
+        /*0050*/                   FSEL R9, R8, R3, P0 ;
+        /*0060*/                   I2FP.F32.U32 R10, R9 ;
+        /*0070*/              @!P1 CALL.REL.NOINC 0x200 ;
+        /*0080*/                   F2F.F32.F64 R11, R6 ;
+        /*0090*/                   STG.E.128 desc[UR4][R12.64], R8 ;
+        /*00a0*/                   STG.E.128 desc[UR4][R14.64], R8 ;
+        /*00b0*/              @!P0 BRA 0x10 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_sass_counts_p2_per_element():
+    """Eight elements a pass (two 16-byte stores): each count over 8."""
+    from deap_tpu_torch.kernels import sass
+    rep = sass.normals_report("P2", sass.functions(_SASS_P2),
+                              regs={next(iter(sass.functions(_SASS_P2))): 32})
+    assert rep["elements_per_iteration"] == 8 and rep["registers"] == 32
+    assert rep["per_element"] == {
+        "float64": 2 / 8, "conversions": 4 / 8, "selects": 1 / 8,
+        "branches": 2 / 8, "calls": 1 / 8, "all": 11 / 8}
+
+
+def _cos_reduced(y):
+    """``cos_reduced`` of ``kernels/probes.cu`` transcribed: the float64
+    steps one rounding each, both polynomials on the reduced argument,
+    the signs applied to the float32 result."""
+    from deap_tpu_torch import _xla_math as X
+    c0, c1, c2, c3, c4 = X._COS_POLY
+    s1_, s2_, s3_ = X._SIN_POLY
+    x = y.double()
+    n = (torch.trunc(x * X._HPI_INV).long() + 0x800000) >> 24
+    xr = x + -(n.double() * X._HPI)
+    x2 = xr * xr
+    x3 = xr * x2
+    vs = (xr + x3 * s1_) + (x3 * x2) * (s2_ + x2 * s3_)
+    x4 = x2 * x2
+    vc = ((c0 + x2 * c1) + x4 * c2) + (x4 * x2) * (c3 + x2 * c4)
+    v = torch.where(n % 2 == 1, vs, vc).float()
+    v = torch.where((n == 1) | (n == 2), -v, v)
+    return torch.where((y.view(torch.int32) >> 20) < X._TOP_TINY, 1.0, v)
+
+
+def test_branch_free_cosine_equals_glibcs_on_every_input_of_the_law():
+    """P2's cosine takes no branch of ``xla_sincos``: on 2 pi u2 for every
+    one of the 2^24 uniforms u2 its sequence gives the plain cosine's
+    bits (the kernel itself is held to the plain version on the card)."""
+    from deap_tpu_torch import _xla_math
+    from deap_tpu_torch.probes.ga import _F32_2PI
+    for lo in range(0, 1 << 24, 1 << 21):
+        u2 = torch.arange(lo, lo + (1 << 21)).float() * 5.9604644775390625e-08
+        y = u2 * _F32_2PI
+        assert torch.equal(_cos_reduced(y).view(torch.int32),
+                           _xla_math.cos(y).view(torch.int32))
+
+
 def _probe_rows_inputs(dev, pop):
     key = random.PRNGKey(9, device=dev)
     k_x, k_i = random.split(key)
@@ -679,16 +781,17 @@ def test_probe_rast_reduce_equals_plain_on_card(dim):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_rows", [(1 << 16) + 96, 1, 2047, 2049])
 @pytest.mark.parametrize("seed", [0, 12345, -7])
-def test_probe_hash_normal_equals_plain_on_card(seed):
+def test_probe_hash_normal_equals_plain_on_card(seed, n_rows):
     dev = _cuda()
     s = torch.tensor([seed], dtype=torch.int32, device=dev)
     kernels.reset_launches()
-    got = PGA.hash_normal(s, (1 << 16) + 96)
-    want = PGA._hash_normal_plain(s, (1 << 16) + 96)
+    got = PGA.hash_normal(s, n_rows)
+    want = PGA._hash_normal_plain(s, n_rows)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["probe_hash_normal"] == 1
-    assert _same(got, want)
+    assert got.shape == (n_rows, PGA.LANE) and _same(got, want)
 
 
 @pytest.mark.gpu
@@ -706,20 +809,45 @@ def test_probe_lookup_and_row_gather_equal_plain_on_card():
     assert _same(rows, x[idx.long()])
 
 
+#: the names of ``probes.gp.probe_edges``
+EDGE_NAMES = ["pop 4097", "1000 points", "1 point",
+              "cap 256, lengths below 63", "cap 256, lengths up to 256",
+              "codes outside 9 branches", "codes outside 4 branches"]
+
+
+@pytest.fixture(scope="module")
+def probe_gp_inputs():
+    """200 full trees at 1000 points (key ``None``) and
+    ``probes.gp.probe_edges``, built once on the card."""
+    dev = _cuda()
+    return {None: (*PGP.full_binary_trees(PGP.bench_pset(),
+                                          np.random.default_rng(1), 200, 64,
+                                          dev), 1000, 9),
+            **PGP.probe_edges(dev)}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("edge", [None, *EDGE_NAMES])
 @pytest.mark.parametrize("unroll", [0, 63], ids=["unroll1", "unroll63"])
 @pytest.mark.parametrize("tb", [8, 32])
 @pytest.mark.parametrize("mode", ["noswitch", "dispatch", "stackrw"])
-def test_probe_gp_equals_plain_on_card(mode, tb, unroll):
-    dev = _cuda()
-    codes, consts, lengths = PGP.full_binary_trees(
-        PGP.bench_pset(), np.random.default_rng(1), 200, 64, dev)
-    x = torch.zeros((1, 1), device=dev)
+def test_probe_gp_equals_plain_on_card(probe_gp_inputs, mode, tb, unroll,
+                                       edge):
+    codes, consts, lengths, n_points, nb = probe_gp_inputs[edge]
+    x = torch.zeros((1, 1), device=codes.device)
     kernels.reset_launches()
-    got = PGP.make_probe_kernel(mode, 9, tb, unroll, n_points=1000)(
+    got = PGP.make_probe_kernel(mode, nb, tb, unroll, n_points=n_points)(
         codes, consts, lengths, x)
-    want = PGP._probe_gp_plain(codes, consts, lengths, 1000, mode, tb,
-                               bool(unroll), 9)
+    want = PGP._probe_gp_plain(codes, consts, lengths, n_points, mode, tb,
+                               bool(unroll), nb)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["probe_gp"] == 1
-    assert got.shape == (200, 1000) and _same(got, want)
+    assert got.shape == (codes.shape[0], n_points) and _same(got, want)
+
+
+def test_probe_gp_edges_are_the_card_tests_cases():
+    edges = PGP.probe_edges("cpu")
+    assert list(edges) == EDGE_NAMES
+    for codes, consts, lengths, n_points, nb in edges.values():
+        assert codes.shape == consts.shape and lengths.shape == codes.shape[:1]
+        assert 1 <= nb <= 9 and n_points >= 1

@@ -106,6 +106,47 @@ def test_stackrw_is_bitwise_on_one_block(pgp, trees, unroll):
     assert np.array_equal(_bits(got), _bits(want))
 
 
+def _short_programs(c, k, seed):
+    """The trees with lengths drawn in [1, 63) and a few codes outside
+    the nine branches (both sides clamp them)."""
+    rng = np.random.default_rng(seed)
+    c = c.clone()
+    c[:, :8] = torch.as_tensor(rng.integers(-4, 14, (POP, 8)),
+                               dtype=torch.int32)
+    ln = torch.as_tensor(rng.integers(1, pg.LEN, POP), dtype=torch.int32)
+    return c, k, ln
+
+
+@pytest.mark.parametrize("unroll", [False, 63], ids=["unroll1", "unroll63"])
+@pytest.mark.parametrize("mode", ["noswitch", "dispatch"])
+def test_stateless_modes_are_bitwise_with_missing_trees_and_short_trees(
+        pgp, trees, mode, unroll):
+    """tb = 5: the last group holds one tree and four missing ones; the
+    lengths lie below 63 (the unrolled loop runs 63 tokens on both
+    sides)."""
+    _, (c, k, _) = trees
+    c, k, ln = _short_programs(c, k, 4)
+    assert POP % 5 and (ln < pg.LEN).all()
+    want = _jax(pgp, mode, 5, unroll, c.numpy(), k.numpy(), ln.numpy())
+    got = _port(mode, 5, unroll, c, k, ln)
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("unroll", [False, 63], ids=["unroll1", "unroll63"])
+def test_stackrw_is_bitwise_on_one_group_with_missing_trees(pgp, trees,
+                                                            unroll):
+    """tb = 32: one group of the 16 trees and 16 missing ones, lengths
+    below 63, the first token that runs a write."""
+    _, (c, k, _) = trees
+    c, k, ln = _short_programs(c, k, 5)
+    first = pg.LEN - 1 if unroll else int(ln[0]) - 1
+    c[0, first] = 7                              # the ephemeral: a write
+    want = _jax(pgp, "stackrw", 32, unroll, c.numpy(), k.numpy(), ln.numpy())
+    got = _port("stackrw", 32, unroll, c, k, ln)
+    assert not np.isnan(want).any()
+    assert np.array_equal(_bits(got), _bits(want))
+
+
 def test_tool_stack_starts_uninitialised_and_the_ports_at_zero(pgp, trees):
     """A population whose first token reads the stack: interpret mode's
     scratch starts as NaN, the port's stack as zeros."""
