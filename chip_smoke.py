@@ -103,11 +103,18 @@
              24-step FMA chain, the rastrigin row reduce (dim 100), the
              counter-hash normals, the table lookup and the row gather;
              times beside the bound and the library call (``copy_``,
-             ``order[pos]``, ``index_select``); the lookup and
-             ``order[pos]`` as the median of five readings each, host-paced
-             and with the launches queued (device time); the normals
-             also at 1, 2047 and 2049 rows under this run's seed and a
-             second one;
+             ``order[pos]``, ``index_select``); the reduce (three), the
+             lookup and ``order[pos]`` (five each) as the median of
+             readings host-paced and with the launches queued (device
+             time); the reduce also at 1, 2047, 2048, 2049 and 2^16 + 96
+             rows by dims 0, 1, 31, 32, 33, 37, 96, 100, 127 and 128 on
+             rows that put warps on the branch-free cosine, the general
+             one and both (NaN and +-inf lanes too); the branch-free
+             cosine against ``xla_sincos`` on every 7th float32 of |y| <
+             120; the normals also at 1, 2047 and 2049 rows under this
+             run's seed and a second one; the lookup also at 1, 3, 4, 5,
+             1023, 2^20 and 2^20 + 3 queries into a table of another
+             size, ``pos`` 0-3 words into its allocation;
 19. probe tool — ``python -m deap_tpu_torch.probes.ga`` in process at
              2^20 x 100, every probe, ``--recommend``, ``--json
              chip_smoke_out/probe_ga.json``: P1-P4 launched on it, every
@@ -1714,6 +1721,10 @@ def profile_bench_nsga2(key, pop, tb, card_line, gens=2) -> None:
 
 PROBE_POP, PROBE_DIM = 1 << 20, 100           # tools/pallas_probe_ga.py's
 PROBE_GP_SETTINGS = ("PROBE_POP", "PROBE_CAP", "PROBE_POINTS", "PROBE_ITERS")
+PROBE_RAST_ROWS = (1, 2047, 2048, 2049, (1 << 16) + 96)
+PROBE_RAST_DIMS = (0, 1, 31, 32, 33, 37, 96, 100, 127, 128)
+PROBE_LOOKUP_NS = (1, 3, 4, 5, 1023, 1 << 20, (1 << 20) + 3)
+COS_SWEEP_STRIDE = 7
 PROBE_GP_TB = (8, 32)
 PROBE_GP_UNROLL = (0, 63)
 
@@ -1740,15 +1751,15 @@ def probe_check(label: str, card_line, kernel, plain, library, bound,
         err = nan_gap(got, want)[1]         # overflowed stacks hold inf
     extra = {}
     if readings > 1:
-        times = {k: [] for k in ("ms", "library_ms", "device_ms",
-                                 "library_device_ms")}
+        calls = {"": kernel, "library_": library} if library else {
+            "": kernel}
+        times = {f"{k}{t}": [] for k in calls for t in ("ms", "device_ms")}
         for _ in range(readings):
-            times["ms"].append(cuda_ms(kernel, reps=20, warm=2))
-            times["library_ms"].append(cuda_ms(library, reps=20, warm=2))
-            times["device_ms"].append(queued_ms(kernel))
-            times["library_device_ms"].append(queued_ms(library))
+            for k, fn in calls.items():
+                times[f"{k}ms"].append(cuda_ms(fn, reps=20, warm=2))
+                times[f"{k}device_ms"].append(queued_ms(fn))
         extra = {k: statistics.median(v) for k, v in times.items()}
-        ms, library_ms = extra.pop("ms"), extra.pop("library_ms")
+        ms, library_ms = extra.pop("ms"), extra.pop("library_ms", None)
         extra["readings"] = times
     else:
         ms = cuda_ms(kernel, reps=20, warm=2)
@@ -1769,7 +1780,7 @@ def probe_kernels_phase(card_line, key) -> dict:
     """P1-P4 against their plain versions at the GA tool's shape, 2^20 x
     128 float32 (the reduce masked at dim 100)."""
     import torch
-    from deap_tpu_torch import random
+    from deap_tpu_torch import kernels, random
     from deap_tpu_torch.probes import ga as PGA
     pop, dev = PROBE_POP, key.device
     k_x, k_o, k_p, k_s = random.split(key, 4)
@@ -1796,7 +1807,10 @@ def probe_kernels_phase(card_line, key) -> dict:
         "P1 probe_rast_reduce", card_line,
         lambda: PGA.rast_reduce(x, PROBE_DIM),
         lambda: PGA._rast_reduce_plain(x, PROBE_DIM), None,
-        PGA.kernel_bound("rast", pop, PROBE_DIM), shape=shape, dim=PROBE_DIM)
+        PGA.kernel_bound("rast", pop, PROBE_DIM), readings=3, shape=shape,
+        dim=PROBE_DIM)
+    rast_edges_phase(card_line, dev)
+    cos_sweep_phase(kernels, card_line, dev)
     res["rng"] = probe_check(
         "P2 probe_hash_normal", card_line,
         lambda: PGA.hash_normal(seed, pop),
@@ -1818,6 +1832,7 @@ def probe_kernels_phase(card_line, key) -> dict:
         lambda: order[pos.long()], lambda: order[pos],
         PGA.kernel_bound("lookup", pop), exact=True, readings=5,
         queries=pop)
+    lookup_edges_phase(card_line, dev)
     res["dmagather"] = probe_check(
         "P4 probe_row_gather", card_line,
         lambda: PGA.row_gather(x, pos), lambda: x[pos.long()],
@@ -1826,6 +1841,66 @@ def probe_kernels_phase(card_line, key) -> dict:
     del x, order, pos, copy_out
     torch.cuda.empty_cache()
     return res
+
+
+def rast_edges_phase(card_line, dev) -> None:
+    """P1's reduce bitwise to its plain version at ragged row counts and
+    every kind of mask (dims up to 96 leave the fourth window empty), on
+    rows that put warps on the branch-free cosine, on the general one and
+    on both (``probes.ga.rast_inputs``: one lane outside the range, rows
+    wholly outside it, NaN and +-inf)."""
+    import torch
+    from deap_tpu_torch.probes import ga as PGA
+    gaps, nan_rows = {}, 0
+    for n_rows in PROBE_RAST_ROWS:
+        x = PGA.rast_inputs(n_rows, dev)
+        for dim in PROBE_RAST_DIMS:
+            got = PGA.rast_reduce(x, dim)
+            want = PGA._rast_reduce_plain(x, dim)
+            gaps[f"{n_rows} x {dim}"] = ulp_gap(got, want)
+            nan_rows += int(torch.isnan(want).sum().item())
+    phase("P1 probe_rast_reduce edges vs plain", card_line,
+          rows=list(PROBE_RAST_ROWS), dims=list(PROBE_RAST_DIMS),
+          worst_ulp_gap=max(gaps.values()), nan_rows=nan_rows,
+          ulp_bound=ULP_BOUND)
+    if max(gaps.values()) > ULP_BOUND:
+        fail(f"P1 probe_rast_reduce edges: "
+             f"{ {k: v for k, v in gaps.items() if v} } (bound {ULP_BOUND})")
+
+
+def cos_sweep_phase(kernels, card_line, dev) -> None:
+    """The branch-free cosine of P1 and P2 (``cos_reduced``) against
+    ``xla_sincos(y, true)`` on every COS_SWEEP_STRIDE-th float32 of its
+    range, |y| < 120 of either sign (the card test sweeps every one);
+    any mismatch fails the run."""
+    found = {}
+    t0 = time.perf_counter()
+    for sign, lo in (("positive", 0), ("negative", 0x80000000)):
+        found[sign] = kernels._cos_reduced_mismatches(
+            lo, lo + 0x42F00000, COS_SWEEP_STRIDE, dev)
+    phase("P1/P2 cos_reduced vs xla_sincos, strided sweep", card_line,
+          stride=COS_SWEEP_STRIDE, mismatches=found,
+          seconds=time.perf_counter() - t0)
+    if any(count for count, _ in found.values()):
+        fail(f"cos_reduced differs from xla_sincos: {found}")
+
+
+def lookup_edges_phase(card_line, dev) -> None:
+    """P3 exactly ``order[pos]`` at ragged query counts, a table of another
+    size, positions 0 and m - 1, and ``pos`` 0-3 words into its
+    allocation (``probes.ga.lookup_inputs``)."""
+    import torch
+    from deap_tpu_torch.probes import ga as PGA
+    bad = []
+    for n in PROBE_LOOKUP_NS:
+        for offset in range(4):
+            order, pos = PGA.lookup_inputs(n, offset, dev)
+            if not torch.equal(PGA.lookup(order, pos), order[pos.long()]):
+                bad.append((n, offset))
+    phase("P3 probe_lookup edges vs plain", card_line,
+          queries=list(PROBE_LOOKUP_NS), offsets=[0, 1, 2, 3], mismatched=bad)
+    if bad:
+        fail(f"P3 probe_lookup differs from order[pos] at {bad}")
 
 
 def probe_ga_tool_phase(kernels, card_line) -> dict:
@@ -2364,6 +2439,7 @@ def main() -> int:
                                       if k.startswith("stream_")}
     rows[-6]["tb_per_s_by_rows"] = {k: v["tb_per_s"] for k, v in p14.items()
                                     if k.startswith("stream_")}
+    rows[-4]["device_ms"] = p14["rast"]["device_ms"]
     rows[-2]["device_ms"] = p14["lookup"]["device_ms"]
     rows[-2]["library_device_ms"] = p14["lookup"]["library_device_ms"]
     r5 = p5[("dispatch", 8, 0)]

@@ -88,9 +88,12 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.probe_lookup.argtypes = [p, p, p, ll, p]
             lib.probe_row_gather.argtypes = [p, p, p, ll, p]
             lib.probe_gp.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p]
+            u = ctypes.c_uint
+            lib.cos_reduced_sweep.argtypes = [u, u, u, p, p, p]
             for name in ("probe_stream_copy", "probe_chain24",
                          "probe_rast_reduce", "probe_hash_normal",
-                         "probe_lookup", "probe_row_gather", "probe_gp"):
+                         "probe_lookup", "probe_row_gather", "probe_gp",
+                         "cos_reduced_sweep"):
                 getattr(lib, name).restype = i
             lib.megakernel_error_string.argtypes = [i]
             lib.megakernel_error_string.restype = ctypes.c_char_p
@@ -444,3 +447,29 @@ def launch_probe_gp(codes, consts, lengths, *, n_points: int, mode: str,
     _raise_on(lib, rc, "probe_gp")
     LAUNCHES["probe_gp"] += 1
     return out
+
+
+def _cos_reduced_mismatches(lo: int, hi: int, stride: int = 1,
+                            device="cuda") -> tuple:
+    """``(count, first)``: how many of the float32 bit patterns ``lo, lo +
+    stride, ...`` below ``hi`` give other bits through the branch-free
+    cosine of ``device_math.cuh`` (``cos_reduced``, P1's and P2's) than
+    through ``xla_sincos(y, true)``, and the lowest such pattern (``None``
+    when there is none).  A check of the range the kernels claim for it,
+    run on the card by the tests and ``chip_smoke.py``; no probe calls
+    it, and it counts no launch."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the cosine sweep runs on a CUDA device (got {dev})")
+    if not 0 <= lo <= hi < 1 << 32 or stride < 1:
+        raise ValueError(f"bad sweep [{lo}, {hi}) step {stride}")
+    bad = torch.zeros((1,), dtype=torch.int64, device=dev)
+    first = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.cos_reduced_sweep(lo, hi, stride, bad.data_ptr(),
+                                   first.data_ptr(), stream)
+    _raise_on(lib, rc, "cos_reduced_sweep")
+    count = int(bad.item())
+    return count, (int(first.item()) & 0xFFFFFFFF) if count else None

@@ -9,7 +9,10 @@
 //   xla_sincos          glibc's sinf/cosf (ARM's optimized routines), which
 //                       XLA's CPU backend calls: the argument reduction and
 //                       the polynomial in double, one rounding
-//                       (deap_tpu_torch/_xla_math.py: sin, cos).
+//                       (deap_tpu_torch/_xla_math.py: sin, cos);
+//   cos_reduced         xla_sincos(y, true) for |y| < 120 without a branch
+//                       (the same bits; P1's rastrigin reduce and P2's law
+//                       in kernels/probes.cu).
 //
 // Float32 constants are float32 values and the operation order is XLA's,
 // with __fmaf_rn exactly where XLA's CPU backend fuses a multiply into an
@@ -162,6 +165,52 @@ __device__ float xla_sincos(float y, bool want_cos) {
     v = dadd(cc, dmul(x6, c2));
   }
   return __double2float_rn(v);
+}
+
+// cos_reduced's float64 constants in constant memory, where an operation
+// reads them as operands (as immediates each costs two register moves)
+struct CosConsts {
+  double hpi_inv, hpi, s1, s2, s3, c0, c1, c2, c3, c4;
+};
+__constant__ CosConsts kCosReduced = {kHpiInv, kHpi, kS1, kS2, kS3,
+                                      kC0,     kC1,  kC2, kC3, kC4};
+
+// |y| < 120 (no inf, no NaN): the inputs cos_reduced takes; 120.0f is
+// abstop12 0x42F, the bound of xla_sincos's one-step reduction
+__device__ __forceinline__ bool cos_reduced_takes(float y) {
+  return fabsf(y) < 120.0f;
+}
+
+// xla_sincos(y, true) for |y| < 120, the same bits without branches.  Below
+// 0.75 xla_sincos skips the reduction, but the reduction gives n = 0 there,
+// hence xr = x and the same polynomial; below 2^-12 (abstop12 0x398) it
+// returns 1, which the cosine's polynomial rounds to there too (1 - x^2 / 2
+// lies above 1 - 2^-25).  Both polynomials are evaluated on xr and one is
+// selected by n's parity (a warp holds both parities).  The signs that xla_sincos
+// applies first (the sine's argument in quadrants n & 3 = 1 and 2, the
+// cosine's coefficients in quadrant 2) are applied to the result: the
+// rounding is symmetric and both sequences odd in the flipped operand, so
+// each step's result flips with it.  n is the same signed quadrant as in
+// xla_sincos (negative y included): n & 3 is 1 or 2 exactly when (n + 1) & 2.
+__device__ __forceinline__ float cos_reduced(float y) {
+  const double x = (double)y;
+  const int n =
+      (__double2int_rz(dmul(x, kCosReduced.hpi_inv)) + 0x800000) >> 24;
+  const double xr = dadd(x, -dmul((double)n, kCosReduced.hpi));
+  const double x2 = dmul(xr, xr);
+  const double x3 = dmul(xr, x2);                  // the sine (n odd)
+  const double s1 = dadd(kCosReduced.s2, dmul(x2, kCosReduced.s3));
+  const double x7 = dmul(x3, x2);
+  const double vs =
+      dadd(dadd(xr, dmul(x3, kCosReduced.s1)), dmul(x7, s1));
+  const double x4 = dmul(x2, x2);                  // the cosine (n even)
+  const double c2 = dadd(kCosReduced.c3, dmul(x2, kCosReduced.c4));
+  const double c1 = dadd(kCosReduced.c0, dmul(x2, kCosReduced.c1));
+  const double x6 = dmul(x4, x2);
+  const double vc =
+      dadd(dadd(c1, dmul(x4, kCosReduced.c2)), dmul(x6, c2));
+  const float v = __double2float_rn((n & 1) ? vs : vc);
+  return ((n + 1) & 2) ? -v : v;
 }
 
 }  // namespace

@@ -1,8 +1,8 @@
-"""Time K1, K2, K3, K5, K6, P1, P2 and P5 of a checkout of this package on
-the card.
+"""Time K1, K2, K3, K5, K6, P1, P2, P3 and P5 of a checkout of this package
+on the card.
 
     python deap_tpu_torch/kernels/kernel_times.py [--root DIR] [--label L]
-        [--ablate] [--profile] [--only k1,k2,k3,k5,k6,p1,p2,p5]
+        [--ablate] [--profile] [--only k1,k2,k3,k5,k6,p1,p1r,p2,p3,p5]
         [--inputs FILE]
 
 Imports ``deap_tpu_torch`` from ``DIR`` (default: the checkout that
@@ -37,14 +37,21 @@ power limit:
   a checkout without the input helpers is timed on the same inputs; with
   ``--ablate``, K6 is timed again on copies of the checkout whose
   ``gp_interp.cu`` has one part of the design switched off
-  (:data:`K6_ABLATIONS`: points a lane at most 1 / 2 / 4, no folded
+  (:data:`ABLATIONS`: points a lane at most 1 / 2 / 4, no folded
   terminals, ``X`` through L1, ``X`` staged even where an SM then holds
   fewer blocks), each built and timed in a process of its own;
 * P1 ``launch_probe_stream_copy`` at rows 512, 2048 and 8192 on 2²⁰ ×
   128 float32, with ``copy_`` into a preallocated tensor timed beside
-  it, and ``launch_probe_chain24``;
+  it, and ``launch_probe_chain24`` (``p1``); P1's
+  ``launch_probe_rast_reduce`` at dim 100 on 2²⁰ × 128 float32 drawn
+  from [0, 1) (the probe tool's input) and from rastrigin's [-5.12,
+  5.12) (``p1r``), with ``device_ms``;
 * P2 ``launch_probe_hash_normal`` at 2²⁰ × 128 (seed 12345), with
   ``device_ms``;
+* P3 ``launch_probe_lookup``: 2²⁰ queries into a 2²⁰-entry table, at
+  random positions and at ``arange`` (every table read coalesced: the
+  gap prices L2's random 32-byte reads), beside ``order[pos]``, host-paced
+  and ``device_ms``, medians of five readings taken in turns;
 * P5 ``launch_probe_gp`` on the GP probe tool's input (4096 full binary
   trees of 63 tokens, cap 64, 1024 points) in every mode at tb 8 and 32,
   the token loop not unrolled and unrolled over 63 tokens, with
@@ -53,8 +60,10 @@ power limit:
   run (``fraction_of_floor``: stackrw at tb 8 over K6).
 
 ``--ablate`` adds K1 and K2 without mutation (mutpb 0) and as a gather
-and copy (cxpb 0 too), and K6's parts; ``--profile`` adds K5's device
-time by kernel; ``--only`` times a subset (default: all).
+and copy (cxpb 0 too), K6's parts, and P1's reduce with a part of its
+design switched off (:data:`ABLATIONS`, copies of ``probes.cu`` built
+and timed as K6's are); ``--profile`` adds K5's
+device time by kernel; ``--only`` times a subset (default: all).
 Only the wrappers' public signatures are used, so two checkouts can be
 timed in one call on one card (parent, change, change, parent).  Needs a
 card; exits 1 without one.
@@ -76,16 +85,49 @@ KNOBS = (0.9, 0.5, 0.0, 0.3, 0.05)
 HEAD_POP, HEAD_DIM = 100_000, 12
 HEAD_KNOBS = (0.6, 0.3, 0.0, 0.1, 1.0 / 12)
 PROBE_POP, PROBE_LANE = 1 << 20, 128
-#: K6's parts, each switched off in a copy of gp_interp.cu: (name, the
-#: source line, its replacement)
-K6_ABLATIONS = (
-    ("points a lane 1", "int k = kMaxK;", "int k = 1;"),
-    ("points a lane 2", "int k = kMaxK;", "int k = 2;"),
-    ("points a lane 4", "int k = kMaxK;", "int k = 4;"),
-    ("no fold", "after_push = true;", "after_push = false;"),
-    ("X through L1", "if (x_bytes <= (size_t)kXStageMax &&",
-     "if (false && x_bytes <= (size_t)kXStageMax &&"),
-    ("X staged where it fits", "xs = staged >= per_sm;", "xs = true;"))
+#: The parts of K6 and P1's reduce that ``--ablate`` switches off (and,
+#: last for the reduce, a swizzle it does not keep), each in a copy of
+#: the kernel's source: key -> (the source, ((name, ((source text, its
+#: replacement), ...)), ...))
+ABLATIONS = {
+    "k6": ("gp_interp.cu", (
+        ("points a lane 1", (("int k = kMaxK;", "int k = 1;"),)),
+        ("points a lane 2", (("int k = kMaxK;", "int k = 2;"),)),
+        ("points a lane 4", (("int k = kMaxK;", "int k = 4;"),)),
+        ("no fold", (("after_push = true;", "after_push = false;"),)),
+        ("X through L1", (("if (x_bytes <= (size_t)kXStageMax &&",
+                           "if (false && x_bytes <= (size_t)kXStageMax &&"),)),
+        ("X staged where it fits", (("xs = staged >= per_sm;",
+                                     "xs = true;"),)))),
+    "p1r": ("probes.cu", (
+        ("the general cosine in every warp",
+         (("const bool general = !__all_sync(",
+           "const bool general = true || !__all_sync("),)),
+        ("every lane computed",
+         (("const int vec = (dim + 3) >> 2;", "const int vec = kVec;"),)),
+        ("the parent's cosine on every lane",
+         (("const bool general = !__all_sync(",
+           "const bool general = true || !__all_sync("),
+          ("const int vec = (dim + 3) >> 2;", "const int vec = kVec;"),
+          ("__device__ __noinline__ float cos_general",
+           "__device__ __forceinline__ float cos_general"))),
+        ("the general cosine inlined",
+         (("__device__ __noinline__ float cos_general",
+           "__device__ __forceinline__ float cos_general"),)),
+        ("rows swizzled, no bank conflict in the sum",   # an addition:
+         (("constexpr int kRastStride = kLanes + 4;",     # word e of row r
+           "constexpr int kRastStride = kLanes;"),        # at e ^ (r & 31)
+          ("    return tile + r * kRastStride + 4 * c;",
+           "    return tile + r * kRastStride + 4 * (c ^ ((r & 31) >> 2));"),
+          ("      *at = make_float4(t0, t1, t2, t3);",
+           "      if (r & 1) { float s = t0; t0 = t1; t1 = s;"
+           " s = t2; t2 = t3; t3 = s; }\n"
+           "      if (r & 2) { float s = t0; t0 = t2; t2 = s;"
+           " s = t1; t1 = t3; t3 = s; }\n"
+           "      *at = make_float4(t0, t1, t2, t3);"),
+          ("s = __fadd_rn(s, sum_at[i]);",
+           "s = __fadd_rn(s, sum_at[i ^ lane]);"))))),
+}
 
 
 def cuda_ms(fn, reps: int, warm: int) -> float:
@@ -148,10 +190,11 @@ def main(argv=None) -> int:
                     help="also print K5's device time by CUDA kernel")
     ap.add_argument("--ablate", action="store_true",
                     help="also time K1 and K2 without mutation and as a "
-                    "copy, and K6 with each part of its design off")
-    ap.add_argument("--only", default="k1,k2,k3,k5,k6,p1,p2,p5",
+                    "copy, and K6, P1's reduce and P3 with each part of "
+                    "their design off")
+    ap.add_argument("--only", default="k1,k2,k3,k5,k6,p1,p1r,p2,p3,p5",
                     help="comma-separated subset of k1, k2, k3, k5, k6, p1, "
-                    "p2, p5")
+                    "p1r, p2, p3, p5")
     ap.add_argument("--inputs", type=Path, default=None,
                     help="K6's inputs: read from this file, or built and "
                     "written there")
@@ -232,8 +275,6 @@ def main(argv=None) -> int:
     if "k6" in only:
         k6_times(emit, kernels, k6_inputs(random.fold_in(k_s, 6), dev,
                                           args.inputs))
-        if args.ablate:
-            k6_ablations(args.root.resolve(), label, args.inputs)
     if "p1" in only:
         x = random.uniform(k_o, (PROBE_POP, PROBE_LANE))
         into = torch.empty_like(x)
@@ -249,6 +290,26 @@ def main(argv=None) -> int:
         emit(kernel="probe_chain24", shape=[PROBE_POP, PROBE_LANE], ms=ms)
         del x, into
         torch.cuda.empty_cache()
+    if "p1r" in only:
+        for name, lo, hi in (("uniform [0, 1)", 0.0, 1.0),
+                             ("uniform [-5.12, 5.12)", -5.12, 5.12)):
+            x = random.uniform(k_o, (PROBE_POP, PROBE_LANE), minval=lo,
+                               maxval=hi)
+
+            def p1r_call():
+                return kernels.launch_probe_rast_reduce(x, dim=DIM)
+            emit(kernel="probe_rast_reduce", input=name, dim=DIM,
+                 shape=[PROBE_POP, PROBE_LANE],
+                 ms=cuda_ms(p1r_call, reps=20, warm=3),
+                 device_ms=queued_ms(p1r_call, reps=20, warm=3))
+            del x
+        torch.cuda.empty_cache()
+    if "p3" in only:
+        p3_times(emit, kernels, random.fold_in(k_p, 3), dev)
+    if args.ablate:
+        for key in ("k6", "p1r"):
+            if key in only:
+                ablations(args.root.resolve(), label, key, args.inputs)
     if "p2" in only:
         seed = torch.tensor([12345], dtype=torch.int32, device=dev)
 
@@ -411,30 +472,62 @@ def k6_times(emit, kernels, inputs: dict) -> None:
              device_ms=queued_ms(call, reps=20, warm=3))
 
 
-def k6_ablations(root: Path, label: str, inputs) -> None:
-    """K6 with each part of :data:`K6_ABLATIONS` switched off: a copy of
-    ``root``'s package under the build directory with that one edit,
-    built and timed by this script in a process of its own on the same
-    inputs (``inputs`` is written first when it does not exist)."""
+def p3_times(emit, kernels, key, dev) -> None:
+    """P3 at 2²⁰ queries into a 2²⁰-entry table, random positions and
+    ``arange``, beside ``order[pos]``: host-paced and device ms, the
+    median of five readings of each, kernel and library call in turns."""
+    import statistics
+
+    import torch
+    from deap_tpu_torch import random
+    k_o, k_p = random.split(key)
+    order = torch.argsort(random.uniform(k_o, (PROBE_POP,))).to(torch.int32)
+    for name, pos in (
+            ("random", random.randint(k_p, (PROBE_POP,), 0, PROBE_POP)),
+            ("arange", torch.arange(PROBE_POP, dtype=torch.int32,
+                                    device=dev))):
+        calls = {"": lambda: kernels.launch_probe_lookup(order, pos),
+                 "library_": lambda: order[pos]}
+        reads = {f"{k}{t}": [] for k in calls for t in ("ms", "device_ms")}
+        for _ in range(5):
+            for k, fn in calls.items():
+                reads[f"{k}ms"].append(cuda_ms(fn, reps=20, warm=3))
+                reads[f"{k}device_ms"].append(queued_ms(fn))
+        emit(kernel="probe_lookup", positions=name, queries=PROBE_POP,
+             table=PROBE_POP, **{k: statistics.median(v)
+                                 for k, v in reads.items()}, readings=reads)
+
+
+def ablations(root: Path, label: str, key: str, inputs=None) -> None:
+    """``key``'s kernel with each part of :data:`ABLATIONS` switched off:
+    a copy of ``root``'s package under the build directory whose source
+    has that entry's edits, built and timed by this script in a process
+    of its own (``--only key``; K6 on ``inputs``, written first when it
+    does not exist)."""
+    source, table = ABLATIONS[key]
     build_dir = Path(__file__).resolve().parent.parent / "_build"
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        if inputs is None:
-            inputs = Path(tmp) / "k6_inputs.pt"
-        for name, old, new in K6_ABLATIONS:
+        extra = []
+        if key == "k6":
+            extra = ["--inputs", str(inputs or Path(tmp) / "k6_inputs.pt")]
+        for name, edits in table:
             copy = Path(tmp) / "root"
             shutil.rmtree(copy, ignore_errors=True)
             shutil.copytree(root / "deap_tpu_torch", copy / "deap_tpu_torch",
                             ignore=shutil.ignore_patterns("_build",
                                                           "__pycache__"))
-            src = copy / "deap_tpu_torch" / "kernels" / "gp_interp.cu"
+            src = copy / "deap_tpu_torch" / "kernels" / source
             text = src.read_text()
-            if text.count(old) != 1:
-                raise RuntimeError(f"{src}: no single {old!r} to switch off")
-            src.write_text(text.replace(old, new))
+            for old, new in edits:
+                if text.count(old) != 1:
+                    raise RuntimeError(f"{src}: no single {old!r} to switch "
+                                       "off")
+                text = text.replace(old, new)
+            src.write_text(text)
             subprocess.run([sys.executable, __file__, "--root", str(copy),
-                            "--label", f"{label} {name}", "--only", "k6",
-                            "--inputs", str(inputs)], check=True)
+                            "--label", f"{label} {name}", "--only", key,
+                            *extra], check=True)
 
 
 def _device_ms(fn, reps: int = 5) -> dict:

@@ -27,9 +27,16 @@ tree is computed once and broadcast, and a shared access in every
 ``stackrw`` body, a load in the even (read) ones and a store in the odd
 (write) ones, that its stack row stays a memory access.
 
-And, for P2 (:data:`NORMALS`), its loop's instructions an element (the
-elements are four a 16-byte store): float64 operations, conversions,
-selects and branches, calls included.
+And, for P2 and P1's reduce (:data:`NORMALS`), their loop's
+instructions an element (four a 16-byte store: P2's to global memory,
+the reduce's terms to shared memory): float64 operations,
+conversions, selects and branches, calls included.  The reduce's loop
+is the fast path's: a warp holding an input outside the branch-free
+cosine's range calls the general one, out of the loop.
+
+And, for P3 (:data:`LOOKUP`), its loop's loads and stores and the
+loads in flight a thread: those issued before any instruction reads a
+register one of them loads.
 
 Prints one JSON object per kernel, each on a line, with its registers a
 thread (``cuobjdump --dump-resource-usage``): the loop's opcodes
@@ -71,8 +78,12 @@ DISPATCH = {
 }
 #: a branch scale as an FFMA's multiplier: 1 (branch 0) or just above it
 _SCALE = re.compile(r"1(\.0000\d*)?|0x3f8[0-9a-f]{5}", re.I)
-#: label -> mangled-name part of P2's kernel
-NORMALS = {"P2": "hash_normal_kernel"}
+#: label -> (mangled-name part, the 16-byte store, four elements each)
+NORMALS = {"P2": ("hash_normal_kernel", "STG"),
+           "P1_reduce": ("rast_kernel", "STS")}
+#: label -> mangled-name part of P3's kernel
+LOOKUP = {"P3": "lookup_kernel"}
+_REG = re.compile(r"\bR(\d+)\b")
 #: opcodes that end a basic block
 _CONTROL = {"BRA", "BRX", "JMP", "JMX", "EXIT", "RET", "CALL", "BREAK",
             "BSYNC"}
@@ -231,15 +242,21 @@ def case_bodies(instrs) -> list:
 
 def normals_report(label: str, sass_funcs: dict, out_dir=None,
                    regs=None) -> dict:
-    """P2's loop (the backward branch holding its 16-byte stores) counted
-    an element: four elements a store."""
-    name, instrs = _function(NORMALS[label], sass_funcs, out_dir)
-    loops = [l for l in _loops(instrs, "STG") if l[1]]
-    if not loops:
-        raise SystemExit(f"no loop with a store in {name}")
-    body = max((l[2] for l in loops), key=len)
+    """A loop of :data:`NORMALS` (the innermost backward branch holding
+    its 16-byte stores, four elements each: P2's to global memory, the
+    reduce's terms to shared memory) counted an element; a kernel without
+    one (the reduce, a block a tile), its body up to the first EXIT past
+    which an out-of-line callee lies."""
+    kernel, store = NORMALS[label]
+    name, instrs = _function(kernel, sass_funcs, out_dir)
+    loops = [l for l in _loops(instrs, store) if l[1]]
+    if loops:
+        body = max((l[2] for l in loops), key=len)
+    else:       # a block a tile: the body up to its first unguarded EXIT
+        body = instrs[:next(i for i, (_, o, _, g) in enumerate(instrs)
+                            if o == "EXIT" and not g) + 1]
     ops = Counter(o.split(".")[0] for _, o, _, _ in body)
-    elems = 4 * sum(1 for _, o, _, _ in body if o.startswith("STG")
+    elems = 4 * sum(1 for _, o, _, _ in body if o.startswith(store)
                     and ".128" in o)
     per = {
         "float64": sum(c for o, c in ops.items() if o in ("DADD", "DMUL",
@@ -254,6 +271,40 @@ def normals_report(label: str, sass_funcs: dict, out_dir=None,
             "elements_per_iteration": elems,
             "per_element": {k: v / elems for k, v in per.items()},
             "opcodes": dict(ops.most_common())}
+
+
+def _width(op: str) -> int:
+    """Registers a load of ``op`` writes: 4 bytes each."""
+    return 4 if ".128" in op else 2 if ".64" in op else 1
+
+
+def lookup_report(label: str, sass_funcs: dict, out_dir=None,
+                  regs=None) -> dict:
+    """P3's loop (the backward branch holding its store): its loads by
+    width, its stores, and the loads issued before any instruction reads
+    a register that one of them loads (the loads a thread has in flight
+    together: the queries' positions, then the table reads they lead
+    to)."""
+    name, instrs = _function(LOOKUP[label], sass_funcs, out_dir)
+    loops = [l for l in _loops(instrs, "STG") if l[1]]
+    if not loops:
+        raise SystemExit(f"no loop with a store in {name}")
+    body = max((l[2] for l in loops), key=len)
+    loads = [(o, r) for _, o, r, _ in body if o.startswith("LDG")]
+    in_flight, loaded = 0, set()
+    for _, op, args, _ in body:
+        regs_in = [int(m) for m in _REG.findall(args)]
+        if loaded & set(regs_in if op.startswith("ST") else regs_in[1:]):
+            break
+        if op.startswith("LDG"):
+            in_flight += 1
+            loaded.update(range(regs_in[0], regs_in[0] + _width(op)))
+    return {"kernel": label, "function": name,
+            "registers": (regs or {}).get(name),
+            "loads_by_bytes": dict(Counter(_width(o) * 4 for o, _ in loads)),
+            "stores": sum(o.startswith("STG") for _, o, _, _ in body),
+            "loads_in_flight": in_flight,
+            "loop_instructions": len(body)}
 
 
 def resource_usage(lib) -> dict:
@@ -290,6 +341,8 @@ def main(argv=None) -> int:
         print(json.dumps(dispatch_report(label, funcs, args.out, regs)))
     for label in NORMALS:
         print(json.dumps(normals_report(label, funcs, args.out, regs)))
+    for label in LOOKUP:
+        print(json.dumps(lookup_report(label, funcs, args.out, regs)))
     return 0
 
 

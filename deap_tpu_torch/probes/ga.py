@@ -60,12 +60,14 @@ import numpy as np
 import torch
 
 from .. import _xla_math, kernels, random
+from .._device import resolve_device
 from ..kernels.peaks import bound_ms
 from ..ops.generation import M32, _uniform_at
 from . import PAIRS, ProbeRun
 
 __all__ = ["POP", "DIM", "LANE", "K_ITERS", "PROBES", "stream", "chain24",
-           "rast_reduce", "hash_normal", "lookup", "row_gather",
+           "rast_reduce", "rast_inputs", "hash_normal", "lookup",
+           "lookup_inputs", "row_gather",
            "kernel_bound", "recommend_defaults", "main"]
 
 POP = 1 << 20          # 1,048,576 -- the flagship population
@@ -142,6 +144,29 @@ def rast_reduce(x: torch.Tensor, dim: int = DIM) -> torch.Tensor:
     return _rast_reduce_plain(x, dim)
 
 
+def rast_inputs(n_rows: int, device=None) -> torch.Tensor:
+    """``(n_rows, 128)`` float32 for testing the reduce: rows of
+    rastrigin's domain [-5.12, 5.12), where every ``2 pi v`` lies inside
+    the kernel's branch-free cosine's range (``|2 pi v| < 120``), mixed
+    with rows holding one lane outside it at 40 (so that a warp holds both
+    paths), rows wholly outside it (``|v|`` in [20, 1e4)) and rows with
+    NaN, +inf or -inf in one lane; drawn from a key of ``n_rows``."""
+    dev = resolve_device(device)
+    k_x, k_far, k_lane = random.split(random.PRNGKey(n_rows, device=dev),
+                                      3)
+    x = random.uniform(k_x, (n_rows, LANE), minval=-5.12, maxval=5.12)
+    far = random.uniform(k_far, (n_rows, LANE), minval=20.0,
+                         maxval=1e4) * torch.sign(x)
+    rows = torch.arange(n_rows, device=dev)
+    x = torch.where((rows % 11 == 5)[:, None], far, x)
+    odd = {3: 40.0, 0: float("nan"), 6: float("inf"), 9: -float("inf")}
+    lane = random.randint(k_lane, (n_rows,), 0, LANE).long()
+    for r, value in odd.items():
+        hit = rows[rows % (7 if r == 3 else 13) == r]
+        x[hit, lane[hit]] = value
+    return x
+
+
 # ---------------------------------------------------------------------------
 # P2: counter-hash normals
 # ---------------------------------------------------------------------------
@@ -184,6 +209,22 @@ def lookup(order: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return order[pos.long()]
 
 
+def lookup_inputs(n: int, offset: int = 0, device=None) -> tuple:
+    """``(order, pos)`` for testing the lookup: a permutation table of
+    ``n // 3 + 17`` entries (another size than ``n``) and ``n`` positions
+    into it, the first 0 and the last the table's last, ``pos`` a view
+    ``offset`` words into its allocation (not 16-byte aligned unless
+    ``offset % 4 == 0``); drawn from a seed of ``n`` and ``offset``."""
+    dev = resolve_device(device)
+    m = n // 3 + 17
+    gen = torch.Generator(device=dev).manual_seed(n + offset)
+    order = torch.randperm(m, generator=gen, device=dev).to(torch.int32)
+    pos = torch.randint(0, m, (n + offset,), generator=gen, device=dev,
+                        dtype=torch.int32)[offset:]
+    pos[0], pos[-1] = 0, m - 1
+    return order, pos
+
+
 def row_gather(genome: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``genome[idx]`` for ``(m, 128)`` float32 rows, every index in
     ``[0, m)``: the kernel does not check it."""
@@ -210,9 +251,9 @@ def kernel_bound(kind: str, pop: int, dim: int = DIM):
         return bound_ms(2 * 4 * elems)
     if kind == "chain":
         return bound_ms(2 * 4 * elems, flts=24 * elems)
-    if kind == "rast":
+    if kind == "rast":          # the live lanes read, a sum a row written
         n = pop * dim
-        return bound_ms(4 * elems + 4 * pop, ints=_COS[0] * n,
+        return bound_ms(4 * n + 4 * pop, ints=_COS[0] * n,
                         flts=5 * n, dbls=_COS[2] * n)
     if kind == "rng":
         per = [2 * h + lg + sq + c + f for h, lg, sq, c, f in

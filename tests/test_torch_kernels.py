@@ -392,6 +392,8 @@ def test_launchers_refuse_cpu_tensors_before_building():
     w = torch.zeros((16, 3))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.launch_rows_dominate_counts(w, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels._cos_reduced_mismatches(0, 16, device="cpu")
 
 
 @pytest.mark.gpu
@@ -569,6 +571,19 @@ _SASS = """
 """
 
 
+def test_kernel_times_ablations_each_edit_one_source_line():
+    """Every part ``kernel_times.py --ablate`` switches off names text
+    that its kernel's source holds exactly once."""
+    from deap_tpu_torch.kernels import kernel_times as KT
+    here = build.SOURCES[0].parent
+    for source, table in KT.ABLATIONS.values():
+        text = (here / source).read_text()
+        for name, edits in table:
+            for old, new in edits:
+                assert text.count(old) == 1, (source, name, old)
+                assert old != new
+
+
 def test_sass_finds_the_innermost_compare_loop():
     from deap_tpu_torch.kernels import sass
     funcs = sass.functions(_SASS)
@@ -678,10 +693,70 @@ def test_sass_counts_p2_per_element():
         "branches": 2 / 8, "calls": 1 / 8, "all": 11 / 8}
 
 
+_SASS_P1_REDUCE = """
+		Function : _ZN12_GLOBAL__N_111rast_kernelEPK6float4Pfxi
+        /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0010*/                   VOTE.ALL P0, PT, P1 ;
+        /*0020*/              @!P0 CALL.REL.NOINC 0x100 ;
+        /*0030*/                   F2F.F64.F32 R8, R4 ;
+        /*0040*/                   DMUL R10, R8, c[0x3][0x0] ;
+        /*0050*/                   DFMA R10, R8, R10, R12 ;
+        /*0060*/                   F2F.F32.F64 R6, R10 ;
+        /*0070*/                   STS.128 [R20], R4 ;
+        /*0080*/                   STS.128 [R20+0x10], R8 ;
+        /*0090*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00a0*/              @P2 EXIT ;
+        /*00b0*/                   EXIT ;
+        /*0100*/                   DMUL R10, R8, R10 ;
+        /*0110*/                   RET.REL.NODEC R20 0x0 ;
+"""
+
+
+def test_sass_counts_the_reduce_per_term():
+    """No loop (a block a tile): the body up to the first unguarded EXIT,
+    two 16-byte shared stores, eight terms; the general cosine's call
+    counts as a branch and its body, past the EXIT, not at all."""
+    from deap_tpu_torch.kernels import sass
+    funcs = sass.functions(_SASS_P1_REDUCE)
+    rep = sass.normals_report("P1_reduce", funcs)
+    assert rep["elements_per_iteration"] == 8
+    assert rep["per_element"] == {
+        "float64": 2 / 8, "conversions": 2 / 8, "selects": 0,
+        "branches": 1 / 8, "calls": 1 / 8, "all": 12 / 8}
+
+
+_SASS_P3 = """
+		Function : _ZN12_GLOBAL__N_113lookup_kernelEPKiS1_Pix
+        /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0010*/                   LDG.E.64 R6, desc[UR4][R16.64] ;
+        /*0020*/                   IMAD.WIDE R12, R4, 0x4, R14 ;
+        /*0030*/                   LDG.E.CONSTANT R8, desc[UR4][R12.64] ;
+        /*0040*/                   IMAD.WIDE R18, R7, 0x4, R14 ;
+        /*0050*/                   LDG.E.CONSTANT R9, desc[UR4][R18.64] ;
+        /*0060*/                   STG.E desc[UR4][R22.64], R8 ;
+        /*0070*/                   STG.E desc[UR4][R24.64], R9 ;
+        /*0080*/              @P0 BRA 0x0 ;
+        /*0090*/                   EXIT ;
+"""
+
+
+def test_sass_counts_the_lookups_reads_in_flight():
+    """Two loads of positions are issued before an instruction reads one
+    of their registers (the IMAD.WIDE reads R4; R7 is the second half of
+    the 8-byte load); the table reads come after."""
+    from deap_tpu_torch.kernels import sass
+    rep = sass.lookup_report("P3", sass.functions(_SASS_P3))
+    assert rep["loads_by_bytes"] == {4: 3, 8: 1}
+    assert rep["stores"] == 2 and rep["loads_in_flight"] == 2
+    assert rep["loop_instructions"] == 9
+
+
 def _cos_reduced(y):
-    """``cos_reduced`` of ``kernels/probes.cu`` transcribed: the float64
-    steps one rounding each, both polynomials on the reduced argument,
-    the signs applied to the float32 result."""
+    """``cos_reduced`` of ``kernels/device_math.cuh`` transcribed: the
+    float64 steps one rounding each, both polynomials on the reduced
+    argument, the signs applied to the float32 result (``n`` signed, as
+    glibc's quadrant: negated where ``n & 3`` is 1 or 2); below 2^-12 the
+    cosine's polynomial itself rounds to glibc's 1."""
     from deap_tpu_torch import _xla_math as X
     c0, c1, c2, c3, c4 = X._COS_POLY
     s1_, s2_, s3_ = X._SIN_POLY
@@ -694,8 +769,7 @@ def _cos_reduced(y):
     x4 = x2 * x2
     vc = ((c0 + x2 * c1) + x4 * c2) + (x4 * x2) * (c3 + x2 * c4)
     v = torch.where(n % 2 == 1, vs, vc).float()
-    v = torch.where((n == 1) | (n == 2), -v, v)
-    return torch.where((y.view(torch.int32) >> 20) < X._TOP_TINY, 1.0, v)
+    return torch.where((n + 1) & 2 != 0, -v, v)
 
 
 def test_branch_free_cosine_equals_glibcs_on_every_input_of_the_law():
@@ -709,6 +783,21 @@ def test_branch_free_cosine_equals_glibcs_on_every_input_of_the_law():
         y = u2 * _F32_2PI
         assert torch.equal(_cos_reduced(y).view(torch.int32),
                            _xla_math.cos(y).view(torch.int32))
+
+
+def test_branch_free_cosine_equals_glibcs_on_a_sample_of_its_range():
+    """``cos_reduced``'s range is ``|y| < 120``, both signs (+-0 and the
+    inputs below 2^-12 and 0.75 included): on every 61st float32 bit
+    pattern of it, its transcription gives ``_xla_math.cos``'s bits.  The
+    card test sweeps every pattern through the kernel's own cosine."""
+    from deap_tpu_torch import _xla_math
+    top, step, chunk = 0x42F00000, 61, 1 << 22      # 0x42F00000 is 120.0
+    for sign in (0, -(1 << 31)):
+        for lo in range(0, top, chunk * step):
+            bits = torch.arange(lo, min(lo + chunk * step, top), step)
+            y = (bits + sign).to(torch.int32).view(torch.float32)
+            assert torch.equal(_cos_reduced(y).view(torch.int32),
+                               _xla_math.cos(y).view(torch.int32))
 
 
 def _probe_rows_inputs(dev, pop):
@@ -768,16 +857,37 @@ def test_probe_stream_copy_refuses_a_misaligned_view_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dim", [100, 128, 37])
-def test_probe_rast_reduce_equals_plain_on_card(dim):
+@pytest.mark.parametrize("n_rows", [1, 2047, 2048, 2049, (1 << 16) + 96])
+@pytest.mark.parametrize("dim", [0, 1, 31, 32, 33, 37, 96, 100, 127, 128])
+def test_probe_rast_reduce_equals_plain_on_card(dim, n_rows):
+    """P1's reduce bitwise to its plain version, masked lanes skipped
+    (dims up to 96 leave the fourth window empty) and warps on the
+    branch-free and the general cosine (``probes.ga.rast_inputs``)."""
     dev = _cuda()
-    x, _ = _probe_rows_inputs(dev, (1 << 16) + 96)
+    x = PGA.rast_inputs(n_rows, dev)
     kernels.reset_launches()
     got = PGA.rast_reduce(x, dim)
     want = PGA._rast_reduce_plain(x, dim)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["probe_rast_reduce"] == 1
     assert got.shape == (x.shape[0],) and _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo, hi", [(0, 0x42F00000),
+                                    (0x80000000, 0xC2F00000)],
+                         ids=["positive", "negative"])
+def test_branch_free_cosine_equals_xla_sincos_on_its_whole_range_on_card(
+        lo, hi):
+    """Every float32 ``y`` with ``|y| < 120`` (0x42F00000 is 120.0):
+    ``cos_reduced`` gives ``xla_sincos(y, true)``'s bits on the card.
+    Above the range (``|y|`` from 120 to 2^22, where glibc reduces in
+    128-bit integers) the sweep finds mismatches, so it can see one."""
+    dev = _cuda()
+    assert kernels._cos_reduced_mismatches(lo, hi, device=dev) == (0, None)
+    above = hi + 0x07900000                    # 0x4A800000 is 2^22
+    count, first = kernels._cos_reduced_mismatches(hi, above, device=dev)
+    assert count > 0 and hi <= first < above
 
 
 @pytest.mark.gpu
@@ -792,6 +902,22 @@ def test_probe_hash_normal_equals_plain_on_card(seed, n_rows):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["probe_hash_normal"] == 1
     assert got.shape == (n_rows, PGA.LANE) and _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 1 << 20, (1 << 20) + 3])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_probe_lookup_exact_at_ragged_sizes_and_views_on_card(n, offset):
+    """P3 is exactly ``order[pos]`` with a table of another size than
+    ``n``, positions 0 and m - 1 among the queries, sizes that are not
+    a multiple of 4 and ``pos`` a view 0-3 words into its allocation
+    (not 16-byte aligned)."""
+    order, pos = PGA.lookup_inputs(n, offset, _cuda())
+    kernels.reset_launches()
+    got = PGA.lookup(order, pos)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["probe_lookup"] == 1
+    assert got.shape == (n,) and torch.equal(got, order[pos.long()])
 
 
 @pytest.mark.gpu

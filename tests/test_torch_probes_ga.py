@@ -126,6 +126,76 @@ def test_rast_reduce_is_bitwise_to_the_tool_kernel(pga, monkeypatch):
     assert np.array_equal(_bits(got.numpy()), _bits(want))
 
 
+def _cosf_battery():
+    """``(POP, 128)`` float32 rows whose lanes reach every branch of
+    glibc's ``cosf`` on ``2 pi v``: below 2^-12, below 0.75, below 120, at
+    120 or more, each of either sign, and -0.0; one row in 16 also holds
+    +-inf, NaN or 1e30 (whose square overflows) at a random lane."""
+    rng = np.random.default_rng(10)
+    u = rng.random((POP, ga.LANE))
+    scale = np.array([1e-5, 0.11, 19.0, 1e4])         # 2 pi v: the branches
+    branch = rng.integers(0, len(scale), (POP, ga.LANE))
+    v = u * scale[branch]
+    v[branch == 3] += 19.2                            # 2 pi v >= 120
+    v = np.where(rng.random((POP, ga.LANE)) < 0.5, -v, v)
+    v[rng.random((POP, ga.LANE)) < 0.02] = -0.0
+    rows = np.flatnonzero(rng.random(POP) < 1 / 16)
+    v[rows, rng.integers(0, ga.LANE, rows.size)] = rng.choice(
+        [np.inf, -np.inf, np.nan, 1e30], rows.size)
+    return v.astype(np.float32)
+
+
+@pytest.mark.parametrize("dim", [0, 1, 33, 96, 100, 128])
+def test_rast_reduce_is_bitwise_to_the_tool_kernel_on_every_cosf_branch(
+        pga, monkeypatch, dim):
+    """The plain reduce against the tool's Pallas kernel (interpret mode)
+    with its mask at ``dim``, on :func:`_cosf_battery`: every row's bits
+    equal, except that a NaN row is NaN on both sides with either sign
+    (x86's default NaN, which glibc's ``cosf(inf)`` returns, is negative;
+    the port's cosine returns the positive quiet NaN)."""
+    monkeypatch.setattr(pga, "DIM", dim)          # read when it is traced
+    (run,) = _kernels_of(pga, pga.probe_rast, monkeypatch)
+    x = _cosf_battery()
+    want = np.asarray(run(jnp.asarray(x)))[:, 0]
+    got = ga.rast_reduce(torch.from_numpy(x.copy()), dim).numpy()
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(_bits(got)[~nan], _bits(want)[~nan])
+    live = x[:, :dim]
+    assert nan.any() == (np.isnan(live) | np.isinf(live)).any()
+    if dim >= 33:                       # every branch in the live lanes
+        y = np.abs(live[np.isfinite(live)].astype(np.float64) * 2 * np.pi)
+        for lo, hi in ((0, 2.0 ** -12), (2.0 ** -12, 0.75), (0.75, 120),
+                       (120, np.inf)):
+            assert ((y >= lo) & (y < hi)).any()
+
+
+def test_rast_inputs_hold_both_cosine_paths_and_the_specials():
+    """The card tests' reduce inputs: rows wholly inside the branch-free
+    cosine's range, rows with one lane outside it, rows wholly outside,
+    and NaN / +-inf rows; the plain reduce is NaN exactly on the latter."""
+    x = ga.rast_inputs(2049, "cpu")
+    assert x.shape == (2049, ga.LANE) and x.dtype == torch.float32
+    inside = (x * ga._F32_2PI).abs() < 120        # NaN compares False
+    whole = inside.all(1)
+    assert whole.any() and (inside.sum(1) == ga.LANE - 1).any()
+    assert (~inside).all(1).any()
+    special = ~torch.isfinite(x)
+    assert torch.isnan(x).any() and torch.isinf(x).any()
+    got = ga.rast_reduce(x, ga.LANE)
+    assert torch.equal(torch.isnan(got), special.any(1))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_lookup_inputs_are_views_at_every_offset(offset):
+    order, pos = ga.lookup_inputs(1027, offset, "cpu")
+    m = order.shape[0]
+    assert m == 1027 // 3 + 17 and sorted(order.tolist()) == list(range(m))
+    assert pos.shape == (1027,) and pos.storage_offset() == offset
+    assert pos[0] == 0 and pos[-1] == m - 1 and int(pos.max()) < m
+    assert torch.equal(ga.lookup(order, pos), order[pos.long()])
+
+
 def test_tool_rng_kernel_has_no_cpu_oracle(pga, monkeypatch):
     """The TPU probe seeds the TPU's hardware generator: its kernel builds
     here but cannot run (``prng_seed`` has no CPU lowering)."""
@@ -214,7 +284,10 @@ def test_bounds_are_the_stated_shapes_work():
     assert ga.kernel_bound("stream", pop) == pytest.approx(
         (2 * 4 * pop * 128 / 3.35e12 * 1e3, "bytes"))
     assert ga.kernel_bound("chain", pop)[1] == "bytes"
-    assert ga.kernel_bound("rast", pop)[1] == "bytes"
+    assert ga.kernel_bound("rast", pop) == pytest.approx(
+        (22 * pop * ga.DIM / 16.75e12 * 1e3, "operations"))
+    assert ga.kernel_bound("rast", pop, 0) == pytest.approx(
+        (4 * pop / 3.35e12 * 1e3, "bytes"))
     assert ga.kernel_bound("rng", pop)[1] == "operations"
     assert ga.kernel_bound("lookup", pop)[0] == pytest.approx(
         12 * pop / 3.35e12 * 1e3)
