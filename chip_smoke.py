@@ -131,7 +131,39 @@
 21. probe tool — ``python -m deap_tpu_torch.probes.gp`` in process: the
              nine probes and ``fraction_of_floor``, P5 and K6 (``real63``)
              launched on it;
-22. the ``kernels`` line, the card's name and power limit, and the result
+22. OneMax — BASELINE config 1 (``bench_onemax.py``: pop 300 x 100
+             bits, ``cx_two_point``, ``mut_flip_bit(0.05)``,
+             ``sel_tournament(3)``, cxpb 0.5, mutpb 0.2) through
+             ``ea_simple`` with ``HallOfFame(1)`` and max / avg
+             statistics, 40 generations on the card and on the CPU from
+             ``PRNGKey(0)``: population, logbook and archive bit for bit
+             equal; the generation where the maximum reaches 100; the
+             marginal ms a generation (20 / 40, three pairs);
+23. CMA-ES  — BASELINE config 3 (``bench_cma.py``: N = 100, lambda =
+             4096, centroid 5, sigma 5) on ``sphere`` and ``ackley``
+             through ``ea_generate_update``: five generations, then one
+             step teacher-forced, the same state, key and population on
+             the card and on the CPU (genomes and ``centroid``,
+             ``sigma``, ``ps``, ``pc``, ``C``, ``diagD`` within
+             ``CMA_RTOL`` of each field's largest value; ``B`` up to the
+             sign of its columns within ``CMA_B_ATOL``; ``pc`` and ``C``
+             only where ``hsig``'s margin exceeds ``CMA_HSIG_MARGIN``);
+             TF32 must be off; ``eigh`` must run on the card (device
+             kernels under the profiler), its ms and share of a
+             generation; the marginal ms a generation (10 / 20, three
+             pairs) and one profiled window;
+24. anchors — verify flow 2 (sphere, N = 5, lambda = 20, 100
+             generations, ``PRNGKey(0)``): best < 1e-8; (1+lambda)
+             (N = 5, lambda = 8, 300 generations, ``PRNGKey(10)``): best
+             < 1e-3;
+25. MO-CMA-ES — ZDT1 as ``tests/test_algorithms.py:178`` runs it (MU =
+             LAMBDA = 10, 500 generations, ``RandomState(128)``) with
+             the strategy on the card: hypervolume at (11, 11) > 116
+             and the device and host selection routes choosing the same
+             individuals on every generation's candidates.  No kernel
+             of the port runs on phases 22-25 (their launch counts are
+             printed, zero);
+26. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12 and 15, a
@@ -145,6 +177,10 @@ K5's running heights are exact and its sums are taken in another order
 than the plain version's (with fused multiply-adds): relative 1e-4 in float32 and 1e-11 in float64,
 on the total and on every slab partial (relative to the total).  A
 mismatch prints the measured bound and fails.
+CMA-ES (phase 23): the card's and the CPU's matrix products and
+``eigh`` (cuSOLVER's Jacobi solver on the card, LAPACK on the host)
+round differently, so each state field must agree within relative
+1e-4, and ``|B_cardᵀ B_cpu|`` with I within 1e-2.
 Any failed phase exits non-zero without the result line.  No JAX, and
 nothing of the JAX package, is imported.
 """
@@ -2021,6 +2057,327 @@ def probe_gp_tool_phase(kernels, card_line) -> tuple:
     return launches, out
 
 
+# ---- 22.-25. the OneMax and CMA-ES slices (BASELINE configs 1 and 3) --------
+
+# BASELINE config 1 (bench_onemax.py): pop 300 x 100 bits, cx_two_point,
+# mut_flip_bit(0.05), sel_tournament(3), cxpb 0.5, mutpb 0.2
+OM_POP, OM_BITS, OM_NGEN, OM_CXPB, OM_MUTPB = 300, 100, 40, 0.5, 0.2
+OM_TIMING_NGEN, OM_PAIRS = 20, 3
+# BASELINE config 3 (bench_cma.py): N = 100, lambda = 4096, centroid 5, sigma 5
+CMA_DIM, CMA_LAMBDA, CMA_WARM, CMA_TIMING_NGEN, CMA_PAIRS = 100, 4096, 5, 10, 3
+CMA_RTOL = 1e-4          # card vs CPU, relative to a field's largest value
+CMA_B_ATOL = 1e-2        # |B_cardᵀ B_cpu| = I up to column signs
+CMA_HSIG_MARGIN = 1e-4   # pc and C are compared only beyond this margin
+MO_HV_THRESHOLD = 116.0  # tests/test_algorithms.py:15
+
+
+def onemax_toolbox():
+    from deap_tpu_torch import base
+    from deap_tpu_torch.ops import crossover, mutation, selection
+    import torch
+    tb = base.Toolbox()
+    tb.register("evaluate", lambda g: (torch.sum(g),))
+    tb.register("mate", crossover.cx_two_point)
+    tb.register("mutate", mutation.mut_flip_bit, indpb=0.05)
+    tb.register("select", selection.sel_tournament, tournsize=3)
+    return tb
+
+
+def onemax_run(dev, ngen: int):
+    """``ea_simple`` at BASELINE config 1 with ``HallOfFame(1)`` and
+    max / avg statistics from ``PRNGKey(0)`` on ``dev``."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch._xla_math import row_mean
+    from deap_tpu_torch.algorithms import ea_simple
+    from deap_tpu_torch.utils.support import HallOfFame, Statistics
+    key = random.PRNGKey(0, device=dev)
+    genome = random.bernoulli(key, 0.5, (OM_POP, OM_BITS)).float()
+    stats = Statistics(lambda p: p.fitness.values[:, 0])
+    stats.register("max", torch.max)
+    stats.register("avg", row_mean)
+    hof = HallOfFame(1)
+    pop = base.Population(genome, base.Fitness.empty(OM_POP, (1.0,),
+                                                     device=dev))
+    pop, log = ea_simple(key, pop, onemax_toolbox(), OM_CXPB, OM_MUTPB, ngen,
+                         stats=stats, halloffame=hof)
+    return pop, log, hof
+
+
+def onemax_phase(card_line) -> None:
+    import torch
+    from deap_tpu_torch import kernels
+    dev = torch.device("cuda")
+    kernels.reset_launches()
+    pop, log, hof = onemax_run(dev, OM_NGEN)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    cpop, clog, chof = onemax_run(torch.device("cpu"), OM_NGEN)
+    same = {
+        "genome": torch.equal(pop.genome.cpu(), cpop.genome),
+        "values": torch.equal(pop.fitness.values.cpu(), cpop.fitness.values),
+        "logbook": all(log.select(c) == clog.select(c)
+                       for c in ("gen", "nevals", "max", "avg")),
+        "archive": (torch.equal(hof.state.genome.cpu(), chof.state.genome)
+                    and torch.equal(hof.state.values.cpu(),
+                                    chof.state.values)
+                    and torch.equal(hof.state.filled.cpu(),
+                                    chof.state.filled))}
+    best = log.select("max")
+    reached = next((g for g, m in zip(log.select("gen"), best)
+                    if m == OM_BITS), None)
+
+    def run(ngen):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        onemax_run(dev, ngen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run(2)
+    per_gen, marginals, pairs = _timed_pairs(run, OM_TIMING_NGEN, OM_PAIRS)
+    phase("OneMax ea_simple + HallOfFame(1) (BASELINE config 1)", card_line,
+          pop=OM_POP, bits=OM_BITS, ngen=OM_NGEN, card_equals_cpu=same,
+          max_start=best[0], max_end=best[-1], gen_max_reaches_100=reached,
+          hof_best=float(hof.state.values[0, 0]),
+          timing_ngen=[OM_TIMING_NGEN, 2 * OM_TIMING_NGEN],
+          seconds=[list(p) for p in pairs],
+          marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
+          launches=launches)
+    if not all(same.values()):
+        fail(f"OneMax card vs CPU differ: {same}")
+    if not best[-1] > best[0] or hof.state.values[0, 0] != max(best):
+        fail(f"OneMax did not improve or the archive missed the best: "
+             f"{best[0]} -> {best[-1]}, hof {hof.state.values[0, 0]}")
+
+
+def cma_toolbox(strategy, fn: str):
+    from deap_tpu_torch import base, benchmarks
+    tb = base.Toolbox()
+    tb.register("evaluate", getattr(benchmarks, fn))
+    tb.register("generate", strategy.generate)
+    tb.register("update", strategy.update)
+    return tb
+
+
+def _rel(a, b) -> float:
+    import torch
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _hsig_margin(strategy, state) -> float:
+    import math
+    lhs = (float(state.ps.double().norm())
+           / math.sqrt(1 - (1 - strategy.cs) ** (2 * int(state.update_count)))
+           / strategy.chiN)
+    return abs(lhs - (1.4 + 2.0 / (strategy.dim + 1.0)))
+
+
+def _state_to(state, dev):
+    import dataclasses
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).to(dev)
+        for f in dataclasses.fields(state)})
+
+
+def eigh_on_card(C) -> dict:
+    """``torch.linalg.eigh`` of ``C`` under the profiler (the device
+    kernels it ran, their time) and its host-clock ms a call, the host
+    synchronisation on its ``info`` included."""
+    import torch
+    w, B = torch.linalg.eigh(C)
+    prof = _profile_window(lambda: torch.linalg.eigh(C), gens=1)
+    return {"on_card": bool(w.is_cuda and B.is_cuda),
+            "device_ms": prof["device_busy_ms"],
+            "kernel_launches": prof["kernel_launches"],
+            "kernels": [k["kernel"] for k in prof["top_kernels"]],
+            "wall_ms": _wall_ms(lambda: torch.linalg.eigh(C), reps=20)}
+
+
+def cma_phase(card_line, fn: str) -> None:
+    """BASELINE config 3 on ``fn``: a teacher-forced step card vs CPU,
+    the marginal ms of ``ea_generate_update`` and ``eigh``'s share."""
+    import torch
+    from deap_tpu_torch import base, cma, kernels, random
+    from deap_tpu_torch.algorithms import ea_generate_update, \
+        evaluate_population
+    from deap_tpu_torch.utils.support import Statistics
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("TF32 is on: the CMA-ES products must run in full float32")
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    s = cma.Strategy(centroid=[5.0] * CMA_DIM, sigma=5.0, lambda_=CMA_LAMBDA,
+                     device=dev)
+    sc = cma.Strategy(centroid=[5.0] * CMA_DIM, sigma=5.0,
+                      lambda_=CMA_LAMBDA, device=cpu)
+    tb = cma_toolbox(s, fn)
+    key = random.PRNGKey(0, device=dev)
+    stats = Statistics(lambda p: p.fitness.values[:, 0])
+    stats.register("min", torch.min)
+    kernels.reset_launches()
+    pop, state, log = ea_generate_update(key, tb, s.init(), CMA_WARM,
+                                         weights=(-1.0,), stats=stats)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+
+    # one step teacher-forced: the same state, key and population
+    k = random.fold_in(key, 99)
+    g_card = s.generate(state, k)
+    g_cpu = sc.generate(_state_to(state, cpu), k.cpu())
+    pop = base.Population(g_card, base.Fitness.empty(CMA_LAMBDA, (-1.0,),
+                                                     device=dev))
+    pop, _ = evaluate_population(tb, pop)
+    nxt = s.update(state, pop)
+    nxt_cpu = sc.update(_state_to(state, cpu), base.Population(
+        pop.genome.cpu(), base.Fitness(pop.fitness.values.cpu(),
+                                       pop.fitness.valid.cpu(), (-1.0,))))
+    margin = _hsig_margin(sc, nxt_cpu)
+    fields = ["centroid", "sigma", "ps", "diagD"] + (
+        ["pc", "C"] if margin > CMA_HSIG_MARGIN else [])
+    errs = {"genome": _rel(g_card, g_cpu)}
+    errs.update({f: _rel(getattr(nxt, f), getattr(nxt_cpu, f))
+                 for f in fields})
+    cross = (nxt.B.cpu().T @ nxt_cpu.B).abs()
+    errs["B_up_to_sign"] = float((cross - torch.eye(CMA_DIM)).abs().max())
+    flipped = int((torch.diagonal(nxt.B.cpu().T @ nxt_cpu.B) < 0).sum())
+
+    eig = eigh_on_card(nxt.C)
+
+    def run(ngen):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ea_generate_update(key, tb, s.init(), ngen, weights=(-1.0,))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run(2)
+    per_gen, marginals, pairs = _timed_pairs(run, CMA_TIMING_NGEN, CMA_PAIRS)
+    prof = _profile_window(lambda: run(CMA_TIMING_NGEN), CMA_TIMING_NGEN)
+    best = log.select("min")
+    fit = pop.fitness.values
+    phase(f"CMA-ES ea_generate_update {fn} (BASELINE config 3)", card_line,
+          dim=CMA_DIM, lambda_=CMA_LAMBDA, warm_gens=CMA_WARM,
+          teacher_forced_rel_err=errs, rtol=CMA_RTOL, b_atol=CMA_B_ATOL,
+          hsig_margin=margin, b_columns_flipped=flipped,
+          eigh=eig, tf32=torch.backends.cuda.matmul.allow_tf32,
+          matmul_precision=torch.get_float32_matmul_precision(),
+          timing_ngen=[CMA_TIMING_NGEN, 2 * CMA_TIMING_NGEN],
+          seconds=[list(p) for p in pairs],
+          marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
+          eigh_share_of_gen=eig["wall_ms"] / (per_gen * 1e3),
+          profile_one_gen=prof, best_start=best[0], best_end=best[-1],
+          sigma=float(nxt.sigma), launches=launches)
+    bad = {f: e for f, e in errs.items()
+           if e > (CMA_B_ATOL if f == "B_up_to_sign" else CMA_RTOL)}
+    if bad:
+        fail(f"CMA-ES {fn} card vs CPU beyond tolerance: {bad}")
+    if not eig["on_card"] or not eig["kernel_launches"]:
+        fail(f"eigh did not run on the card: {eig}")
+    if not bool(torch.isfinite(fit).all()) or \
+            tuple(pop.genome.shape) != (CMA_LAMBDA, CMA_DIM):
+        fail(f"CMA-ES {fn}: population not finite or misshaped")
+
+
+def cma_anchor_phase(card_line) -> None:
+    """Verify flow 2 (sphere, N = 5, lambda 20, 100 generations) and the
+    (1+lambda) anchor (N = 5, lambda 8, 300 generations) on the card."""
+    import torch
+    from deap_tpu_torch import cma, kernels, random
+    from deap_tpu_torch.algorithms import ea_generate_update
+    dev = torch.device("cuda")
+    kernels.reset_launches()
+    s = cma.Strategy(centroid=[5.0] * 5, sigma=5.0, lambda_=20, device=dev)
+    t = time.perf_counter()
+    pop, state, log = ea_generate_update(
+        random.PRNGKey(0, device=dev), cma_toolbox(s, "sphere"), s.init(),
+        ngen=100, weights=(-1.0,))
+    best = float(pop.fitness.values.min())
+    t_flow2 = time.perf_counter() - t
+    s1 = cma.StrategyOnePlusLambda(parent=[3.0] * 5, sigma=1.0,
+                                   weights=(-1.0,), lambda_=8, device=dev)
+    t = time.perf_counter()
+    _, st1, _ = ea_generate_update(
+        random.PRNGKey(10, device=dev), cma_toolbox(s1, "sphere"), s1.init(),
+        ngen=300, weights=(-1.0,))
+    best1 = -float(st1.parent_wvalues[0])
+    t_opl = time.perf_counter() - t
+    phase("CMA-ES anchors: verify flow 2 and (1+lambda)", card_line,
+          flow2_best=best, flow2_seconds=t_flow2, flow2_gens=len(log),
+          one_plus_lambda_best=best1, one_plus_lambda_seconds=t_opl,
+          one_plus_lambda_A_on_card=bool(st1.A.is_cuda),
+          launches=dict(kernels.LAUNCHES))
+    if not best < 1e-8:
+        fail(f"CMA-ES flow 2 best {best} is not below 1e-8")
+    if not best1 < 1e-3:
+        fail(f"(1+lambda) best {best1} is not below 1e-3")
+
+
+def mo_cma_phase(card_line) -> None:
+    """MO-CMA-ES on ZDT1 as tests/test_algorithms.py:178 runs it (MU =
+    LAMBDA = 10, 500 generations, RandomState(128)) on the card; the
+    device and host selection routes on every generation's candidates."""
+    import numpy as np
+    import torch
+    from deap_tpu_torch import benchmarks, cma, kernels, random
+    from deap_tpu_torch.ops.hv import hypervolume
+    dev = torch.device("cuda")
+
+    def evaluate(genomes):
+        g = np.asarray(genomes, np.float64)
+        f = np.clip(g, 0.0, 1.0)
+        vals = torch.func.vmap(lambda x: torch.stack(benchmarks.zdt1(x)))(
+            torch.as_tensor(f, dtype=torch.float32, device=dev))
+        pen = 1e7 * np.sum((f - g) ** 2, axis=1)
+        return vals.double().cpu().numpy() + pen[:, None]
+
+    kernels.reset_launches()
+    pop = np.random.RandomState(128).rand(10, 5)
+    s = cma.StrategyMultiObjective(pop, (-1.0, -1.0), sigma=1.0,
+                                   values=evaluate(pop), mu=10, lambda_=10,
+                                   device=dev)
+    key = random.PRNGKey(128, device=dev)
+    disagree, t_dev, t_host = 0, 0.0, 0.0
+    t0 = time.perf_counter()
+    for _ in range(500):
+        key, k = random.split(key)
+        off = s.generate(k)
+        vals = evaluate(off)
+        genomes = np.concatenate([off, s.parents])
+        values = np.concatenate([vals, s.parent_values])
+        t = time.perf_counter()
+        dev_pick = s._select(genomes, values, None)
+        t_dev += time.perf_counter() - t
+        s.select_backend = "host"
+        t = time.perf_counter()
+        host_pick = s._select(genomes, values, None)
+        t_host += time.perf_counter() - t
+        s.select_backend = "auto"
+        if dev_pick[0] != host_pick[0] or \
+                set(dev_pick[1]) != set(host_pick[1]):
+            disagree += 1
+        s.update(off, vals)
+    seconds = time.perf_counter() - t0
+    hv = hypervolume(s.parent_values, [11.0, 11.0])
+    feasible = bool(np.all(s.parents >= -1e-5) and np.all(s.parents
+                                                          <= 1 + 1e-5))
+    phase("MO-CMA-ES ZDT1 (tests/test_algorithms.py:178)", card_line,
+          mu=10, lambda_=10, ngen=500, hypervolume=hv,
+          threshold=MO_HV_THRESHOLD, feasible=feasible,
+          select_routes_disagree=disagree, seconds=seconds,
+          device_select_ms=t_dev / 500 * 1e3,
+          host_select_ms=t_host / 500 * 1e3,
+          launches=dict(kernels.LAUNCHES))
+    if disagree:
+        fail(f"device and host MO-CMA selection differ on {disagree} "
+             "generations")
+    if not hv > MO_HV_THRESHOLD or not feasible:
+        fail(f"MO-CMA-ES hypervolume {hv} <= {MO_HV_THRESHOLD} or "
+             "parents outside [0, 1]")
+
+
 def main() -> int:
     try:
         import torch
@@ -2455,6 +2812,14 @@ def main() -> int:
         "ms_by_form": {f"{m} tb{tb} unroll{u or 1}": v["ms"]
                        for (m, tb, u), v in p5.items()},
         "fraction_of_floor": gp_probes.get("fraction_of_floor")})
+
+    # ---- 22.-25. OneMax and CMA-ES: no kernel on their paths ---------------
+    onemax_phase(card_line)
+    cma_phase(card_line, "sphere")
+    cma_phase(card_line, "ackley")
+    cma_anchor_phase(card_line)
+    mo_cma_phase(card_line)
+
     phase("total", card_line, seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line, flush=True)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 __all__ = ["fma", "fma64", "sqrt", "log", "log1p", "exp", "expm1", "erf_inv",
-           "sin", "cos", "pow"]
+           "sin", "cos", "pow", "row_sum", "row_mean"]
 
 _INF = float("inf")
 _FLT_MIN = 1.1754943508222875e-38           # smallest normal float32
@@ -458,3 +458,30 @@ def pow(x: torch.Tensor, y: float) -> torch.Tensor:
     special = ((ix & 0x7FFFFFFF) == 0) | ((ix & 0x7FFFFFFF) >= 0x7F800000)
     out = torch.where(special, 1.0 / x2 if y < 0 else x2, out)
     return torch.where(out.abs() < _FLT_MIN, sign * 0.0, out)
+
+
+# XLA's CPU backend rewrites a reduction longer than 32 into windows of
+# 32 (zero padding split evenly, the odd one at the end), sums each
+# window in order, then reduces the partial sums the same way
+_REDUCE_WINDOW = 32
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 sum over the last axis, in its order."""
+    n = x.shape[-1]
+    if n > _REDUCE_WINDOW:
+        m = -(-n // _REDUCE_WINDOW) * _REDUCE_WINDOW
+        lo = (m - n) // 2
+        x = torch.nn.functional.pad(x, (lo, m - n - lo))
+        x = x.reshape(x.shape[:-1] + (m // _REDUCE_WINDOW, _REDUCE_WINDOW))
+        return row_sum(row_sum(x))
+    s = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(n):
+        s = s + x[..., i]
+    return s
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 mean over the last axis: :func:`row_sum` times
+    the float32 reciprocal of the length."""
+    return row_sum(x) * float(np.float32(1.0 / x.shape[-1]))

@@ -1,8 +1,11 @@
 """Canonical evolutionary loops — the PyTorch counterparts of
 ``deap_tpu/algorithms.py``: ``evaluate_population``,
 ``vary_genome``/``var_and``, ``var_or``, the ``ea_ask``/``ea_tell``/
-``ea_step`` generation, ``ea_simple`` and the (mu + lambda) / (mu,
-lambda) loops.
+``ea_step`` generation, ``ea_simple``, the (mu + lambda) / (mu,
+lambda) loops and the ask-tell loop ``ea_generate_update``; every loop
+takes a ``halloffame`` (a :class:`~deap_tpu_torch.utils.support.
+HallOfFame` or ``ParetoFront``) and updates it where the JAX package
+does.
 
 The JAX package runs the whole loop as one ``lax.scan``; here it is a
 Python loop over eager tensor code (and, under ``generation_engine =
@@ -22,9 +25,9 @@ The ``live`` contract of the serving layer is kept: a bool ``(pop,)``
 prefix mask whose pad rows never win selection (indices remap
 ``% live_n``), are never varied or evaluated, and are not counted.
 
-Not ported yet: ``ea_generate_update``, the hall of fame, telemetry
-and streaming callbacks, quarantine, and the sharded and streamed
-engines (they raise :class:`~deap_tpu_torch.engines.EngineNotPorted`).
+Not ported yet: telemetry, the streaming callbacks (``stream_every``),
+quarantine, and the sharded and streamed engines (they raise
+:class:`~deap_tpu_torch.engines.EngineNotPorted`).
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ from .utils.support import Logbook
 
 __all__ = ["var_and", "vary_genome", "var_or", "evaluate_population",
            "ea_ask", "ea_tell", "ea_step", "ea_simple", "ea_mu_plus_lambda",
-           "ea_mu_comma_lambda", "varAnd", "varOr", "eaSimple",
-           "eaMuPlusLambda", "eaMuCommaLambda"]
+           "ea_mu_comma_lambda", "ea_generate_update", "varAnd", "varOr",
+           "eaSimple", "eaMuPlusLambda", "eaMuCommaLambda",
+           "eaGenerateUpdate"]
 
 
 def _where_rows(mask, new, old):
@@ -154,7 +158,11 @@ def evaluate_population(toolbox, population: Population):
     signature has ``skip`` it gets ``skip=fitness.valid`` and may skip
     those rows, whose values are discarded (the GP evaluator gives them
     length 0, so the stack machine runs no step for them).  Otherwise
-    ``toolbox.evaluate`` is vmapped over the rows."""
+    ``toolbox.evaluate`` runs on the whole genome when it advertises a
+    ``.batched`` form (:func:`~deap_tpu_torch.ops._dispatch.batched_op`:
+    the same function over a leading row axis, such as ``ackley``, whose
+    XLA-form transcendentals view float bits, which ``vmap`` cannot batch
+    on every torch release), else it is vmapped over the rows."""
     _no_quarantine(toolbox)
     invalid = ~population.fitness.valid
     genome = _widen_genome(_genome_storage(toolbox), population.genome)
@@ -166,6 +174,11 @@ def evaluate_population(toolbox, population: Population):
             values = tool(genome)
         if values.ndim == 1:
             values = values[:, None]
+    elif _batched_form(toolbox.evaluate) is not None:
+        out = _batched_form(toolbox.evaluate)(genome)
+        out = out if isinstance(out, (tuple, list)) else (out,)
+        values = torch.stack([torch.as_tensor(o).to(torch.float32)
+                              for o in out], dim=1)
     else:
         values = torch.func.vmap(_norm_eval(toolbox.evaluate))(genome)
     nevals = invalid.sum()
@@ -350,18 +363,28 @@ def _record(stats, population, nevals) -> dict:
 
 
 def _stack_records(records):
-    return {k: torch.stack([torch.as_tensor(r[k]) for r in records])
-            for k in records[0]}
+    """Per-generation records stacked key by key; a
+    :class:`~deap_tpu_torch.utils.support.MultiStatistics` chapter (a
+    nested dict) is stacked the same way."""
+    return {k: _stack_records([r[k] for r in records])
+            if isinstance(v, dict)
+            else torch.stack([torch.as_tensor(r[k]) for r in records])
+            for k, v in records[0].items()}
 
 
 def _scalar(v):
+    if isinstance(v, dict):
+        return {k: _scalar(x) for k, x in v.items()}
     return v.item() if isinstance(v, torch.Tensor) and v.ndim == 0 else v
 
 
 def _logbook(stats, rec0, records, ngen: int, verbose: bool) -> Logbook:
+    """Generation 0's record (none when ``rec0`` is ``None``, as in
+    :func:`ea_generate_update`), then generations 1..ngen."""
     logbook = Logbook()
     logbook.header = ["gen", "nevals"] + (stats.fields if stats else [])
-    logbook.record(gen=0, **{k: _scalar(v) for k, v in rec0.items()})
+    if rec0 is not None:
+        logbook.record(gen=0, **{k: _scalar(v) for k, v in rec0.items()})
     if ngen > 0:
         logbook.record_stacked(gen=torch.arange(1, ngen + 1),
                                **_stack_records(records))
@@ -370,10 +393,46 @@ def _logbook(stats, rec0, records, ngen: int, verbose: bool) -> Logbook:
     return logbook
 
 
-def _no_halloffame(halloffame):
+def _hof_state_compatible(state, population) -> bool:
+    """A carried archive continues only onto individuals of the same
+    genome structure, shapes and dtypes, the same objective count and
+    weights, on the same device."""
+    s_leaves, p_leaves = _leaves(state.genome), _leaves(population.genome)
+    if type(state.genome) is not type(population.genome) or \
+            len(s_leaves) != len(p_leaves):
+        return False
+    for s, p in zip(s_leaves, p_leaves):
+        if (s.shape[1:] != p.shape[1:] or s.dtype != p.dtype
+                or s.device != p.device):
+            return False
+    return (state.values.shape[1] == population.fitness.nobj
+            and state.weights == population.fitness.weights)
+
+
+def _hof_setup(halloffame, sample_population) -> None:
+    """Ready the archive for a loop.  An archive that already carries
+    state keeps it (the reference's hall of fame accumulates across
+    successive ``eaSimple`` calls); call ``halloffame.clear()`` for a
+    fresh one.  State shaped for another problem is discarded and
+    initialised anew.  The loops then call ``halloffame.update`` where
+    the JAX package updates its carried archive."""
+    if halloffame is None:
+        return
+    state = halloffame.state
+    if state is None or not _hof_state_compatible(state, sample_population):
+        halloffame.init_state(sample_population)
+
+
+def _start(key, population, toolbox, halloffame):
+    """The loops' common start: a key split, the initial evaluation, and
+    the archive readied and updated on the evaluated population."""
+    require_ported(resolve_engine(toolbox))
+    key, _ = random.split(key)
+    population, nevals0 = evaluate_population(toolbox, population)
+    _hof_setup(halloffame, population)
     if halloffame is not None:
-        raise NotImplementedError("HallOfFame is not ported to "
-                                  "deap_tpu_torch yet")
+        halloffame.update(population)
+    return key, population, nevals0
 
 
 def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
@@ -381,33 +440,32 @@ def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
               reevaluate_all: bool = False):
     """The simplest GA (reference eaSimple): per generation select, vary
     (:func:`var_and`) and evaluate — ``ngen`` calls of :func:`ea_step`,
-    each with ``reevaluate_all``.  Returns ``(population, logbook)``.
-    Records stay on the device until the run ends."""
-    require_ported(resolve_engine(toolbox))
-    _no_halloffame(halloffame)
-    key, _ = random.split(key)
-    population, nevals0 = evaluate_population(toolbox, population)
+    each with ``reevaluate_all`` — then update the hall of fame with the
+    offspring.  Returns ``(population, logbook)``.  Records stay on the
+    device until the run ends."""
+    key, population, nevals0 = _start(key, population, toolbox, halloffame)
     rec0 = _record(stats, population, nevals0)
     records = []
     for _ in range(ngen):
         key, population, nevals = ea_step(key, population, toolbox, cxpb,
                                           mutpb, reevaluate_all=reevaluate_all)
+        if halloffame is not None:
+            halloffame.update(population)
         records.append(_record(stats, population, nevals))
     return population, _logbook(stats, rec0, records, ngen, verbose)
 
 
 def _ea_mu_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb, ngen,
                   stats, halloffame, verbose, plus: bool):
-    require_ported(resolve_engine(toolbox))
-    _no_halloffame(halloffame)
-    key, _ = random.split(key)
-    population, nevals0 = evaluate_population(toolbox, population)
+    key, population, nevals0 = _start(key, population, toolbox, halloffame)
     rec0 = _record(stats, population, nevals0)
     records = []
     for _ in range(ngen):
         key, k_var, k_sel = random.split(key, 3)
         off = var_or(k_var, population, toolbox, lambda_, cxpb, mutpb)
         off, nevals = evaluate_population(toolbox, off)
+        if halloffame is not None:
+            halloffame.update(off)
         pool = population.concat(off) if plus else off
         population = pool.take(toolbox.select(k_sel, pool.fitness, mu))
         records.append(_record(stats, population, nevals))
@@ -432,8 +490,41 @@ def ea_mu_comma_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb,
                          ngen, stats, halloffame, verbose, plus=False)
 
 
+def ea_generate_update(key, toolbox, state, ngen: int, weights=(-1.0,),
+                       stats=None, halloffame=None, verbose=False):
+    """Ask-tell loop (reference eaGenerateUpdate):
+    ``toolbox.generate(state, key)`` gives a genome batch, evaluated, then
+    ``toolbox.update(state, population)`` gives the next state — the
+    functional form of the reference's strategy objects (CMA-ES).
+
+    The key discipline is the JAX package's: the population's shape comes
+    from ``generate(state, fold_in(key, 0))``, then each generation takes
+    ``key, k_gen = split(key)``.  There is no initial evaluation, and the
+    logbook holds generations 1..ngen.  Returns ``(population, state,
+    logbook)``; with ``ngen`` 0 the population is the unevaluated shape
+    sample."""
+    weights = tuple(weights)
+    sample = toolbox.generate(state, random.fold_in(key, 0))
+    first = _leaves(sample)[0]
+    n, dev = first.shape[0], first.device
+    pop = Population(sample, Fitness.empty(n, weights, device=dev))
+    _hof_setup(halloffame, pop)
+    records = []
+    for _ in range(ngen):
+        key, k_gen = random.split(key)
+        genome = toolbox.generate(state, k_gen)
+        pop = Population(genome, Fitness.empty(n, weights, device=dev))
+        pop, nevals = evaluate_population(toolbox, pop)
+        state = toolbox.update(state, pop)
+        if halloffame is not None:
+            halloffame.update(pop)
+        records.append(_record(stats, pop, nevals))
+    return pop, state, _logbook(stats, None, records, ngen, verbose)
+
+
 varAnd = var_and
 varOr = var_or
 eaSimple = ea_simple
 eaMuPlusLambda = ea_mu_plus_lambda
 eaMuCommaLambda = ea_mu_comma_lambda
+eaGenerateUpdate = ea_generate_update

@@ -7,16 +7,36 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from .._xla_math import sqrt
+from .._xla_math import cos, exp, fma, row_mean, sqrt
+from ..ops._dispatch import batched_op
 
-__all__ = ["sphere", "rastrigin", "zdt1", "dtlz2"]
+__all__ = ["sphere", "ackley", "rastrigin", "zdt1", "dtlz2"]
 
 
 def sphere(individual):
     """Sphere: sum x_i^2."""
     return torch.sum(individual * individual),
+
+
+def ackley(individual):
+    """Ackley: ``20 - 20 exp(-0.2 sqrt(mean x²)) + e - exp(mean cos 2πx)``
+    in the form XLA compiles it: ``exp``, ``cos``, ``sqrt`` and the two
+    means are its float32 forms (:mod:`deap_tpu_torch._xla_math`), the
+    constants ``20 + e`` fold into one float32, and the product with 20
+    is fused into the subtraction from it.  Written over a leading row
+    axis too, and registered as its own batched form, so the loops call
+    it once on the population (``vmap`` cannot batch the float-bit views
+    of those forms on every torch release)."""
+    a = exp(-0.2 * sqrt(row_mean(individual ** 2)))
+    b = exp(row_mean(cos((2.0 * math.pi) * individual)))
+    return fma(a, -20.0, _ACKLEY_20_E) - b,
+
+
+_ACKLEY_20_E = float(np.float32(20.0) + np.float32(math.e))
+batched_op(ackley, ackley)
 
 
 def rastrigin(individual):

@@ -5,8 +5,11 @@ a raw ``uint32[2]`` key, a genome in any storage dtype (bfloat16 as its
 ``uint16`` bit pattern, or as an ``ml_dtypes.bfloat16`` array, which is
 what ``np.asarray`` of a JAX bfloat16 array gives) or a tuple of such
 arrays (a GP genome: codes, consts, lengths), fitness
-``values``/``valid``/``weights``, and a genome storage declaration given
-by its ``dtype`` and ``bound`` fields.
+``values``/``valid``/``weights``, a genome storage declaration given
+by its ``dtype`` and ``bound`` fields, and the state of a CMA strategy
+or an archive, read field by field from any object that has the JAX
+package's field names (``CMAState``, ``OnePlusLambdaState``,
+``_ArchiveState``).
 
 Like every entry point that creates tensors, the ``*_to_torch``
 functions default to ``device="cuda"`` and raise
@@ -16,16 +19,21 @@ functions default to ``device="cuda"`` and raise
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ._device import resolve_device
 from .base import Fitness, Population
+from .cma import CMAState, OnePlusLambdaState
 from .ops.generation import GenomeStorage
+from .utils.support import _ArchiveState
 
 __all__ = ["key_to_torch", "key_to_numpy", "genome_to_torch",
            "genome_to_numpy", "population_to_torch", "population_to_numpy",
-           "storage_to_torch"]
+           "storage_to_torch", "cma_state_to_torch",
+           "one_plus_lambda_state_to_torch", "archive_state_to_torch"]
 
 
 def key_to_torch(key, device=None) -> torch.Tensor:
@@ -88,3 +96,32 @@ def storage_to_torch(storage) -> GenomeStorage:
     """Any object with ``dtype`` and ``bound`` (the JAX package's
     ``GenomeStorage``) → the port's :class:`GenomeStorage`."""
     return GenomeStorage(str(storage.dtype), float(storage.bound))
+
+
+def _fields_to_torch(cls, state, device):
+    device = resolve_device(device)
+    return cls(**{f.name: torch.from_numpy(
+        np.array(getattr(state, f.name), copy=True)).to(device)
+        for f in dataclasses.fields(cls)})
+
+
+def cma_state_to_torch(state, device=None) -> CMAState:
+    """The JAX package's ``CMAState`` (any object with its fields) → the
+    port's :class:`~deap_tpu_torch.cma.CMAState`."""
+    return _fields_to_torch(CMAState, state, device)
+
+
+def one_plus_lambda_state_to_torch(state, device=None) -> OnePlusLambdaState:
+    """The JAX package's ``OnePlusLambdaState`` → the port's."""
+    return _fields_to_torch(OnePlusLambdaState, state, device)
+
+
+def archive_state_to_torch(state, device=None) -> _ArchiveState:
+    """The JAX package's archive state (``genome``, ``values``,
+    ``filled``, ``weights``) → the port's."""
+    device = resolve_device(device)
+    return _ArchiveState(
+        genome=genome_to_torch(state.genome, device),
+        values=torch.tensor(np.asarray(state.values), device=device),
+        filled=torch.tensor(np.asarray(state.filled, bool), device=device),
+        weights=tuple(float(w) for w in state.weights))

@@ -1,5 +1,5 @@
 """Mutation operators — the PyTorch counterparts of
-``deap_tpu/ops/mutation.py``.  Both operators are shape-polymorphic:
+``deap_tpu/ops/mutation.py``.  Every operator is shape-polymorphic:
 called on a ``(pop, size)`` batch with one key each is its own batched
 form."""
 
@@ -13,7 +13,7 @@ from .._xla_math import fma, pow as xla_pow
 from ._dispatch import batched_op
 from .crossover import _bounds, _clip
 
-__all__ = ["mut_gaussian", "mut_polynomial_bounded"]
+__all__ = ["mut_gaussian", "mut_polynomial_bounded", "mut_flip_bit"]
 
 
 def mut_gaussian(key, ind, mu, sigma, indpb):
@@ -90,3 +90,16 @@ def mut_polynomial_bounded(key, ind, eta, low, up, indpb):
 
 
 batched_op(mut_polynomial_bounded, mut_polynomial_bounded)
+
+
+def mut_flip_bit(key, ind, indpb):
+    """Flip each bit with probability ``indpb``: ``1 - ind`` where the
+    draw hits.  A bool genome comes back as int32, as jax's promotion of
+    ``1 - bool`` makes it."""
+    mask = random.bernoulli(key, indpb, ind.shape)
+    if ind.dtype == torch.bool:
+        ind = ind.to(torch.int32)
+    return torch.where(mask, 1 - ind, ind)
+
+
+batched_op(mut_flip_bit, mut_flip_bit)

@@ -42,7 +42,8 @@ def test_port_sources_exist():
                 "deap_tpu_torch/benchmarks/tools.py", "chip_smoke.py",
                 "deap_tpu_torch/probes/__init__.py",
                 "deap_tpu_torch/probes/ga.py", "deap_tpu_torch/probes/gp.py",
-                "deap_tpu_torch/kernels/peaks.py"):
+                "deap_tpu_torch/kernels/peaks.py", "deap_tpu_torch/cma.py",
+                "deap_tpu_torch/ops/indicator.py"):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
                "hypervolume.cu", "probes.cu", "device_math.cuh"):
