@@ -118,9 +118,9 @@
 19. probe tool — ``python -m deap_tpu_torch.probes.ga`` in process at
              2^20 x 100, every probe, ``--recommend``, ``--json
              chip_smoke_out/probe_ga.json``: P1-P4 launched on it, every
-             record a finite time above zero, ``errors`` exactly the
-             ``rbg`` leg of ``varveval``; the linearity witnesses and the
-             recommended gather;
+             record a finite time above zero, ``varveval`` under both key
+             implementations (``torch_varveval_rbg`` too) and no error;
+             the linearity witnesses and the recommended gather;
 20. P5      — ``probe_gp`` against its plain version on the GP tool's
              4096 full binary trees (capacity 64) at 1024 points: every
              mode, tb 8 and 32, unroll 1 and 63; then in every form on
@@ -163,7 +163,38 @@
              individuals on every generation's candidates.  No kernel
              of the port runs on phases 22-25 (their launch counts are
              printed, zero);
-26. the ``kernels`` line, the card's name and power limit, and the result
+26. rbg     — the ``rbg`` key implementation (``PRNGKey(0,
+             impl="rbg")``, the default of ``bench.py``, ``bench_onemax.py``,
+             ``bench_cma.py`` and ``bench_evopole.py``): ``bits`` of three
+             raw keys equal to the words jax gives; ``split``,
+             ``fold_in``, ``bits``, ``uniform``, ``normal`` (float32 and
+             bfloat16), ``bernoulli`` and ``randint`` at 2^20 draws, from
+             one key and from a (4096, 4) key batch, card equal to CPU bit
+             for bit; the ms of 1e6 uniforms under rbg and threefry;
+27. flagship under rbg — phase 5's ``ea_simple`` (megakernel engine,
+             rastrigin, 1e6 x 100 float32) from an rbg key: N = 10 and 2N
+             generations, three pairs, K2 once a generation, the best
+             fitness must fall; three generations at 10240 x 100
+             teacher-forced card against CPU (offspring bitwise, fitness
+             within rtol 1e-5); the live-mask ``ea_step`` with K1's
+             launches counted;
+28. OneMax and CMA-ES under rbg — phases 22 and 23 (sphere) from
+             ``PRNGKey(0, impl="rbg")``;
+29. evopole — BASELINE config 5 at ``bench_evopole.py``'s defaults
+             (pop 256, 4 episodes of at most 500 CartPole steps, an MLP
+             policy 4 -> tanh 16 -> 2 as a dict genome, blend crossover
+             and Gaussian weight mutation, ``sel_tournament(3)``, cxpb 0.5,
+             mutpb 0.8, rbg keys) through ``ea_simple`` with
+             ``HallOfFame(1)``: three generations on the card and on the
+             CPU, genomes, fitness, logbook and archive bit for bit; the
+             marginal ms a generation (5 / 10, three pairs); one
+             generation with the masked rollout (same fitness); 50 rollout
+             steps under the profiler (kernel launches a step, device idle
+             share); the maximum fitness must rise over 20 generations
+             (from this key it starts at its ceiling, 500: then it must
+             stay there and the average rise); no kernel of the port
+             runs (launch counts printed, zero);
+30. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12 and 15, a
@@ -239,8 +270,13 @@ def bound_ms(n_bytes: float, ints: float = 0, flts: float = 0,
     return least(n_bytes, ints, flts, dbls)
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str, card_line: str, **fields) -> None:
-    print(json.dumps({"phase": name, "card": card_line, **fields}),
+    """One phase's JSON line, with the seconds since the script began."""
+    print(json.dumps({"phase": name, "card": card_line, **fields,
+                      "elapsed_s": time.perf_counter() - _START}),
           flush=True)
 
 
@@ -1942,8 +1978,8 @@ def lookup_edges_phase(card_line, dev) -> None:
 def probe_ga_tool_phase(kernels, card_line) -> dict:
     """The GA probe tool's own path at 2^20 x 100: every probe,
     ``--recommend``, ``--json chip_smoke_out/probe_ga.json``; P1-P4 must run
-    on it and every record must carry a finite time above zero; the only
-    error is the ``rbg`` leg of ``varveval``."""
+    on it, every record must carry a finite time above zero, ``varveval``
+    must record both key implementations and nothing may err."""
     import math
     from deap_tpu_torch.probes import ga as PGA
     out_dir = os.path.join(ROOT, "chip_smoke_out")
@@ -1958,6 +1994,7 @@ def probe_ga_tool_phase(kernels, card_line) -> dict:
            if not (isinstance(r["ms"], float) and math.isfinite(r["ms"])
                    and r["ms"] > 0)]
     errors = res["errors"]
+    recorded = [r["probe"] for r in res["probes"]]
     phase("probe tool: deap_tpu_torch.probes.ga", card_line,
           pop=res["pop"], dim=res["dim"], k_iters=res["k_iters"],
           ms={r["probe"]: r["ms"] for r in res["probes"]},
@@ -1967,9 +2004,11 @@ def probe_ga_tool_phase(kernels, card_line) -> dict:
           launches={k: v for k, v in launches.items() if v})
     if bad:
         fail(f"probe records without a finite positive time: {bad}")
-    if len(errors) != 1 or errors[0]["probe"] != "varveval" \
-            or "rbg" not in errors[0]["error"]:
-        fail(f"GA probe errors are not exactly varveval's rbg leg: {errors}")
+    if errors:
+        fail(f"the GA probe tool reported errors: {errors}")
+    for name in ("torch_varveval_threefry2x32", "torch_varveval_rbg"):
+        if name not in recorded:
+            fail(f"the GA probe tool did not record {name}")
     for name in ("probe_stream_copy", "probe_chain24", "probe_rast_reduce",
                  "probe_hash_normal", "probe_lookup", "probe_row_gather"):
         if not launches[name]:
@@ -2083,15 +2122,15 @@ def onemax_toolbox():
     return tb
 
 
-def onemax_run(dev, ngen: int):
+def onemax_run(dev, ngen: int, impl: str = "threefry2x32"):
     """``ea_simple`` at BASELINE config 1 with ``HallOfFame(1)`` and
-    max / avg statistics from ``PRNGKey(0)`` on ``dev``."""
+    max / avg statistics from ``PRNGKey(0)`` of ``impl`` on ``dev``."""
     import torch
     from deap_tpu_torch import base, random
     from deap_tpu_torch._xla_math import row_mean
     from deap_tpu_torch.algorithms import ea_simple
     from deap_tpu_torch.utils.support import HallOfFame, Statistics
-    key = random.PRNGKey(0, device=dev)
+    key = random.PRNGKey(0, impl=impl, device=dev)
     genome = random.bernoulli(key, 0.5, (OM_POP, OM_BITS)).float()
     stats = Statistics(lambda p: p.fitness.values[:, 0])
     stats.register("max", torch.max)
@@ -2104,15 +2143,15 @@ def onemax_run(dev, ngen: int):
     return pop, log, hof
 
 
-def onemax_phase(card_line) -> None:
+def onemax_phase(card_line, impl: str = "threefry2x32") -> None:
     import torch
     from deap_tpu_torch import kernels
     dev = torch.device("cuda")
     kernels.reset_launches()
-    pop, log, hof = onemax_run(dev, OM_NGEN)
+    pop, log, hof = onemax_run(dev, OM_NGEN, impl)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    cpop, clog, chof = onemax_run(torch.device("cpu"), OM_NGEN)
+    cpop, clog, chof = onemax_run(torch.device("cpu"), OM_NGEN, impl)
     same = {
         "genome": torch.equal(pop.genome.cpu(), cpop.genome),
         "values": torch.equal(pop.fitness.values.cpu(), cpop.fitness.values),
@@ -2130,13 +2169,14 @@ def onemax_phase(card_line) -> None:
     def run(ngen):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        onemax_run(dev, ngen)
+        onemax_run(dev, ngen, impl)
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
     run(2)
     per_gen, marginals, pairs = _timed_pairs(run, OM_TIMING_NGEN, OM_PAIRS)
-    phase("OneMax ea_simple + HallOfFame(1) (BASELINE config 1)", card_line,
+    phase(f"OneMax ea_simple + HallOfFame(1) (BASELINE config 1), {impl}",
+          card_line, key_impl=impl,
           pop=OM_POP, bits=OM_BITS, ngen=OM_NGEN, card_equals_cpu=same,
           max_start=best[0], max_end=best[-1], gen_max_reaches_100=reached,
           hof_best=float(hof.state.values[0, 0]),
@@ -2196,9 +2236,10 @@ def eigh_on_card(C) -> dict:
             "wall_ms": _wall_ms(lambda: torch.linalg.eigh(C), reps=20)}
 
 
-def cma_phase(card_line, fn: str) -> None:
-    """BASELINE config 3 on ``fn``: a teacher-forced step card vs CPU,
-    the marginal ms of ``ea_generate_update`` and ``eigh``'s share."""
+def cma_phase(card_line, fn: str, impl: str = "threefry2x32") -> None:
+    """BASELINE config 3 on ``fn`` from ``PRNGKey(0)`` of ``impl``: a
+    teacher-forced step card vs CPU, the marginal ms of
+    ``ea_generate_update`` and ``eigh``'s share."""
     import torch
     from deap_tpu_torch import base, cma, kernels, random
     from deap_tpu_torch.algorithms import ea_generate_update, \
@@ -2213,7 +2254,7 @@ def cma_phase(card_line, fn: str) -> None:
     sc = cma.Strategy(centroid=[5.0] * CMA_DIM, sigma=5.0,
                       lambda_=CMA_LAMBDA, device=cpu)
     tb = cma_toolbox(s, fn)
-    key = random.PRNGKey(0, device=dev)
+    key = random.PRNGKey(0, impl=impl, device=dev)
     stats = Statistics(lambda p: p.fitness.values[:, 0])
     stats.register("min", torch.min)
     kernels.reset_launches()
@@ -2257,8 +2298,8 @@ def cma_phase(card_line, fn: str) -> None:
     prof = _profile_window(lambda: run(CMA_TIMING_NGEN), CMA_TIMING_NGEN)
     best = log.select("min")
     fit = pop.fitness.values
-    phase(f"CMA-ES ea_generate_update {fn} (BASELINE config 3)", card_line,
-          dim=CMA_DIM, lambda_=CMA_LAMBDA, warm_gens=CMA_WARM,
+    phase(f"CMA-ES ea_generate_update {fn} (BASELINE config 3), {impl}",
+          card_line, key_impl=impl, dim=CMA_DIM, lambda_=CMA_LAMBDA, warm_gens=CMA_WARM,
           teacher_forced_rel_err=errs, rtol=CMA_RTOL, b_atol=CMA_B_ATOL,
           hsig_margin=margin, b_columns_flipped=flipped,
           eigh=eig, tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -2376,6 +2417,340 @@ def mo_cma_phase(card_line) -> None:
     if not hv > MO_HV_THRESHOLD or not feasible:
         fail(f"MO-CMA-ES hypervolume {hv} <= {MO_HV_THRESHOLD} or "
              "parents outside [0, 1]")
+
+
+# ---------------------------------------------------------------------------
+# the rbg key implementation, and the paths that default to it
+# ---------------------------------------------------------------------------
+
+RBG_DRAWS = 1 << 20
+RBG_BATCH = 4096                   # keys of an (n, 4) batch
+RBG_TIME_DRAWS = 10 ** 6
+# jax.random.bits(key, (n,)) of raw rbg keys on jax 0.9.0's CPU backend
+RBG_GOLDEN = (
+    ((0, 0, 0, 0), (1713891541, 3781805453, 3159862348, 2600524760)),
+    ((1, 2, 3, 4), (512747620, 1298009047, 1267190206)),
+    ((0xDEADBEEF, 0x12345678, 0xFFFFFFFF, 0xFFFFFFFE),
+     (65559129, 1930409553, 648285888)))
+RBG_NGEN, RBG_PAIRS = 10, 3
+RBG_REF_POP, RBG_REF_GENS = 10_240, 3      # a multiple of the rows a tile
+# evopole: bench_evopole.py's defaults (examples/ga/evopole.py's constants)
+EVO_REF_GENS = 3
+EVO_TIMING_NGEN, EVO_PAIRS = 5, 3
+EVO_RISE_GENS = 20
+EVO_PROFILE_STEPS = 50
+
+
+def _bits_of(t):
+    """A tensor's bit pattern on the host, for bitwise comparisons."""
+    import torch
+    t = t.detach().cpu()
+    if t.dtype in (torch.float32, torch.int32):
+        return t.view(torch.int32)
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.view(torch.int16)
+    return t
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    a, b = _bits_of(a), _bits_of(b)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def rbg_phase(card_line) -> dict:
+    """The rbg key implementation on the card: the golden words, and every
+    key function and sampler at 2^20 draws, from one key and from an
+    ``(n, 4)`` batch, against the CPU's bit for bit; the ms of 1e6
+    uniforms under rbg and threefry."""
+    import torch
+    from deap_tpu_torch import random
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    golden = {str(list(w)): random.bits(torch.tensor(w, dtype=torch.int64,
+                                                     device=dev),
+                                        (len(want),)).tolist() == list(want)
+              for w, want in RBG_GOLDEN}
+    key = random.PRNGKey(0, impl="rbg", device=dev)
+    batch = random.split(random.fold_in(key, 1), RBG_BATCH)
+    per_key = RBG_DRAWS // RBG_BATCH
+    funcs = {
+        "split": lambda k, n: random.split(k, 3),
+        "fold_in": lambda k, n: random.fold_in(k, 7),
+        "bits": lambda k, n: random.bits(k, (n,)),
+        "uniform": lambda k, n: random.uniform(k, (n,), minval=-5.12,
+                                               maxval=5.12),
+        "normal": lambda k, n: random.normal(k, (n,)),
+        "normal_bfloat16": lambda k, n: random.normal(k, (n,),
+                                                      torch.bfloat16),
+        "bernoulli": lambda k, n: random.bernoulli(k, 0.3, (n,)),
+        "randint": lambda k, n: random.randint(k, (n,), -50, 1_000_003),
+    }
+    equal = {}
+    for name, f in funcs.items():
+        for label, k, n in (("key", key, RBG_DRAWS),
+                            ("batch", batch, per_key)):
+            equal[f"{name} {label}"] = _same_bits(f(k, n), f(k.to(cpu), n))
+    ms = {impl: cuda_ms(lambda impl=impl: random.uniform(
+              random.PRNGKey(3, impl=impl, device=dev), (RBG_TIME_DRAWS,)))
+          for impl in ("rbg", "threefry2x32")}
+    phase("rbg: keys and samplers card vs CPU, golden words", card_line,
+          draws=RBG_DRAWS, batch=[RBG_BATCH, 4], golden=golden,
+          card_equals_cpu=equal,
+          uniform_ms_1e6={"rbg": ms["rbg"], "threefry2x32":
+                          ms["threefry2x32"]})
+    if not all(golden.values()):
+        fail(f"rbg bits differ from jax's golden words: {golden}")
+    bad = [k for k, v in equal.items() if not v]
+    if bad:
+        fail(f"rbg on the card differs from the CPU: {bad}")
+    return ms
+
+
+def flagship_rbg_phase(kernels, card_line) -> dict:
+    """The flagship under rbg keys (``bench.py``'s default): ``ea_simple``
+    with the megakernel engine on rastrigin at 1e6 x 100 float32 from
+    ``PRNGKey(0, impl="rbg")``, N and 2N generations, three pairs; K2
+    once a generation; the best fitness must fall.  Then three
+    generations at 10240 x 100, teacher-forced card against CPU (offspring
+    bitwise, fitness within rtol 1e-5: rastrigin's sum runs in each
+    device's order), and the live-mask ``ea_step`` with K1 counted."""
+    import torch
+    from deap_tpu_torch import base, benchmarks, random
+    from deap_tpu_torch.algorithms import ea_simple, ea_step
+    from deap_tpu_torch.ops import crossover, mutation, selection
+    from deap_tpu_torch.utils.support import Statistics
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    tb = base.Toolbox()
+    tb.register("evaluate", benchmarks.rastrigin)
+    tb.register("mate", crossover.cx_two_point)
+    tb.register("mutate", mutation.mut_gaussian, mu=MU, sigma=SIGMA,
+                indpb=INDPB)
+    tb.register("select", selection.sel_tournament, tournsize=3,
+                tie_break="rank")
+    tb.generation_engine = "megakernel"
+    stats = Statistics(lambda p: p.fitness.values[:, 0])
+    stats.register("min", torch.min)
+    key = random.PRNGKey(0, impl="rbg", device=dev)
+    k_init, k_run, k_ref, k_live = random.split(key, 4)
+    genome = random.uniform(k_init, (POP, DIM), minval=-5.12, maxval=5.12)
+
+    def run(ngen):
+        pop0 = base.Population(genome.clone(), base.Fitness.empty(
+            POP, (-1.0,), device=dev))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pop, log = ea_simple(k_run, pop0, tb, CXPB, MUTPB, ngen, stats=stats)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, pop, log
+
+    run(2)
+    kernels.reset_launches()
+    _, pop, log = run(RBG_NGEN)
+    launches = dict(kernels.LAUNCHES)
+    per_gen, marginals, pairs = _timed_pairs(lambda n: run(n)[0], RBG_NGEN,
+                                             RBG_PAIRS)
+    best = log.select("min")
+
+    # teacher-forced generations at 1e4 x 100, card against CPU
+    small = base.Population(genome[:RBG_REF_POP].clone(), base.Fitness.empty(
+        RBG_REF_POP, (-1.0,), device=dev))
+    from deap_tpu_torch.algorithms import evaluate_population
+    small, _ = evaluate_population(tb, small)
+    k, ref = k_ref, []
+    for _ in range(RBG_REF_GENS):
+        host = base.Population(small.genome.cpu(), base.Fitness(
+            small.fitness.values.cpu(), small.fitness.valid.cpu(), (-1.0,)))
+        k_next, nxt, _ = ea_step(k, small, tb, CXPB, MUTPB)
+        _, nxt_cpu, _ = ea_step(k.cpu(), host, tb, CXPB, MUTPB)
+        ref.append({"genome": _same_bits(nxt.genome, nxt_cpu.genome),
+                    "fitness_rel_err": _rel(nxt.fitness.values,
+                                            nxt_cpu.fitness.values)})
+        k, small = k_next, nxt
+
+    live = torch.arange(POP, device=dev) < POP - 4096
+    kernels.reset_launches()
+    skey, spop = k_live, pop
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(LIVE_GENS):
+        skey, spop, _ = ea_step(skey, spop, tb, CXPB, MUTPB, live=live)
+    torch.cuda.synchronize()
+    t_live = time.perf_counter() - t
+    launches_live = dict(kernels.LAUNCHES)
+    frozen = torch.equal(spop.genome[~live], pop.genome[~live])
+    phase("flagship under rbg: ea_simple megakernel rastrigin", card_line,
+          key_impl="rbg", pop=POP, dim=DIM, ngen=[RBG_NGEN, 2 * RBG_NGEN],
+          seconds=[list(p) for p in pairs],
+          marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
+          best_start=best[0], best_end=best[-1], launches=launches,
+          teacher_forced_card_vs_cpu=ref, reference_pop=RBG_REF_POP,
+          live_gens=LIVE_GENS, live_ms_per_gen=t_live / LIVE_GENS * 1e3,
+          launches_live=launches_live, pad_rows_frozen=frozen)
+    if launches["megakernel_gather_vary"] != RBG_NGEN:
+        fail(f"K2 ran {launches['megakernel_gather_vary']} times in "
+             f"{RBG_NGEN} generations under rbg keys")
+    if not best[-1] < best[0]:
+        fail(f"rbg flagship: best fitness did not fall: {best}")
+    if not all(r["genome"] and r["fitness_rel_err"] <= 1e-5 for r in ref):
+        fail(f"rbg flagship: card and CPU generations differ: {ref}")
+    if launches_live["megakernel_vary"] != LIVE_GENS or not frozen:
+        fail(f"rbg live-mask step: K1 ran "
+             f"{launches_live['megakernel_vary']} times, pads frozen "
+             f"{frozen}")
+    return {"K2": launches["megakernel_gather_vary"],
+            "K1": launches_live["megakernel_vary"]}
+
+
+def evopole_setup(dev, masked: bool = False):
+    """``bench_evopole.py``'s set-up on ``dev``: ``PRNGKey(0)`` under rbg
+    split into the loop key, the initial population's and the episodes';
+    blend crossover, Gaussian weight mutation, ``sel_tournament(3)``."""
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.examples.ga import evopole as EV
+    from deap_tpu_torch.ops import selection
+    key = random.PRNGKey(0, impl="rbg", device=dev)
+    key, k_init, k_eps = random.split(key, 3)
+    tb = base.Toolbox()
+    tb.register("evaluate", EV.make_evaluate(
+        random.split(k_eps, EV.N_EPISODES), masked=masked))
+    tb.register("mate", EV.mate_blend)
+    tb.register("mutate", EV.mut_gaussian_tree)
+    tb.register("select", selection.sel_tournament, tournsize=3)
+    pop = base.Population(EV.init_population(k_init, EV.POP),
+                          base.Fitness.empty(EV.POP, (1.0,), device=dev))
+    return key, pop, tb
+
+
+def evopole_run(dev, ngen: int):
+    """``ea_simple`` at BASELINE config 5 with max / avg statistics and
+    ``HallOfFame(1)``, as the example's ``main`` runs it."""
+    import torch
+    from deap_tpu_torch._xla_math import row_mean
+    from deap_tpu_torch.algorithms import ea_simple
+    from deap_tpu_torch.examples.ga import evopole as EV
+    from deap_tpu_torch.utils.support import HallOfFame, Statistics
+    key, pop, tb = evopole_setup(dev)
+    stats = Statistics(lambda p: p.fitness.values[:, 0])
+    stats.register("max", torch.max)
+    stats.register("avg", row_mean)
+    hof = HallOfFame(1)
+    pop, log = ea_simple(key, pop, tb, EV.CXPB, EV.MUTPB, ngen, stats=stats,
+                         halloffame=hof)
+    return pop, log, hof
+
+
+def evopole_phase(kernels, card_line) -> dict:
+    """BASELINE config 5 at ``bench_evopole.py``'s defaults (pop 256, 4
+    episodes of at most 500 steps, hidden 16, rbg keys): three
+    generations card against CPU, bitwise; the marginal ms a generation
+    (N and 2N, three pairs); one generation of the masked rollout; the
+    device's share of a window of rollout steps under the profiler; the
+    maximum fitness must rise over 20 generations (or, where it starts
+    at its ceiling of 500, stay there while the average rises).  No
+    kernel of the port is on this path: its launch counts must stay
+    zero."""
+    import torch
+    from deap_tpu_torch.algorithms import ea_step, evaluate_population
+    from deap_tpu_torch.examples.ga import evopole as EV
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    kernels.reset_launches()
+    pop, log, hof = evopole_run(dev, EVO_REF_GENS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cpop, clog, chof = evopole_run(cpu, EVO_REF_GENS)
+    cpu_s = time.perf_counter() - t
+    names = sorted(pop.genome)
+    same = {
+        "genome": all(_same_bits(pop.genome[k], cpop.genome[k])
+                      for k in names),
+        "values": _same_bits(pop.fitness.values, cpop.fitness.values),
+        "logbook": all(log.select(c) == clog.select(c)
+                       for c in ("gen", "nevals", "max", "avg")),
+        "archive": (all(_same_bits(hof.state.genome[k],
+                                   chof.state.genome[k]) for k in names)
+                    and _same_bits(hof.state.values, chof.state.values))}
+
+    def run(ngen):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        evopole_run(dev, ngen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    per_gen, marginals, pairs = _timed_pairs(run, EVO_TIMING_NGEN, EVO_PAIRS)
+
+    # one generation with the masked rollout, from the same state as the
+    # fixed-length one: the same fitness, in fewer steps
+    key, pop0, tb = evopole_setup(dev)
+    pop0, _ = evaluate_population(tb, pop0)
+    _, _, tbm = evopole_setup(dev, masked=True)
+
+    def one_gen(toolbox):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = ea_step(key, pop0, toolbox, EV.CXPB, EV.MUTPB)[1]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    ms_fixed, out_fixed = one_gen(tb)
+    ms_masked, out_masked = one_gen(tbm)
+    masked_same = _same_bits(out_fixed.fitness.values,
+                             out_masked.fitness.values)
+
+    # the rollout's body, as ``rollout_population`` runs it (deferred
+    # rounding, the small-argument sine and cosine), under the profiler:
+    # kernel launches a step and the device's busy share of the wall clock
+    from deap_tpu_torch._xla_math import deferred_rounding, sincos_small
+    state = torch.zeros((EV.POP, EV.N_EPISODES, 4), device=dev)
+    g = {k: v.unsqueeze(1).double() if k[0] == "w" else v.unsqueeze(1)
+         for k, v in pop0.genome.items()}
+
+    def steps():
+        s = state
+        with deferred_rounding() as rounding:
+            for _ in range(EVO_PROFILE_STEPS):
+                s = EV._env_step(s, EV.policy_action(g, s), sincos_small)
+                rounding.check()
+
+    steps()
+    prof = _profile_window(steps, EVO_PROFILE_STEPS)
+
+    _, rlog, _ = evopole_run(dev, EVO_RISE_GENS)
+    launches = dict(kernels.LAUNCHES)
+    best, avg = rlog.select("max"), rlog.select("avg")
+    phase("evopole ea_simple + HallOfFame(1) (BASELINE config 5), rbg",
+          card_line, key_impl="rbg", pop=EV.POP, episodes=EV.N_EPISODES,
+          max_steps=EV.MAX_STEPS, hidden=EV.HIDDEN,
+          ref_gens=EVO_REF_GENS, card_equals_cpu=same,
+          cpu_seconds_ref_gens=cpu_s,
+          timing_ngen=[EVO_TIMING_NGEN, 2 * EVO_TIMING_NGEN],
+          seconds=[list(p) for p in pairs],
+          marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
+          env_steps_per_s=EV.POP * EV.N_EPISODES * EV.MAX_STEPS / per_gen,
+          masked_generation_ms=ms_masked * 1e3,
+          fixed_generation_ms=ms_fixed * 1e3,
+          masked_equals_fixed=masked_same,
+          rollout_step_profile=prof,
+          kernel_launches_per_gen_rollout=(
+              prof["kernel_launches"] * EV.MAX_STEPS),
+          max_by_gen=best, avg_by_gen=avg, port_kernel_launches=launches)
+    if not all(same.values()):
+        fail(f"evopole card vs CPU differ: {same}")
+    if not masked_same:
+        fail("evopole: the masked rollout's fitness differs")
+    # from bench_evopole.py's key the initial population already holds a
+    # policy that balances all four episodes: a maximum at its ceiling
+    # cannot rise, and then the average must
+    if not (best[-1] > best[0] or (best[0] == EV.MAX_STEPS
+                                   and min(best) == EV.MAX_STEPS
+                                   and avg[-1] > avg[0])):
+        fail(f"evopole: the maximum fitness did not rise (max {best}, "
+             f"avg {avg})")
+    if any(launches.values()):
+        fail(f"a port kernel ran on the evopole path: {launches}")
+    return {"marginal_ms_per_gen": per_gen * 1e3}
 
 
 def main() -> int:
@@ -2661,7 +3036,21 @@ def main() -> int:
     p5, p5_edge_err = probe_gp_phase(card_line, k_pr5)
     launches_pgp, gp_probes = probe_gp_tool_phase(kernels, card_line)
 
-    # ---- 22. the kernels line and the result -------------------------------
+    # ---- 22.-25. OneMax and CMA-ES: no kernel on their paths ---------------
+    onemax_phase(card_line)
+    cma_phase(card_line, "sphere")
+    cma_phase(card_line, "ackley")
+    cma_anchor_phase(card_line)
+    mo_cma_phase(card_line)
+
+    # ---- 26.-29. rbg keys: the samplers, the flagship, evopole ------------
+    rbg_phase(card_line)
+    launches_rbg = flagship_rbg_phase(kernels, card_line)
+    onemax_phase(card_line, "rbg")
+    cma_phase(card_line, "sphere", "rbg")
+    evopole_phase(kernels, card_line)
+
+    # ---- 30. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -2685,7 +3074,12 @@ def main() -> int:
             "library_ms": None})
     rows[0]["launches_by_path"] = {
         "ea_step live-mask": launches_live["megakernel_vary"],
-        "NSGA-II ea_step head": launches_head["megakernel_vary"]}
+        "NSGA-II ea_step head": launches_head["megakernel_vary"],
+        "ea_step live-mask, rbg keys": launches_rbg["K1"]}
+    rows[1]["launches_by_path"] = {
+        f"ea_simple, {NGEN} generations": launches_main[
+            "megakernel_gather_vary"],
+        f"ea_simple, rbg keys, {RBG_NGEN} generations": launches_rbg["K2"]}
     # K1 at the NSGA-II head's shape beside the flagship's: host-paced
     # ms, device ms with the launches queued, and the bound
     rows[0]["ms_by_shape"] = {
@@ -2812,13 +3206,6 @@ def main() -> int:
         "ms_by_form": {f"{m} tb{tb} unroll{u or 1}": v["ms"]
                        for (m, tb, u), v in p5.items()},
         "fraction_of_floor": gp_probes.get("fraction_of_floor")})
-
-    # ---- 22.-25. OneMax and CMA-ES: no kernel on their paths ---------------
-    onemax_phase(card_line)
-    cma_phase(card_line, "sphere")
-    cma_phase(card_line, "ackley")
-    cma_anchor_phase(card_line)
-    mo_cma_phase(card_line)
 
     phase("total", card_line, seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -27,11 +27,14 @@ from XLA on a few percent of inputs, and from each other across devices.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-__all__ = ["fma", "fma64", "sqrt", "log", "log1p", "exp", "expm1", "erf_inv",
-           "sin", "cos", "pow", "row_sum", "row_mean"]
+__all__ = ["fma", "fma_product", "deferred_rounding", "fma64", "sqrt", "log", "log1p", "exp",
+           "expm1", "tanh", "erf_inv", "sin", "cos", "sincos",
+           "sincos_small", "pow", "row_sum", "row_mean"]
 
 _INF = float("inf")
 _FLT_MIN = 1.1754943508222875e-38           # smallest normal float32
@@ -76,15 +79,92 @@ _ERFINV_GE = (-0.0002002142573473975, 0.0001009505576803349,
 def fma(a, b, c) -> torch.Tensor:
     """Exactly rounded float32 ``a * b + c`` (one rounding, as the FMA
     instruction).  PyTorch has no fused multiply-add, so the product is
-    formed exactly in float64, the sum is rounded to odd there (TwoSum
-    error, then a nudge to the odd neighbour), and the final rounding to
-    float32 is then the correct one.  Operands are float32 tensors or
-    Python numbers, which are first rounded to float32."""
-    a, b, c = (x.double() if torch.is_tensor(x)
-               else torch.tensor(float(np.float32(x)), dtype=torch.float64)
-               for x in (a, b, c))
-    p = a * b                                   # exact: 24 + 24 bits
+    formed exactly in float64 and added by :func:`fma_product`.  Operands
+    are float32 tensors (or float64 tensors holding float32 values, not
+    widened again) or Python numbers, which are first rounded to float32;
+    one of ``a`` and ``b`` is a tensor."""
+    a, b = (x.double() if torch.is_tensor(x) else float(np.float32(x))
+            for x in (a, b))
+    return fma_product(a * b, c)                # exact: 24 + 24 bits
+
+
+class DeferredRounding:
+    """The float64 products and sums that :func:`fma` and
+    :func:`fma_product` rounded straight to float32 inside
+    :func:`deferred_rounding`."""
+
+    def __init__(self):
+        self.terms = []             # (p, c, s): product, addend, sum
+        self.flag = None
+
+    def check(self) -> None:
+        """Test the sums kept so far, in one group of launches, for one
+        whose straight rounding may differ from the exact one: an inexact
+        float64 sum (TwoSum error) that :func:`_may_round_twice`."""
+        if not self.terms:
+            return
+        p, c, s = (torch.cat([t[i].reshape(-1) for t in self.terms])
+                   for i in range(3))
+        self.terms.clear()
+        bv = s - p
+        err = (p - (s - bv)) + (c - bv)
+        bad = ((err != 0) & _may_round_twice(s)).any()
+        self.flag = bad if self.flag is None else self.flag | bad
+
+    def exact(self) -> bool:
+        """Whether every straight rounding was the exact one (one host
+        read)."""
+        self.check()
+        return self.flag is None or not bool(self.flag)
+
+
+_DEFERRED = [None]          # the active DeferredRounding, if any
+
+
+@contextlib.contextmanager
+def deferred_rounding():
+    """Within the block :func:`fma` and :func:`fma_product` skip their
+    round-to-odd correction: the float64 sum is rounded straight to
+    float32, which is the exact result unless the sum is inexact and
+    :func:`_may_round_twice`, and the terms are kept.  The yielded
+    :class:`DeferredRounding` tests the kept terms in bulk (``check()``)
+    and says at the end whether every result was exact (``exact()``);
+    where one may not be, the caller recomputes outside the block.  A
+    loop of many small FMAs saves most of their launches this way."""
+    record = DeferredRounding()
+    prev, _DEFERRED[0] = _DEFERRED[0], record
+    try:
+        yield record
+    finally:
+        _DEFERRED[0] = prev
+
+
+def _may_round_twice(s: torch.Tensor) -> torch.Tensor:
+    """Where rounding an inexact float64 sum ``s`` straight to float32 may
+    differ from rounding the exact sum: ``s`` is a float32 midpoint (its
+    low 29 mantissa bits ``0x10000000``; every midpoint is a float64
+    value, so elsewhere the exact sum lies on the same side of each as
+    ``s``), or below float32's normal range, where the midpoints lie
+    elsewhere."""
+    low = s.view(torch.int64) & 0x1FFFFFFF
+    return (low == 0x10000000) | (s.abs() < _FLT_MIN)
+
+
+def fma_product(p: torch.Tensor, c) -> torch.Tensor:
+    """``p + c`` rounded once to float32, ``p`` a float64 tensor holding an
+    exact product of two float32 values (the second half of :func:`fma`;
+    a caller forming many products at once saves their conversions).
+    The sum is rounded to odd in float64 (TwoSum error, then a nudge to
+    the odd neighbour), so its final rounding to float32 is the correct
+    one (inside :func:`deferred_rounding`, the straight rounding, checked
+    later).  ``c`` is a float32 tensor or a Python number."""
+    c = c.double() if torch.is_tensor(c) else float(np.float32(c))
     s = p + c
+    if _DEFERRED[0] is not None:
+        if not torch.is_tensor(c):
+            c = torch.full_like(p, c)
+        _DEFERRED[0].terms.append(torch.broadcast_tensors(p, c, s))
+        return s.float()
     bv = s - p                                  # TwoSum error of s
     err = (p - (s - bv)) + (c - bv)
     even = (s.view(torch.int64) & 1) == 0
@@ -155,9 +235,14 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     return y * scale
 
 
-def _tanh(h: torch.Tensor) -> torch.Tensor:
+def tanh(h: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``tanh`` (Eigen's rational form): ``h`` itself
+    below ``|h| < 0.0004``, +-1 from ``|h| >= 20``, else the odd
+    polynomial over the even one in ``t = clamp(h, +-7.9988117)`` with
+    every multiply fused into its add.  Bitwise to jitted ``jnp.tanh``
+    over every float32 class (``tests/test_torch_evopole.py``)."""
     t = torch.clamp(h, -_TANH_CLAMP, _TANH_CLAMP)
-    t2 = t * t
+    t2 = (t * t).double()               # widened once for every FMA
     p = fma(t2, _TANH_NUM[0], _TANH_NUM[1])
     for c in _TANH_NUM[2:]:
         p = fma(t2, p, c)
@@ -174,7 +259,7 @@ def expm1(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``expm1``."""
     e = exp(x)
     h = x * 0.5
-    small = _tanh(h) * (e + 1.0)
+    small = tanh(h) * (e + 1.0)
     out = torch.where(x.abs() > 0.5, e - 1.0, small)
     return torch.where(h == 0, x, out)
 
@@ -195,6 +280,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 # in double precision, then rounded to float32 once.  Abstop12 thresholds
 # (exponent and top three mantissa bits of |y|): 2^-12, 0.75, 120, inf.
 _TOP_TINY, _TOP_POLY, _TOP_FAST, _TOP_INF = 0x398, 0x3F4, 0x42F, 0x7F8
+_SINCOS_TINY, _SINCOS_POLY = 2.0 ** -12, 0.75       # |y| at TINY and POLY
 _HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")    # 2/pi * 2^24
 _HPI = float.fromhex("0x1.921FB54442D18p0")          # pi/2
 _PI63 = float.fromhex("0x1.921FB54442D18p-62")       # 2pi * 2^-64
@@ -250,7 +336,9 @@ def _reduce_large(bits: torch.Tensor):
     return res.double() * _PI63, n
 
 
-def _sincos(y: torch.Tensor, want_cos: bool) -> torch.Tensor:
+def _sincos(y: torch.Tensor, want: tuple) -> list:
+    """glibc's ``sinf``/``cosf`` of ``y``: the values named in ``want``
+    (``"sin"``, ``"cos"``), sharing one argument reduction."""
     y = y.float()
     bits = y.view(torch.int32).to(torch.int64) & _M32
     top = (bits >> 20) & 0x7FF
@@ -271,7 +359,7 @@ def _sincos(y: torch.Tensor, want_cos: bool) -> torch.Tensor:
     xs = torch.where(poly, x, xr * sign)
     x2 = torch.where(poly, x * x, xr * xr)
     negate_cos = negate_cos & ~poly
-    n = torch.where(poly, 0, n) ^ int(want_cos)
+    n = torch.where(poly, 0, n)
     # sine polynomial
     x3 = xs * x2
     s1 = _SIN_POLY[1] + x2 * _SIN_POLY[2]
@@ -286,20 +374,59 @@ def _sincos(y: torch.Tensor, want_cos: bool) -> torch.Tensor:
     x6 = x4 * x2
     cc = c1 + x4 * (c * _COS_POLY[2])
     cos_val = cc + x6 * c2
-    out = torch.where((n & 1) == 0, sin_val, cos_val).float()
+    odd = (n & 1) != 0
     tiny = top < _TOP_TINY
-    out = torch.where(tiny, torch.ones_like(y) if want_cos else y, out)
-    return torch.where(top >= _TOP_INF, float("nan"), out)
+    nan = top >= _TOP_INF
+    out = []
+    for name in want:
+        is_cos = name == "cos"
+        # an odd quadrant swaps the two polynomials
+        v = torch.where(odd ^ is_cos, cos_val, sin_val).float()
+        v = torch.where(tiny, torch.ones_like(y) if is_cos else y, v)
+        out.append(torch.where(nan, float("nan"), v))
+    return out
 
 
 def sin(y: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 sine (glibc's ``sinf``), through float64."""
-    return _sincos(y, False)
+    return _sincos(y, ("sin",))[0]
 
 
 def cos(y: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 cosine (glibc's ``cosf``), through float64."""
-    return _sincos(y, True)
+    return _sincos(y, ("cos",))[0]
+
+
+def sincos(y: torch.Tensor):
+    """``(sin(y), cos(y))`` as :func:`sin` and :func:`cos` give them, from
+    one argument reduction."""
+    return tuple(_sincos(y, ("sin", "cos")))
+
+
+def sincos_small(y: torch.Tensor):
+    """``(sin(y), cos(y))`` for ``|y| < 0.75``, bitwise to :func:`sincos`
+    there (glibc's branch without argument reduction, in its order of
+    float64 operations), and NaN elsewhere: a third of the launches,
+    and no table copied to the device, for callers whose arguments stay
+    small."""
+    y = y.float()
+    x = y.double()
+    x2 = x * x
+    x3 = x * x2
+    s1 = _SIN_POLY[1] + x2 * _SIN_POLY[2]
+    x7 = x3 * x2
+    sin_val = (x + x3 * _SIN_POLY[0]) + x7 * s1
+    x4 = x2 * x2
+    c2 = _COS_POLY[3] + x2 * _COS_POLY[4]
+    c1 = _COS_POLY[0] + x2 * _COS_POLY[1]
+    x6 = x4 * x2
+    cos_val = (c1 + x4 * _COS_POLY[2]) + x6 * c2
+    a = y.abs()
+    tiny, inside = a < _SINCOS_TINY, a < _SINCOS_POLY
+    sin_v = torch.where(tiny, y, sin_val.float())
+    cos_v = torch.where(tiny, 1.0, cos_val.float())
+    return (torch.where(inside, sin_v, float("nan")),
+            torch.where(inside, cos_v, float("nan")))
 
 
 # XLA's CPU backend lowers float32 ``power`` to ``llvm.pow.f32``, which

@@ -112,13 +112,22 @@ def _apply_op(tool, key, n: int, *operands):
     """Apply a variation operator to an ``n``-row batch: its batched form
     with one key; a ``rowwise_op`` once with ``split(key, n)``; else one
     call per row under ``split(key, n)`` (the JAX package's vmap over
-    per-row keys, as a loop)."""
+    per-row keys, as a loop).
+
+    Under rbg keys the loop cannot follow that vmap, which draws every
+    row's bits from the first row's key (:mod:`deap_tpu_torch.random`),
+    so an operator with neither form raises there."""
     batched = _batched_form(tool)
     if batched is not None:
         return batched(key, *operands)
     keys = random.split(key, n)
     if getattr(tool, "rowwise", False):
         return tool(keys, *operands)
+    if random.impl_of(key) == "rbg":
+        raise NotImplementedError(
+            f"{getattr(tool, '__name__', tool)!r} has no batched or rowwise "
+            "form: under rbg keys jax's vmap over per-row keys draws every "
+            "row from the first key, which a per-row loop cannot follow")
     return _stack_rows([tool(keys[i], *(_map(lambda x: x[i], o)
                                         for o in operands))
                         for i in range(n)])

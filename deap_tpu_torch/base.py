@@ -197,19 +197,23 @@ class Population:
 
 
 def _leaves(g) -> list:
+    """The genome's tensors in ``jax.tree_util`` order: a dict's entries by
+    sorted key, a tuple's or list's in place."""
     if isinstance(g, torch.Tensor):
         return [g]
     if isinstance(g, dict):
-        return [x for v in g.values() for x in _leaves(v)]
+        return [x for k in sorted(g) for x in _leaves(g[k])]
     return [x for v in g for x in _leaves(v)]
 
 
 def _map(fn, g, *rest):
     """Apply ``fn`` leafwise over a genome of tensors (tensor, tuple,
-    list or dict), zipping ``rest`` genomes of the same structure."""
+    list or dict), zipping ``rest`` genomes of the same structure.  A
+    dict's leaves are visited by sorted key, the order of :func:`_leaves`
+    and ``jax.tree_util``, and come back under the same keys."""
     if isinstance(g, torch.Tensor):
         return fn(g, *rest)
     if isinstance(g, dict):
-        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in g.items()}
+        return {k: _map(fn, g[k], *(r[k] for r in rest)) for k in sorted(g)}
     return type(g)(_map(fn, v, *(r[i] for r in rest))
                    for i, v in enumerate(g))

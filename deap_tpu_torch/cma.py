@@ -423,7 +423,9 @@ class StrategyMultiObjective:
     def generate(self, key) -> np.ndarray:
         """lambda offspring, each from its parent's own Gaussian
         (reference cma.py:394-428); records each offspring's parent.  A
-        Python integer key is ``PRNGKey(key)``."""
+        Python integer key is ``PRNGKey(key)`` of the default key
+        implementation (:func:`deap_tpu_torch.random.default_impl`), as
+        jax's ``PRNGKey`` follows ``jax_default_prng_impl``."""
         if isinstance(key, torch.Tensor):
             key = key.to(self.device)
         else:

@@ -3,10 +3,13 @@
 
 The JAX package runs the reference's typed-stack algorithm as a
 ``lax.while_loop`` per tree and ``jax.vmap``s it over per-row keys.  Here
-one call generates a whole batch: ``gen(keys (n, 2), ...)`` runs a fixed
+one call generates a whole batch: ``gen(keys (n, w), ...)`` runs a fixed
 number of masked iterations over all rows (a row whose loop has ended
 keeps its state) with no host read, and row ``i`` equals the JAX
-generator on ``keys[i]``.
+generator on ``keys[i]`` for threefry2x32 keys.  rbg keys run too, but
+jax's ``vmap`` of a ``while_loop`` draws each iteration from the first
+row's key, which this bulk draw does not follow: GP under rbg is not held
+to the JAX package.
 
 The key law is the JAX function's: ``split(key, 3)`` for the height and
 the kind, then ``split(key, 4)`` per emitted token for the next key, the
@@ -45,13 +48,13 @@ def _draws(f, key, n_iter: int):
     get)."""
     chain = []
     for _ in range(n_iter):
-        ks = random.split(key, 4)                        # (n, 4, 2)
+        ks = random.split(key, 4)                        # (n, 4, w)
         chain.append(ks)
         key = ks[:, 0]
-    ks = torch.stack(chain, dim=1)                    # (n, n_iter, 4, 2)
+    ks = torch.stack(chain, dim=1)                    # (n, n_iter, 4, w)
     u_term = random.uniform(ks[:, :, 1])
     higher, lower = random.randint_bits(ks[:, :, 2], ())
-    k_const = ks[:, :, 3].reshape(-1, 2)
+    k_const = ks[:, :, 3].reshape(-1, ks.shape[-1])
     n = ks.shape[0]
     consts = torch.stack([fn(k_const).reshape(n, n_iter)
                           for fn in f.const_fns])
@@ -59,7 +62,7 @@ def _draws(f, key, n_iter: int):
 
 
 def make_generator(pset, cap: int, kind: str = "half_and_half") -> Callable:
-    """Build ``gen(keys (n, 2), min_depth, max_depth, ret_type=None) ->
+    """Build ``gen(keys (n, w), min_depth, max_depth, ret_type=None) ->
     (codes (n, cap) int32, consts (n, cap) float32, lengths (n,) int32)``
     — masked iterations over all rows, no host read.
 

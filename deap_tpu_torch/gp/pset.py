@@ -14,7 +14,7 @@ frozen set carries the **op-kind table** of the CUDA interpreter (K6):
 the opcode of each node, or ``-1`` for a primitive whose function has no
 kernel form (:data:`deap_tpu_torch.gp.interp_cuda.OPCODES`).
 
-Ephemeral samplers take a batch of keys ``(n, 2)`` and return ``(n,)``
+Ephemeral samplers take a batch of keys ``(n, w)`` and return ``(n,)``
 values — the port's stand-in for ``jax.vmap`` over the JAX package's
 one-key samplers.
 """
@@ -66,7 +66,7 @@ class Terminal:
 
 @dataclasses.dataclass
 class Ephemeral:
-    """A random-constant leaf: ``sampler(keys (n, 2)) -> (n,)`` draws one
+    """A random-constant leaf: ``sampler(keys (n, w)) -> (n,)`` draws one
     value per occurrence at generation time."""
     name: str
     sampler: Callable
@@ -143,7 +143,7 @@ class PrimitiveSetTyped:
 
     def add_ephemeral_constant(self, name: str, sampler: Callable,
                                ret_type: Any):
-        """``sampler(keys (n, 2)) -> (n,)``."""
+        """``sampler(keys (n, w)) -> (n,)``."""
         self._check_name(name)
         eph = Ephemeral(name, sampler, self._type_id(ret_type))
         self.ephemerals.append(eph)
@@ -280,7 +280,7 @@ class FrozenPSet:
 
     @property
     def const_fns(self):
-        """Per-code constant samplers ``fn(keys (n, 2)) -> (n,)`` float32:
+        """Per-code constant samplers ``fn(keys (n, w)) -> (n,)`` float32:
         ephemerals draw from their sampler, every other node returns its
         static value (0 for primitives and arguments)."""
         if self._const_fns is None:

@@ -4,12 +4,14 @@ crossover (plain and leaf-biased) and uniform subtree mutation.
 
 The JAX package writes each operator for one tree and ``jax.vmap``s it
 over per-row keys.  Here every operator works over a leading row axis
-with one key per row — ``keys`` ``(n, 2)``, trees ``codes``/``consts``
-``(n, cap)`` and ``lengths`` ``(n,)`` — and row ``i`` equals the JAX
-operator on ``keys[i]``.  The operators carry the ``rowwise_op`` mark,
-so :func:`deap_tpu_torch.algorithms.var_and` calls them once with
-``split(key, n)``, as the JAX package's ``jax.vmap(tool)(split(key, n),
-...)``.  Called with one key and one tree (the JAX package's per-tree
+with one key per row — ``keys`` ``(n, w)`` (``w`` the key width), trees
+``codes``/``consts`` ``(n, cap)`` and ``lengths`` ``(n,)`` — and row
+``i`` equals the JAX operator on ``keys[i]`` under threefry2x32 keys
+(under rbg keys jax's ``vmap`` draws every row from the first row's
+key, and the GP operators are not held to it).  The operators carry
+the ``rowwise_op`` mark, so :func:`deap_tpu_torch.algorithms.var_and`
+calls them once with ``split(key, n)``, as the JAX package's
+``jax.vmap(tool)(split(key, n), ...)``.  Called with one key and one tree (the JAX package's per-tree
 form, as in ``lambda k, t: gp.mut_uniform(k, t, expr, pset)``) they
 return one tree (:func:`deap_tpu_torch.ops._dispatch.rowwise_op`).
 

@@ -1,10 +1,13 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
 Neither package imports the other; the tests hand numpy arrays across:
-a raw ``uint32[2]`` key, a genome in any storage dtype (bfloat16 as its
-``uint16`` bit pattern, or as an ``ml_dtypes.bfloat16`` array, which is
-what ``np.asarray`` of a JAX bfloat16 array gives) or a tuple of such
-arrays (a GP genome: codes, consts, lengths), fitness
+raw keys of either implementation, ``uint32[..., 2]`` (threefry2x32) or
+``uint32[..., 4]`` (rbg; the data of a typed key is
+``jax.random.key_data(key)``), a genome in any storage dtype (bfloat16 as
+its ``uint16`` bit pattern, or as an ``ml_dtypes.bfloat16`` array, which
+is what ``np.asarray`` of a JAX bfloat16 array gives), a tuple of such
+arrays (a GP genome: codes, consts, lengths) or a dict of them (a
+neuroevolution genome), fitness
 ``values``/``valid``/``weights``, a genome storage declaration given
 by its ``dtype`` and ``bound`` fields, and the state of a CMA strategy
 or an archive, read field by field from any object that has the JAX
@@ -37,20 +40,33 @@ __all__ = ["key_to_torch", "key_to_numpy", "genome_to_torch",
 
 
 def key_to_torch(key, device=None) -> torch.Tensor:
-    """A raw ``uint32[2]`` key (``jax.random.key_data``) → the port's key."""
-    words = np.asarray(key, dtype=np.uint32).reshape(-1)
-    return torch.tensor(words.astype(np.int64), device=resolve_device(device))
+    """Raw key words ``uint32[..., 2]`` or ``uint32[..., 4]`` (a raw key,
+    a batch of them, or ``jax.random.key_data`` of a typed key) → the
+    port's keys of the same shape."""
+    dtype = getattr(key, "dtype", None)
+    if dtype is not None and str(dtype).startswith("key<"):
+        raise TypeError("a typed jax key: pass jax.random.key_data(key)")
+    words = np.asarray(key)
+    if words.ndim == 0 or words.shape[-1] not in (2, 4):
+        raise ValueError(f"key words of shape {words.shape}: the last "
+                         "dimension is 2 (threefry2x32) or 4 (rbg)")
+    words = words.astype(np.uint32).astype(np.int64)
+    return torch.tensor(words, device=resolve_device(device))
 
 
 def key_to_numpy(key: torch.Tensor) -> np.ndarray:
+    """The port's keys → ``uint32`` words of the same shape (wrap rbg
+    words with ``jax.random.wrap_key_data(words, impl="rbg")``)."""
     return key.detach().cpu().numpy().astype(np.uint32)
 
 
 def genome_to_torch(genome, device=None):
     """A genome array → a tensor; a tuple of arrays (a GP genome ``(codes
     int32 (pop, cap), consts float32 (pop, cap), lengths int32 (pop,))``)
-    → a tuple of tensors."""
+    → a tuple of tensors; a dict of arrays → a dict of tensors."""
     device = resolve_device(device)
+    if isinstance(genome, dict):
+        return {k: genome_to_torch(v, device) for k, v in genome.items()}
     if isinstance(genome, (tuple, list)):
         return tuple(genome_to_torch(g, device) for g in genome)
     g = np.asarray(genome)
@@ -63,9 +79,11 @@ def genome_to_torch(genome, device=None):
 
 
 def genome_to_numpy(genome):
-    """The port's genome → numpy (a tuple genome → a tuple of arrays);
-    bfloat16 comes back as its ``uint16`` bit pattern (numpy has no
-    bfloat16)."""
+    """The port's genome → numpy (a tuple genome → a tuple of arrays, a
+    dict → a dict); bfloat16 comes back as its ``uint16`` bit pattern
+    (numpy has no bfloat16)."""
+    if isinstance(genome, dict):
+        return {k: genome_to_numpy(v) for k, v in genome.items()}
     if isinstance(genome, (tuple, list)):
         return tuple(genome_to_numpy(g) for g in genome)
     g = genome.detach().cpu()

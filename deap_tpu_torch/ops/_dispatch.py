@@ -14,7 +14,7 @@ port's stand-in for the JAX package's ``jax.vmap(tool)(split(key, n),
 function's ``__dict__``, so a registered partial keeps the mark.
 
 A rowwise op also takes the JAX package's per-tree calling form: one key
-``(2,)`` and operands without the row axis.  It then adds the row axis
+``(w,)`` and operands without the row axis.  It then adds the row axis
 to the key and to every tensor operand (tensors and tuples of tensors),
 runs as a batch of one and strips the axis from what it returns.  That
 is what the loop's one-call-per-row path hands an unmarked wrapper such

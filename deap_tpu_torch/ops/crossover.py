@@ -4,13 +4,14 @@ population-level ``.batched`` form that takes one key."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import random
 from .._xla_math import fma, pow as xla_pow
 from ._dispatch import batched_op
 
-__all__ = ["cx_two_point", "cx_simulated_binary_bounded"]
+__all__ = ["cx_two_point", "cx_blend", "cx_simulated_binary_bounded"]
 
 
 def _two_cut_points(key, size, low=1, shape=()):
@@ -44,6 +45,25 @@ def _cx_two_point_batched(key, A, B):
 
 
 batched_op(cx_two_point, _cx_two_point_batched)
+
+
+def cx_blend(key, ind1, ind2, alpha):
+    """BLX-alpha blend: per gene ``gamma = (1 + 2 alpha) u - alpha`` with
+    ``u`` uniform, children ``(1 - gamma) ind1 + gamma ind2`` and ``gamma
+    ind1 + (1 - gamma) ind2``.  Shape-polymorphic: one key serves a
+    ``(n, size)`` batch.  As XLA's CPU backend compiles the jitted
+    operator, ``gamma`` is one fused multiply-add and each child fuses its
+    product with ``gamma`` into the add (inside the evopole example's
+    generation loop XLA fuses the other product instead:
+    ``deap_tpu_torch.examples.ga.evopole``)."""
+    u = random.uniform(key, ind1.shape)
+    gamma = fma(u, float(np.float32(1.0 + 2.0 * alpha)),
+                -float(np.float32(alpha)))
+    rest = 1.0 - gamma
+    return fma(gamma, ind2, rest * ind1), fma(gamma, ind1, rest * ind2)
+
+
+batched_op(cx_blend, cx_blend)
 
 
 def _bounds(v, like):

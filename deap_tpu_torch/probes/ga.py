@@ -13,8 +13,7 @@ Library-call probes (one PyTorch call a stage, no kernel of the port):
               ``index_select`` forms keep the JAX records' ``pib`` names:
               d100, d128, d100 bfloat16, sorted d128)
   varveval    the fused crossover + mutation + rastrigin chain on the
-              port's threefry ``random``; its ``rbg`` leg has no port
-              (``random`` is threefry only) and lands in ``errors``
+              port's ``random``, under threefry2x32 and under rbg keys
   hoststream  host <-> card copies of slice-sized pieces from pinned host
               buffers (float32 and int8) against a card ``index_select``
               moving the same traffic
@@ -383,10 +382,9 @@ def probe_varveval(run: ProbeRun) -> None:
         return g2, key
 
     for prng in ("threefry2x32", "rbg"):
-        if prng != "threefry2x32":
-            raise NotImplementedError(
-                f"{prng}: the port's random implements threefry2x32 only")
-        sec, r = run.marginal(step, (genome, _key(7, run)),
+        with random.default_impl(prng):
+            key = _key(7, run)
+        sec, r = run.marginal(step, (genome, key),
                               k=min(VARVEVAL_K, run.k_iters))
         run.report(f"torch_varveval_{prng}", sec, r, "torch")
 

@@ -1,20 +1,41 @@
-"""Threefry-2x32 keys and samplers, bit-compatible with ``jax.random``.
+"""Keys and samplers, bit-compatible with ``jax.random``.
 
 The port keeps the JAX package's explicit-key discipline: every
 trajectory is a pure function of a key, and the keys, splits, fold-ins
-and raw bits here equal ``jax.random``'s under the default
-``threefry2x32`` implementation with ``jax_threefry_partitionable=True``
-(pinned bitwise by ``tests/test_torch_random.py``).  ``torch.Generator``
-plays no part.
+and raw bits here equal ``jax.random``'s under both key implementations
+the JAX package's bench scripts use (pinned bitwise by
+``tests/test_torch_random.py`` and ``tests/test_torch_random_rbg.py``).
+``torch.Generator`` plays no part.
 
-A key is an ``int64`` tensor of shape ``(..., 2)`` holding two uint32
-words.  PyTorch's ``uint32`` support is thin, so all uint32 arithmetic is
-done in ``int64`` and masked with ``& 0xFFFFFFFF``.  Plain tensor ops are
-enough: threefry is counter arithmetic, not a kernel of the JAX package.
+A key is an ``int64`` tensor of uint32 words whose last dimension names
+its implementation:
+
+* ``(..., 2)``: ``threefry2x32`` with ``jax_threefry_partitionable=True``;
+* ``(..., 4)``: ``rbg``.  Its ``split`` and ``fold_in`` are threefry on
+  each half, ``w[0:2]`` and ``w[2:4]``; its bits are XLA's
+  ``rng_bit_generator`` as the CPU backend compiles it, Philox-4x32-10
+  with key ``(w0, w1)`` and a 128-bit counter whose low 64 bits start at
+  ``w2 | w3 << 32`` and whose high 64 bits are ``w0 | w1 << 32``.
+
+:func:`PRNGKey` makes a key of the module default implementation
+(``threefry2x32``) unless told otherwise; :func:`default_impl` sets that
+default for a block, as ``jax.default_prng_impl`` does.  Every other
+function follows the key's own shape.
+
+A batch of keys ``(*batch, w)`` is what ``jax.vmap`` over per-row keys
+sees.  Threefry draws each key's own stream.  ``rbg`` draws as jax's
+batching rule for ``rng_bit_generator`` does: the bits of the FIRST key of
+the batch at shape ``(*batch, *shape)``, the other keys unread.
+
+PyTorch's ``uint32`` support is thin, so all uint32 arithmetic is done in
+``int64`` and masked with ``& 0xFFFFFFFF``.  Plain tensor ops are enough:
+threefry and Philox are counter arithmetic, not kernels of the JAX
+package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence, Tuple, Union
 
@@ -24,8 +45,8 @@ import torch
 from ._device import resolve_device
 from ._xla_math import erf_inv, fma
 
-__all__ = ["PRNGKey", "key_data", "split", "fold_in", "bits", "uniform",
-           "bernoulli", "randint", "normal"]
+__all__ = ["PRNGKey", "default_impl", "impl_of", "key_data", "split",
+           "fold_in", "bits", "uniform", "bernoulli", "randint", "normal"]
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -73,44 +94,153 @@ def _iota_2x32(shape, device):
     return counts >> 32, counts & M32
 
 
-def PRNGKey(seed: int, *, device=None) -> torch.Tensor:
+IMPLS = {"threefry2x32": 2, "rbg": 4}
+_DEFAULT = ["threefry2x32"]
+
+
+def _impl_name(impl) -> str:
+    name = _DEFAULT[0] if impl is None else str(impl)
+    if name not in IMPLS:
+        raise ValueError(f"unknown key implementation {name!r}: expected "
+                         f"one of {sorted(IMPLS)}")
+    return name
+
+
+@contextlib.contextmanager
+def default_impl(impl: str):
+    """Within the block, :func:`PRNGKey` without ``impl`` makes keys of
+    ``impl`` (``"threefry2x32"`` or ``"rbg"``): the counterpart of
+    ``jax.default_prng_impl`` / ``jax_default_prng_impl``."""
+    name = _impl_name(impl)
+    old, _DEFAULT[0] = _DEFAULT[0], name
+    try:
+        yield name
+    finally:
+        _DEFAULT[0] = old
+
+
+def impl_of(key: torch.Tensor) -> str:
+    """The implementation a key's last dimension names."""
+    width = key.shape[-1] if key.ndim else 0
+    for name, w in IMPLS.items():
+        if w == width:
+            return name
+    raise ValueError(f"a key's last dimension is 2 (threefry2x32) or 4 "
+                     f"(rbg), not shape {tuple(key.shape)}")
+
+
+def _is_rbg(key: torch.Tensor) -> bool:
+    return impl_of(key) == "rbg"
+
+
+def PRNGKey(seed: int, *, impl: str | None = None, device=None
+            ) -> torch.Tensor:
     """A raw key from an integer seed (``jax.random.PRNGKey`` with 64-bit
-    types disabled: the words are ``[0, seed mod 2**32]``)."""
+    types disabled): threefry's words are ``[0, seed mod 2**32]``, rbg's
+    are those twice.  ``impl=None`` takes the module default
+    (:func:`default_impl`)."""
     dev = resolve_device(device)
-    return torch.tensor([0, int(seed) & M32], dtype=torch.int64, device=dev)
+    words = [0, int(seed) & M32] * (IMPLS[_impl_name(impl)] // 2)
+    return torch.tensor(words, dtype=torch.int64, device=dev)
 
 
 def key_data(key: torch.Tensor) -> torch.Tensor:
-    """The key's two uint32 words (as int64); keys are already raw."""
+    """The key's uint32 words (as int64); keys are already raw."""
     return key
 
 
 def _words(key: torch.Tensor, ndraw: int):
-    """The key's two words, shaped ``(*batch, 1, ..., 1)`` to broadcast
-    against ``ndraw`` trailing draw axes."""
+    """A threefry key's two words, shaped ``(*batch, 1, ..., 1)`` to
+    broadcast against ``ndraw`` trailing draw axes."""
     tail = (1,) * ndraw
     return (key[..., 0].reshape(key.shape[:-1] + tail),
             key[..., 1].reshape(key.shape[:-1] + tail))
 
 
-def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
-    """``num`` (or ``shape``) new keys per key: ``(*batch, *shape, 2)``."""
-    shape = _shape(num)
+def _halves(fn, key: torch.Tensor, *args) -> torch.Tensor:
+    """An rbg key op: the threefry op ``fn`` on each half, concatenated."""
+    return torch.cat([fn(key[..., :2], *args), fn(key[..., 2:], *args)], -1)
+
+
+def _threefry_split(key: torch.Tensor, shape) -> torch.Tensor:
     hi, lo = _iota_2x32(shape, key.device)
     b1, b2 = threefry2x32(*_words(key, len(shape)), hi, lo)
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """Mix an integer into a key (``jax.random.fold_in``)."""
+def _threefry_fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     b1, b2 = threefry2x32(key[..., 0], key[..., 1], 0, int(data) & M32)
     return torch.stack([b1, b2], dim=-1)
 
 
+def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
+    """``num`` (or ``shape``) new keys per key: ``(*batch, *shape, w)``."""
+    shape = _shape(num)
+    if _is_rbg(key):
+        return _halves(_threefry_split, key, shape)
+    return _threefry_split(key, shape)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """Mix an integer into a key (``jax.random.fold_in``)."""
+    if _is_rbg(key):
+        return _halves(_threefry_fold_in, key, data)
+    return _threefry_fold_in(key, data)
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a, m: int):
+    """``(hi, lo)`` words of the 64-bit product of a uint32 word and a
+    uint32 constant.  The int64 product wraps past 2**63 but keeps its
+    bit pattern, so the shift and masks read it as unsigned."""
+    p = a * m
+    return (p >> 32) & M32, p & M32
+
+
+def philox4x32(key0, key1, x):
+    """Philox-4x32-10 (Random123; XLA's ``Philox``) on four counter words
+    ``x``; returns the four output words."""
+    k0, k1 = key0, key1
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(x[0], _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(x[2], _PHILOX_M[1])
+        x = (hi1 ^ x[1] ^ k0, lo1, hi0 ^ x[3] ^ k1, lo0)
+        k0 = (k0 + _PHILOX_W[0]) & M32
+        k1 = (k1 + _PHILOX_W[1]) & M32
+    return x
+
+
+def _rbg_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """``rng_bit_generator(key, shape, uint32)`` on the CPU backend: the
+    counters ``c + i`` (128-bit, low half ``w2 | w3 << 32``, high half
+    ``w0 | w1 << 32``) each give four words, taken in turn, cut to the
+    shape's size."""
+    n = math.prod(shape)
+    if n == 0:
+        return torch.zeros(shape, dtype=torch.int64, device=key.device)
+    w = key.reshape(-1, 4)[0]
+    w0, w1, w2, w3 = w[0], w[1], w[2], w[3]
+    i = torch.arange((n + 3) // 4, dtype=torch.int64, device=key.device)
+    c0 = w2 + (i & M32)
+    c1 = w3 + (i >> 32) + (c0 >> 32)
+    c2 = w0 + (c1 >> 32)
+    c3 = (w1 + (c2 >> 32)) & M32
+    x = philox4x32(w0, w1, (c0 & M32, c1 & M32, c2 & M32, c3))
+    return torch.stack(x, dim=-1).reshape(-1)[:n].reshape(shape)
+
+
 def bits(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """Raw uint32 words (as int64) of ``(*batch, *shape)``:
-    ``random_bits(key, 32)`` of each key."""
+    ``random_bits(key, 32)`` of each key — for an rbg batch, of its first
+    key at the whole shape, as under ``jax.vmap``.  Narrower draws
+    (jax's 8- and 16-bit ``random_bits``) are these words' low bits under
+    both implementations."""
     shape = _shape(shape)
+    if _is_rbg(key):
+        return _rbg_bits(key, key.shape[:-1] + shape)
     hi, lo = _iota_2x32(shape, key.device)
     b1, b2 = threefry2x32(*_words(key, len(shape)), hi, lo)
     return b1 ^ b2

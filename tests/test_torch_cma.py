@@ -351,3 +351,60 @@ def test_mo_cma_zdt1_anchor():
         s.update(off, _zdt1(off))
     assert np.all(s.parents >= -1e-5) and np.all(s.parents <= 1 + 1e-5)
     assert hypervolume(s.parent_values, [11.0, 11.0]) > HV_THRESHOLD
+
+
+def test_strategy_under_rbg_matches_jax():
+    """``bench_cma.py``'s default key implementation: generations of
+    ``Strategy`` from typed rbg keys, held as the threefry run is."""
+    n, lam = 10, 32
+    js = jcma.Strategy(centroid=[5.0] * n, sigma=5.0, lambda_=lam)
+    ts = tcma.Strategy(centroid=[5.0] * n, sigma=5.0, lambda_=lam,
+                       device="cpu")
+    jtb = jbase.Toolbox()
+    jtb.register("evaluate", jbench.sphere)
+    gen, upd = jax.jit(js.generate), jax.jit(js.update)
+    words = np.asarray([0, 0, 0, 0], np.uint32)
+    state = js.init()
+    key = jax.random.wrap_key_data(jnp.asarray(words), impl="rbg")
+    for _ in range(3):
+        key, k_gen = jax.random.split(key)
+        jg = gen(state, k_gen)
+        tstate = interop.cma_state_to_torch(state, device="cpu")
+        tk = interop.key_to_torch(jax.random.key_data(k_gen), device="cpu")
+        assert tr.impl_of(tk) == "rbg"
+        tg = ts.generate(tstate, tk)
+        assert _rel_err(tg, jg) <= RTOL
+        pop, _ = j_eval(jtb, jbase.Population(
+            jg, jbase.Fitness.empty(lam, (-1.0,))))
+        nxt = upd(state, pop)
+        tnext = ts.update(tstate, _to_torch_pop(pop, (-1.0,)))
+        np.testing.assert_array_equal(tnext.centroid.numpy(),
+                                      np.asarray(nxt.centroid))
+        for name in ("sigma", "ps", "diagD"):
+            assert _rel_err(getattr(tnext, name),
+                            getattr(nxt, name)) <= RTOL, name
+        state = nxt
+
+
+@pytest.fixture
+def jax_rbg_default():
+    """``jax_default_prng_impl`` set to rbg for a JAX function that makes
+    its own key from an integer; restored whatever happens."""
+    prev = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "rbg")
+    try:
+        yield
+    finally:
+        jax.config.update("jax_default_prng_impl", prev)
+
+
+def test_mo_cma_integer_key_follows_the_default_impl(jax_rbg_default):
+    """MO-CMA's ``generate(int)`` makes ``PRNGKey(int)`` of the default
+    implementation in both packages (``deap_tpu/cma.py:387``)."""
+    j, t = _mo_pair(10, 6)
+    jo = j.generate(7)
+    with tr.default_impl("rbg"):
+        to = t.generate(7)
+    np.testing.assert_array_equal(to, jo)
+    np.testing.assert_array_equal(t._last_offspring_parent,
+                                  j._last_offspring_parent)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``deap_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package — checked on
-the source (AST) and in a fresh interpreter."""
+"""The port stands alone: no module of ``deap_tpu_torch`` (its
+``examples/`` too) and not ``chip_smoke.py`` imports JAX, anything of the
+JAX package or the repo's JAX ``examples/`` — checked on the source (AST)
+and in a fresh interpreter."""
 
 import ast
 import subprocess
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "deap_tpu")
+FORBIDDEN = ("jax", "jaxlib", "deap_tpu", "examples")
 
 
 def _port_files():
@@ -20,7 +21,8 @@ def _port_files():
 
 def _forbidden_imports(source: str):
     """Absolute imports (at any depth of the module) whose top-level
-    package is JAX or the JAX package; ``deap_tpu_torch`` is allowed."""
+    package is JAX, the JAX package or the repo's ``examples``;
+    ``deap_tpu_torch`` (``deap_tpu_torch.examples`` too) is allowed."""
     bad = []
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
@@ -43,7 +45,10 @@ def test_port_sources_exist():
                 "deap_tpu_torch/probes/__init__.py",
                 "deap_tpu_torch/probes/ga.py", "deap_tpu_torch/probes/gp.py",
                 "deap_tpu_torch/kernels/peaks.py", "deap_tpu_torch/cma.py",
-                "deap_tpu_torch/ops/indicator.py"):
+                "deap_tpu_torch/ops/indicator.py",
+                "deap_tpu_torch/examples/__init__.py",
+                "deap_tpu_torch/examples/ga/__init__.py",
+                "deap_tpu_torch/examples/ga/evopole.py"):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
                "hypervolume.cu", "probes.cu", "device_math.cuh"):
@@ -103,6 +108,25 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.base.Toolbox().hypervolume; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_scan_catches_an_import_of_the_jax_examples():
+    src = ("from examples.ga import evopole\n"
+           "from deap_tpu_torch.examples.ga import evopole as ok\n")
+    assert _forbidden_imports(src) == ["1:examples.ga"]
+
+
+def test_port_examples_load_no_jax():
+    """The port's examples (the evopole counterpart keeps its own copy of
+    the JAX example's constants and functions) pull in no JAX, nothing
+    of the JAX package and nothing of the repo's ``examples``."""
+    code = ("import sys; import deap_tpu_torch.examples.ga.evopole; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deap_tpu', 'examples')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -25,6 +25,7 @@ from deap_tpu.ops import crossover as jcx, mutation as jmut
 from deap_tpu.ops import selection as jsel
 from deap_tpu.utils import support as jsup
 from deap_tpu_torch import base as tbase, interop
+from deap_tpu_torch import random as tr
 from deap_tpu_torch._xla_math import row_mean
 from deap_tpu_torch.algorithms import ea_simple
 from deap_tpu_torch.ops import crossover as tcx, mutation as tmut
@@ -99,3 +100,46 @@ def test_onemax_ea_simple_with_hall_of_fame_is_bitwise_to_jax():
     assert thof.state.filled.tolist() == [True]
     assert thof[0][1][0] == max(tlog.select("max"))
     assert tlog.select("max")[-1] > tlog.select("max")[0]
+
+
+def test_onemax_under_rbg_is_bitwise_to_jax():
+    """``bench_onemax.py``'s default key implementation: three generations
+    of BASELINE config 1 from a typed rbg key, population and logbook
+    bitwise."""
+    jtb = jbase.Toolbox()
+    jtb.register("evaluate", lambda g: (jnp.sum(g),))
+    jtb.register("mate", jcx.cx_two_point)
+    jtb.register("mutate", jmut.mut_flip_bit, indpb=0.05)
+    jtb.register("select", jsel.sel_tournament, tournsize=3)
+    ttb = tbase.Toolbox()
+    ttb.register("evaluate", lambda g: (torch.sum(g),))
+    ttb.register("mate", tcx.cx_two_point)
+    ttb.register("mutate", tmut.mut_flip_bit, indpb=0.05)
+    ttb.register("select", tsel.sel_tournament, tournsize=3)
+
+    words = np.asarray([0, 0, 0, 0], np.uint32)      # PRNGKey(0) under rbg
+    jkey = jax.random.wrap_key_data(jnp.asarray(words), impl="rbg")
+    tkey = interop.key_to_torch(words, device="cpu")
+    genome = np.asarray(jax.random.bernoulli(jkey, 0.5, (POP, BITS)),
+                        np.float32)
+    np.testing.assert_array_equal(
+        tr.bernoulli(tkey, 0.5, (POP, BITS)).numpy(), genome.astype(bool))
+    jstats = jsup.Statistics(lambda p: p.fitness.values[:, 0])
+    jstats.register("max", jnp.max)
+    tstats = tsup.Statistics(lambda p: p.fitness.values[:, 0])
+    tstats.register("max", torch.max)
+    jpop, jlog = j_ea_simple(
+        jkey, jbase.Population(jnp.asarray(genome),
+                               jbase.Fitness.empty(POP, (1.0,))),
+        jtb, CXPB, MUTPB, 3, stats=jstats)
+    tpop, tlog = ea_simple(
+        tkey, tbase.Population(torch.from_numpy(genome),
+                               tbase.Fitness.empty(POP, (1.0,),
+                                                   device="cpu")),
+        ttb, CXPB, MUTPB, 3, stats=tstats)
+    np.testing.assert_array_equal(tpop.genome.numpy(),
+                                  np.asarray(jpop.genome))
+    np.testing.assert_array_equal(tpop.fitness.values.numpy(),
+                                  np.asarray(jpop.fitness.values))
+    for col in ("nevals", "max"):
+        assert tlog.select(col) == jlog.select(col), col

@@ -335,8 +335,7 @@ def test_varveval_records_threefry_and_errors_on_rbg(monkeypatch):
     monkeypatch.setattr(ga, "K_ITERS", 1)
     doc = ga.main(["varveval", "--pop", "64", "--device", "cpu"])
     res = doc["result"]
+    # the rbg leg is ported: both legs are recorded and nothing errs
     assert [r["probe"] for r in res["probes"]] == [
-        "torch_varveval_threefry2x32"]
-    assert len(res["errors"]) == 1
-    assert res["errors"][0]["probe"] == "varveval"
-    assert "rbg" in res["errors"][0]["error"]
+        "torch_varveval_threefry2x32", "torch_varveval_rbg"]
+    assert res["errors"] == []

@@ -258,3 +258,26 @@ def test_interop_round_trips_every_storage_dtype():
         interop.key_to_numpy(interop.key_to_torch(key, device="cpu")),
         np.asarray(key))
 
+
+
+def test_megakernel_generation_under_rbg_matches_jax():
+    """One megakernel generation from an rbg key (``bench.py``'s default):
+    the selection's uniforms come from ``rng_bit_generator`` and K1/K2's
+    seed from the rbg key's words; the offspring are bitwise to JAX's
+    and the fitness within rtol 1e-5, as under threefry."""
+    jtb, jpop = _jax_pop()
+    ttb = _torch_toolbox()
+    words = np.asarray([0xDEADBEEF, 0x12345678, 0xFFFFFFFF, 0xFFFFFFFE],
+                       np.uint32)
+    jkey = jax.random.wrap_key_data(jnp.asarray(words), impl="rbg")
+    tkey = interop.key_to_torch(words, device="cpu")
+    assert tr.impl_of(tkey) == "rbg"
+    jkey2, jnext, jn = j_ea_step(jkey, jpop, jtb, CXPB, MUTPB)
+    tkey2, tnext, tn = ea_step(tkey, _to_torch(jpop), ttb, CXPB, MUTPB)
+    assert np.array_equal(np.asarray(jax.random.key_data(jkey2)),
+                          interop.key_to_numpy(tkey2))
+    assert int(jn) == int(tn) == POP
+    np.testing.assert_array_equal(tnext.genome.numpy(),
+                                  np.asarray(jnext.genome))
+    np.testing.assert_allclose(tnext.fitness.values.numpy(),
+                               np.asarray(jnext.fitness.values), rtol=1e-5)
