@@ -31,7 +31,10 @@
              then dims 1, 3, 12, 100 and 1000 with lambda != mu;
 7. K4      — ``rows_dominate_counts`` against the plain counts, C = 1024
              and C = n rows against n = 2e5 DTLZ2 points of a real pool
-             (with -inf sentinel rows and duplicated points): equal counts;
+             (with -inf sentinel rows and duplicated points), then
+             SPEA2's strength form ``(-w, -w)`` at C = n = 2e5 on ZDT1
+             (m = 2) and DTLZ2 values (+inf rows, duplicates): equal
+             counts;
 8. reference — one NSGA-II generation at mu = lambda = 1024: the card's
              ``var_or`` offspring against the CPU's bit for bit, then
              ``sel_nsga2`` on the card, given the CPU pool's values,
@@ -187,14 +190,39 @@
              mutpb 0.8, rbg keys) through ``ea_simple`` with
              ``HallOfFame(1)``: three generations on the card and on the
              CPU, genomes, fitness, logbook and archive bit for bit; the
-             marginal ms a generation (5 / 10, three pairs); one
+             marginal ms a generation (2 / 4, two pairs); one
              generation with the masked rollout (same fitness); 50 rollout
              steps under the profiler (kernel launches a step, device idle
-             share); the maximum fitness must rise over 20 generations
+             share); the maximum fitness must rise over 5 generations
              (from this key it starts at its ceiling, 500: then it must
              stay there and the average rise); no kernel of the port
              runs (launch counts printed, zero);
-30. the ``kernels`` line, the card's name and power limit, and the result
+30. permutation — ``random.permutation`` at 2^20 (two shuffle rounds)
+             and 1000 (one) under both key implementations, card equal
+             to CPU bit for bit; later, after phase 31's DTLZ2 run,
+             ``sel_tournament_dcd`` on that 1e5-point population card
+             against CPU, bitwise;
+31. NSGA-III — ``bench_nsga2.py`` with ``BENCH_SELECT=nsga3``
+             (``uniform_reference_points`` with 99 divisions at two
+             objectives, 12 at three) on ZDT1 and DTLZ2: one generation
+             at POP 4096 card against CPU (offspring, objective values
+             and selected indices bitwise), then POP 1e5 (pool 2e5):
+             N = 2 and 2N generations, three pairs (median marginal
+             ms), launches counted (K4 in the grid peel's thin fronts at
+             three objectives), DTLZ2's mean ``|sum f^2 - 1|`` must fall
+             and ZDT1's hypervolume at (11, 11) rise;
+32. SPEA2  — ``BENCH_SELECT=spea2`` (chunk 500 at POP 1e5) likewise on
+             both problems (N = 1, one pair; K4 a generation, the
+             strength with the roles swapped) and ``BENCH_STAGED=1`` on
+             DTLZ2 (N = 1, one pair), the POP 4096 generation card
+             against CPU for each; the single program against the two
+             stage calls on the card; the truncation branch card against
+             CPU (8192 DTLZ2 points on the true front, k = 4096);
+33. examples — ``examples/ga/nsga2.py`` (ZDT1, mu 64, 100
+             generations; hypervolume > 116) and ``examples/ga/nsga3.py``
+             (DTLZ2, 92, 100; its front error) at their defaults, card
+             and CPU populations bitwise;
+34. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12 and 15, a
@@ -540,8 +568,7 @@ def counts_bound(C: int, n: int, m: int):
 def dtlz2_values(genome):
     import torch
     from deap_tpu_torch import benchmarks
-    return torch.func.vmap(lambda g: torch.stack(
-        benchmarks.dtlz2(g, MO_NOBJ)))(genome)
+    return torch.stack(benchmarks.dtlz2(genome, MO_NOBJ), 1)
 
 
 def front_distance(values) -> float:
@@ -612,9 +639,10 @@ def k3_phase(kernels, G, genome, key, card_line, n: int, dim: int,
 def k4_phase(kernels, D, key, card_line) -> dict:
     """K4 against its plain counts on the DTLZ2 values of a real pool:
     a front chunk of C = 1024 rows and the initial counts' C = n, with
-    -inf sentinel rows and duplicated points."""
+    -inf sentinel rows and duplicated points; then SPEA2's strength form
+    at C = n on ZDT1 and DTLZ2 values, with +inf rows and duplicates."""
     import torch
-    from deap_tpu_torch import random
+    from deap_tpu_torch import benchmarks, random
     n = 2 * MO_POP
     genome = random.uniform(key, (n, MO_DIM))
     w = -dtlz2_values(genome)
@@ -648,6 +676,35 @@ def k4_phase(kernels, D, key, card_line) -> dict:
         if not equal:
             fail(f"K4 at C={C}: counts differ from the plain version")
         out[C] = (err, ms, plain, b, by)
+    # SPEA2's strength: the roles swapped, rows_dominate_counts(-w, -w) at
+    # C = n, its masked -inf rows now +inf, for ZDT1 (m = 2) and DTLZ2
+    k_z = random.fold_in(key, 2)
+    w_zdt1 = -torch.stack(benchmarks.zdt1(random.uniform(k_z, (n, 30))), 1)
+    for m, vals in ((2, w_zdt1), (MO_NOBJ, w)):
+        v = vals.clone()
+        v[:256] = v[256:512]                           # duplicated points
+        v[::9] = float("-inf")                         # masked rows
+        nw = (-v).contiguous()                         # they read +inf
+        before = kernels.LAUNCHES["rows_dominate_counts"]
+        k4 = kernels.launch_rows_dominate_counts(nw, nw)
+        p4 = D._rows_dominate_counts_plain(nw, nw)
+        torch.cuda.synchronize()
+        equal = torch.equal(k4, p4)
+        err = float((k4 - p4).abs().max().item())
+        ms = cuda_ms(lambda: kernels.launch_rows_dominate_counts(nw, nw),
+                     reps=3, warm=1)
+        plain = cuda_ms(lambda: D._rows_dominate_counts_plain(nw, nw),
+                        reps=1, warm=0)
+        b, by = counts_bound(n, n, m)
+        phase("K4 SPEA2 strength rows_dominate_counts(-w, -w) vs plain",
+              card_line, rows=n, points=n, nobj=m, inf_rows=len(v[::9]),
+              counts_equal=equal, max_abs_err=err, ms=ms, plain_ms=plain,
+              bound_ms=b, bound_by=by, count_sum=int(k4.sum().item()),
+              launches=kernels.LAUNCHES["rows_dominate_counts"] - before)
+        if not equal:
+            fail(f"K4 strength at m={m}: counts differ from the plain "
+                 "version")
+        out[("strength", m)] = (err, ms, plain, b, by)
     return out
 
 
@@ -877,7 +934,7 @@ def profile_nsga2(key, pop, tb, card_line, gens=2) -> None:
         "split key (3)": lambda: random.split(key, 3),
         "var_or (draws + K3)": lambda: var_or(k_var, pop, tb, MO_POP,
                                               MO_CXPB, MO_MUTPB),
-        "evaluate (vmap dtlz2)": lambda: evaluate_population(tb, off),
+        "evaluate (dtlz2, batched form)": lambda: evaluate_population(tb, off),
         "concat": lambda: pop.concat(off),
         "initial counts (K4, C = n)": lambda: emo._dominator_counts(w, ones),
         "peel (host-read rounds, K4 chunks)": lambda: emo._peel_from_counts(
@@ -1369,7 +1426,10 @@ def bench_nsga2_toolbox(problem: str):
 def bench_nsga2_generation(tb, key, pop, select=None):
     """bench_nsga2.py's generation: SBX and polynomial mutation by
     ``vary_genome(pairing="halves")`` on the xla engine, evaluation, the
-    (mu + lambda) pool and ``sel_nsga2(nd="auto", front_chunk=1024)``."""
+    (mu + lambda) pool and its environmental selection:
+    ``select(k_sel, fitness, n)`` (:func:`bench_select` for
+    ``BENCH_SELECT=nsga3 | spea2`` and ``BENCH_STAGED=1``), by default
+    ``sel_nsga2(nd="auto", front_chunk=1024)``."""
     from deap_tpu_torch import base, random
     from deap_tpu_torch.algorithms import evaluate_population, vary_genome
     from deap_tpu_torch.ops import emo
@@ -1381,8 +1441,11 @@ def bench_nsga2_generation(tb, key, pop, select=None):
         n, pop.fitness.weights, device=genome.device))
     off, _ = evaluate_population(tb, off)
     pool = pop.concat(off)
-    select = select or emo.sel_nsga2
-    sel = select(k_sel, pool.fitness, n, nd="auto", front_chunk=FRONT_CHUNK)
+    if select is None:
+        sel = emo.sel_nsga2(k_sel, pool.fitness, n, nd="auto",
+                            front_chunk=FRONT_CHUNK)
+    else:
+        sel = select(k_sel, pool.fitness, n)
     return key, pool.take(sel)
 
 
@@ -1513,10 +1576,11 @@ def bench_nsga2_main_path_a(kernels, card_line, key):
     # untimed replay: the widths of the fronts each generation peels
     widths, k, pop = [], k_run, pop0
 
-    def select(k_sel, fitness, n, **kw):
+    def select(k_sel, fitness, n):
         from deap_tpu_torch.ops import emo
         widths.append(front_widths(fitness, n))
-        return emo.sel_nsga2(k_sel, fitness, n, **kw)
+        return emo.sel_nsga2(k_sel, fitness, n, nd="auto",
+                             front_chunk=FRONT_CHUNK)
 
     for _ in range(2 * BN_NGEN):
         k, pop = bench_nsga2_generation(tb, k, pop, select=select)
@@ -1694,10 +1758,11 @@ def bench_nsga2_main_path_b(kernels, card_line, key) -> dict:
     launches = dict(kernels.LAUNCHES)
     widths = []
 
-    def select(k_sel, fitness, n, **kw):
+    def select(k_sel, fitness, n):
         from deap_tpu_torch.ops import emo
         widths.append(front_widths(fitness, n))
-        return emo.sel_nsga2(k_sel, fitness, n, **kw)
+        return emo.sel_nsga2(k_sel, fitness, n, nd="auto",
+                             front_chunk=FRONT_CHUNK)
 
     _, replay = run(BN_B_GENS, select=select)
     ok = (torch.equal(replay.genome, pop.genome)
@@ -1756,7 +1821,7 @@ def profile_bench_nsga2(key, pop, tb, card_line, gens=2) -> None:
             k_var, ga, gb),
         "  polynomial mutation alone (n rows, 4 pows)": lambda: tb.mutate(
             k_var, pop.genome),
-        "evaluate (vmap dtlz2)": lambda: evaluate_population(tb, off),
+        "evaluate (dtlz2, batched form)": lambda: evaluate_population(tb, off),
         "grid views (lexsorts, buckets, slab views)":
             lambda: emo._grid_views(w),
         "initial grid counts (histogram, bands, duplicates)":
@@ -1850,14 +1915,15 @@ def probe_check(label: str, card_line, kernel, plain, library, bound,
 
 def probe_kernels_phase(card_line, key) -> dict:
     """P1-P4 against their plain versions at the GA tool's shape, 2^20 x
-    128 float32 (the reduce masked at dim 100)."""
+    128 float32 (the reduce masked at dim 100); P3 on the GA tool's
+    ``lookup`` table (``permutation(PRNGKey(0), 2^20)``)."""
     import torch
     from deap_tpu_torch import kernels, random
     from deap_tpu_torch.probes import ga as PGA
     pop, dev = PROBE_POP, key.device
-    k_x, k_o, k_p, k_s = random.split(key, 4)
+    k_x, k_p, k_s = random.split(key, 3)
     x = random.uniform(k_x, (pop, PGA.LANE))
-    order = torch.argsort(random.uniform(k_o, (pop,))).to(torch.int32)
+    order = PGA.lookup_table(pop, dev)
     pos = random.randint(k_p, (pop,), 0, pop)
     seed = random.randint(k_s, (1,), -(1 << 31), (1 << 31) - 1)
     copy_out = torch.empty_like(x)
@@ -2224,11 +2290,18 @@ def _state_to(state, dev):
 
 def eigh_on_card(C) -> dict:
     """``torch.linalg.eigh`` of ``C`` under the profiler (the device
-    kernels it ran, their time) and its host-clock ms a call, the host
-    synchronisation on its ``info`` included."""
+    kernels it ran, their time a call over five calls) and its
+    host-clock ms a call, the host synchronisation on its ``info``
+    included.  A window in which the profiler recorded no device
+    activity at all is taken again, up to three times (a short window
+    has come back empty on the card)."""
     import torch
     w, B = torch.linalg.eigh(C)
-    prof = _profile_window(lambda: torch.linalg.eigh(C), gens=1)
+    for _ in range(3):
+        prof = _profile_window(
+            lambda: [torch.linalg.eigh(C) for _ in range(5)], gens=5)
+        if prof["kernel_launches"]:
+            break
     return {"on_card": bool(w.is_cuda and B.is_cuda),
             "device_ms": prof["device_busy_ms"],
             "kernel_launches": prof["kernel_launches"],
@@ -2369,8 +2442,8 @@ def mo_cma_phase(card_line) -> None:
     def evaluate(genomes):
         g = np.asarray(genomes, np.float64)
         f = np.clip(g, 0.0, 1.0)
-        vals = torch.func.vmap(lambda x: torch.stack(benchmarks.zdt1(x)))(
-            torch.as_tensor(f, dtype=torch.float32, device=dev))
+        vals = torch.stack(benchmarks.zdt1(
+            torch.as_tensor(f, dtype=torch.float32, device=dev)), 1)
         pen = 1e7 * np.sum((f - g) ** 2, axis=1)
         return vals.double().cpu().numpy() + pen[:, None]
 
@@ -2436,8 +2509,8 @@ RBG_NGEN, RBG_PAIRS = 10, 3
 RBG_REF_POP, RBG_REF_GENS = 10_240, 3      # a multiple of the rows a tile
 # evopole: bench_evopole.py's defaults (examples/ga/evopole.py's constants)
 EVO_REF_GENS = 3
-EVO_TIMING_NGEN, EVO_PAIRS = 5, 3
-EVO_RISE_GENS = 20
+EVO_TIMING_NGEN, EVO_PAIRS = 2, 2
+EVO_RISE_GENS = 5
 EVO_PROFILE_STEPS = 50
 
 
@@ -2644,9 +2717,9 @@ def evopole_phase(kernels, card_line) -> dict:
     """BASELINE config 5 at ``bench_evopole.py``'s defaults (pop 256, 4
     episodes of at most 500 steps, hidden 16, rbg keys): three
     generations card against CPU, bitwise; the marginal ms a generation
-    (N and 2N, three pairs); one generation of the masked rollout; the
+    (N and 2N, two pairs); one generation of the masked rollout; the
     device's share of a window of rollout steps under the profiler; the
-    maximum fitness must rise over 20 generations (or, where it starts
+    maximum fitness must rise over 5 generations (or, where it starts
     at its ceiling of 500, stay there while the average rises).  No
     kernel of the port is on this path: its launch counts must stay
     zero."""
@@ -2751,6 +2824,285 @@ def evopole_phase(kernels, card_line) -> dict:
     if any(launches.values()):
         fail(f"a port kernel ran on the evopole path: {launches}")
     return {"marginal_ms_per_gen": per_gen * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# the rest of multi-objective: random.permutation, sel_tournament_dcd,
+# bench_nsga2.py's BENCH_SELECT=nsga3 | spea2 and BENCH_STAGED=1, the
+# NSGA-II and NSGA-III examples
+# ---------------------------------------------------------------------------
+
+# bench_nsga2.py's reference points ({2: 99, 3: 12} divisions) and SPEA2
+# chunk (max(64, min(1024, 1e8 // (2 POP))): 500 at POP 1e5)
+BN_P = {2: 99, 3: 12}
+MO_REF_POP = 4096
+# (N, pairs) of the (N, 2N) timing at POP 1e5, and the problems run there
+MO_SEL_PATHS = {"nsga3": ((2, 3), ("zdt1", "dtlz2")),
+                "spea2": ((1, 1), ("zdt1", "dtlz2")),
+                "spea2-staged": ((1, 1), ("dtlz2",))}
+TRUNC_N, TRUNC_K = 8192, 4096
+PERM_SIZES = (1000, 1 << 20)
+
+
+def bench_chunk(n: int) -> int:
+    return max(64, min(1024, 10 ** 8 // (2 * n)))
+
+
+def bench_select(name: str, nobj: int, n: int):
+    """The environmental selection of bench_nsga2.py's ``BENCH_SELECT``
+    (``nsga3``, ``spea2``) or of ``BENCH_STAGED=1`` (``spea2-staged``,
+    the script's two stage calls), as ``select(k_sel, fitness, n)``."""
+    from deap_tpu_torch.ops import emo
+    chunk = bench_chunk(n)
+    if name == "nsga3":
+        rp = emo.uniform_reference_points(nobj, BN_P[nobj])
+        return lambda k, f, m: emo.sel_nsga3(k, f, m, rp)
+    if name == "spea2":
+        return lambda k, f, m: emo.sel_spea2(k, f, m, chunk=chunk)
+    return lambda k, f, m: emo.sel_spea2_staged(k, f, m, chunk=chunk)
+
+
+def mo_quality(problem: str, fitness) -> float:
+    """DTLZ2's mean ``|sum f^2 - 1|`` (must fall) or ZDT1's hypervolume
+    at (11, 11) (must rise)."""
+    from deap_tpu_torch.ops import hv as host_hv
+    v = fitness.values
+    if problem == "dtlz2":
+        return float(((v.double() ** 2).sum(1) - 1.0).abs().mean().item())
+    return host_hv.hypervolume(v.double().cpu().numpy(), HV_REF["zdt1"])
+
+
+def permutation_phase(card_line) -> None:
+    """``random.permutation`` at 2**20 (two rounds) and 1000 (one) under
+    both key implementations: card equal to CPU bit for bit, and the
+    card's ms (CUDA events)."""
+    import torch
+    from deap_tpu_torch import random
+    dev = torch.device("cuda")
+    same, ms = {}, {}
+    for impl in ("threefry2x32", "rbg"):
+        for n in PERM_SIZES:
+            key = random.PRNGKey(n, impl=impl, device="cpu")
+            kd = key.to(dev)
+            tag = f"{impl} n={n}"
+            same[tag] = torch.equal(random.permutation(kd, n).cpu(),
+                                    random.permutation(key, n))
+            ms[tag] = cuda_ms(lambda: random.permutation(kd, n), reps=5,
+                              warm=1)
+    phase("random.permutation card vs CPU", card_line, bitwise=same,
+          ms=ms, rounds={n: random._shuffle_rounds(n) for n in PERM_SIZES})
+    if not all(same.values()):
+        fail(f"random.permutation on the card differs from the CPU: {same}")
+
+
+def dcd_phase(card_line, key, pop) -> None:
+    """``sel_tournament_dcd`` on a 1e5-point DTLZ2 population (NSGA-III's
+    at full width): card equal to CPU bit for bit."""
+    import torch
+    from deap_tpu_torch.ops import emo
+    n = pop.size
+    kc = key.cpu()
+    fc = pop.fitness
+    fh = type(fc)(fc.values.cpu(), fc.valid.cpu(), fc.weights)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    a = emo.sel_tournament_dcd(key, fc, n)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    b = emo.sel_tournament_dcd(kc, fh, n)
+    cpu_s = time.perf_counter() - t
+    same = torch.equal(a.cpu(), b)
+    phase("sel_tournament_dcd card vs CPU, DTLZ2 population", card_line,
+          pop=n, k=n, bitwise=same, card_seconds=card_s, cpu_seconds=cpu_s,
+          distinct_winners=int(torch.unique(a).numel()))
+    if not same:
+        fail("sel_tournament_dcd on the card differs from the CPU")
+
+
+def mo_select_reference(card_line, key, problem: str, name: str) -> None:
+    """One published generation at POP 4096 with ``BENCH_SELECT`` (or
+    the staged SPEA2), card against CPU: offspring, objective values
+    and selected indices bitwise."""
+    import torch
+    from deap_tpu_torch import random
+    dev = torch.device("cuda")
+    nobj, _ = BN_PROBLEMS[problem]
+    tb = bench_nsga2_toolbox(problem)
+    k_init, k_gen = random.split(key.cpu())
+    pop = bench_nsga2_initial(tb, k_init, problem, MO_REF_POP)
+    select = bench_select(name, nobj, MO_REF_POP)
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        p = type(pop)(pop.genome.to(d), type(pop.fitness)(
+            pop.fitness.values.to(d), pop.fitness.valid.to(d),
+            pop.fitness.weights))
+        t = time.perf_counter()
+        _, new = bench_nsga2_generation(tb, k_gen.to(d), p, select=select)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        outs.append((new, time.perf_counter() - t))
+    (c, cpu_s), (g, card_s) = outs
+    same = {"genome": torch.equal(c.genome.view(torch.int32),
+                                  g.genome.cpu().view(torch.int32)),
+            "values": torch.equal(c.fitness.values.view(torch.int32),
+                                  g.fitness.values.cpu().view(torch.int32))}
+    phase(f"reference: bench_nsga2 {name} {problem} generation card vs CPU",
+          card_line, pop=MO_REF_POP, nobj=nobj, bitwise=same,
+          cpu_seconds=cpu_s, card_seconds=card_s)
+    if not all(same.values()):
+        fail(f"bench_nsga2 {name} {problem} at POP {MO_REF_POP}: card and "
+             f"CPU differ: {same}")
+
+
+def mo_select_main_path(kernels, card_line, key, problem: str, name: str):
+    """``bench_nsga2.py`` with ``BENCH_SELECT=name`` at POP 1e5 (depth
+    cut): N and 2N generations in pairs (median marginal ms), launches
+    counted on a 2N-generation run zeroed before it, the quality metric
+    from generation 0 to the end.  Returns (launches, marginal ms, final
+    population)."""
+    import torch
+    from deap_tpu_torch import random
+    nobj, ndim = BN_PROBLEMS[problem]
+    tb = bench_nsga2_toolbox(problem)
+    k_init, k_run = random.split(key)
+    pop0 = bench_nsga2_initial(tb, k_init, problem, BN_POP)
+    select = bench_select(name, nobj, BN_POP)
+    ngen, pairs_n = MO_SEL_PATHS[name][0]
+    q0 = mo_quality(problem, pop0.fitness)
+    state = {}
+
+    def run(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        k, pop = k_run, pop0
+        for _ in range(n):
+            k, pop = bench_nsga2_generation(tb, k, pop, select=select)
+        torch.cuda.synchronize()
+        state[n] = pop
+        return time.perf_counter() - t
+
+    run(1)                                     # warm the allocator
+    kernels.reset_launches()
+    t2n = run(2 * ngen)
+    launches = dict(kernels.LAUNCHES)
+    per_gen, marginals, pairs = _timed_pairs(run, ngen, pairs_n)
+    pop = state[2 * ngen]
+    q1 = mo_quality(problem, pop.fitness)
+    ok = (tuple(pop.genome.shape) == (BN_POP, ndim)
+          and bool(torch.isfinite(pop.fitness.values).all())
+          and bool(pop.fitness.valid.all())
+          and bool(((pop.genome >= 0) & (pop.genome <= 1)).all()))
+    metric = "front_error" if problem == "dtlz2" else "hypervolume_11_11"
+    phase(f"main path: bench_nsga2 {name} {problem}", card_line, pop=BN_POP,
+          dim=ndim, nobj=nobj, chunk=bench_chunk(BN_POP),
+          divisions=BN_P[nobj] if name == "nsga3" else None,
+          ngen=[ngen, 2 * ngen], seconds=[list(p) for p in pairs],
+          counted_run_seconds=t2n, marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
+          linearity=[b / a for a, b in pairs], launches=launches,
+          launches_per_gen={k: v / (2 * ngen) for k, v in launches.items()},
+          **{f"{metric}_start": q0, f"{metric}_end": q1},
+          finite_valid_in_bounds=ok)
+    if not ok:
+        fail(f"bench_nsga2 {name} {problem}: the population is not finite, "
+             "valid, in bounds and shaped")
+    better = q1 < q0 if problem == "dtlz2" else q1 > q0
+    if not better:
+        fail(f"bench_nsga2 {name} {problem}: {metric} {q0} -> {q1}")
+    uses_k4 = name.startswith("spea2") or nobj >= 3
+    if uses_k4 and launches["rows_dominate_counts"] < 1:
+        fail(f"K4 never ran on bench_nsga2 {name} {problem}")
+    return launches, per_gen * 1e3, pop
+
+
+def spea2_checks_phase(card_line, key) -> dict:
+    """SPEA2 beyond the generation: the single program against the two
+    stage calls on the card (POP 4096 pool, both problems), and the
+    truncation branch card against CPU: 8192 DTLZ2 points on the true
+    front (distance genes 0.5), k = 4096."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.ops import emo
+    dev = torch.device("cuda")
+    k_pool, k_trunc = random.split(key)
+    staged_same = {}
+    for problem in BN_PROBLEMS:
+        nobj, ndim = BN_PROBLEMS[problem]
+        tb = bench_nsga2_toolbox(problem)
+        pool = bench_nsga2_initial(tb, random.fold_in(k_pool, nobj), problem,
+                                   2 * MO_REF_POP)
+        chunk = bench_chunk(MO_REF_POP)
+        a = emo.sel_spea2(None, pool.fitness, MO_REF_POP, chunk=chunk)
+        b = emo.sel_spea2_staged(None, pool.fitness, MO_REF_POP, chunk=chunk)
+        staged_same[problem] = torch.equal(a, b)
+    g = random.uniform(k_trunc, (TRUNC_N, 12))
+    g[:, 2:] = 0.5
+    fit = base.Fitness.empty(TRUNC_N, (-1.0,) * 3, device=dev).with_values(
+        dtlz2_values(g))
+    fh = base.Fitness(fit.values.cpu(), fit.valid.cpu(), fit.weights)
+    n_nondom = int((emo.nondominated_ranks(fit.masked_wvalues())[0] == 0)
+                   .sum().item())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    a = emo.sel_spea2(None, fit, TRUNC_K, chunk=500)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    b = emo.sel_spea2(None, fh, TRUNC_K, chunk=500)
+    cpu_s = time.perf_counter() - t
+    trunc_same = torch.equal(a.cpu(), b)
+    phase("SPEA2: staged = single on the card; truncation card vs CPU",
+          card_line, staged_equals_single=staged_same, pool=2 * MO_REF_POP,
+          trunc_points=TRUNC_N, trunc_k=TRUNC_K, nondominated=n_nondom,
+          trunc_bitwise=trunc_same, trunc_card_seconds=card_s,
+          trunc_cpu_seconds=cpu_s)
+    if not all(staged_same.values()):
+        fail(f"SPEA2: the staged calls differ from sel_spea2: {staged_same}")
+    if n_nondom <= TRUNC_K:
+        fail(f"SPEA2 truncation case: only {n_nondom} nondominated points")
+    if not trunc_same:
+        fail("SPEA2 truncation: card and CPU differ")
+    return {"truncation_card_seconds": card_s}
+
+
+def examples_phase(kernels, card_line) -> dict:
+    """``examples/ga/nsga2.py`` (ZDT1, mu 64, 100 generations) and
+    ``examples/ga/nsga3.py`` (DTLZ2, 92, 100) at their defaults on the
+    card and on the CPU: populations bitwise, the NSGA-II hypervolume at
+    (11, 11) > 116, NSGA-III's front error reported."""
+    import torch
+    from deap_tpu_torch.examples.ga import nsga2, nsga3
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    out, launches = {}, {}
+    for name, mod in (("nsga2", nsga2), ("nsga3", nsga3)):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pg, qg = mod.main(seed=1, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        launches[name] = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        pc, qc = mod.main(seed=1, verbose=False, device=cpu)
+        cpu_s = time.perf_counter() - t
+        same = (torch.equal(pg.genome.cpu().view(torch.int32),
+                            pc.genome.view(torch.int32))
+                and torch.equal(pg.fitness.values.cpu().view(torch.int32),
+                                pc.fitness.values.view(torch.int32)))
+        out[name] = dict(bitwise=same, card_seconds=card_s,
+                         cpu_seconds=cpu_s, card=qg, cpu=qc,
+                         launches=launches[name])
+    phase("examples: nsga2.py and nsga3.py at their defaults", card_line,
+          nsga2_hypervolume=out["nsga2"]["card"],
+          nsga3_front_error=out["nsga3"]["card"], runs=out)
+    for name, r in out.items():
+        if not r["bitwise"]:
+            fail(f"examples/ga/{name}.py: card and CPU populations differ")
+    if not out["nsga2"]["card"] > 116.0:
+        fail(f"examples/ga/nsga2.py: hypervolume {out['nsga2']['card']} "
+             "<= 116")
+    return launches
 
 
 def main() -> int:
@@ -3050,7 +3402,29 @@ def main() -> int:
     cma_phase(card_line, "sphere", "rbg")
     evopole_phase(kernels, card_line)
 
-    # ---- 30. the kernels line and the result -------------------------------
+    # ---- 30.-33. the rest of multi-objective --------------------------------
+    torch.cuda.empty_cache()
+    k_mo_ref, k_mo, k_dcd, k_spea = random.split(random.fold_in(key, 7), 4)
+    permutation_phase(card_line)
+    for i, problem in enumerate(BN_PROBLEMS):
+        for j, name in enumerate(MO_SEL_PATHS):
+            mo_select_reference(card_line, random.fold_in(k_mo_ref, 3 * i + j),
+                                problem, name)
+    mo_runs = {}
+    for name, (_, problems) in MO_SEL_PATHS.items():
+        for problem in problems:
+            launches_p, ms_p, mo_pop = mo_select_main_path(
+                kernels, card_line, random.fold_in(k_mo, len(mo_runs)),
+                problem, name)
+            mo_runs[f"{name} {problem}"] = launches_p
+            if (name, problem) == ("nsga3", "dtlz2"):
+                dcd_phase(card_line, k_dcd, mo_pop)
+            del mo_pop
+            torch.cuda.empty_cache()
+    spea2_checks_phase(card_line, k_spea)
+    launches_ex = examples_phase(kernels, card_line)
+
+    # ---- 34. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -3126,7 +3500,11 @@ def main() -> int:
             "NSGA-II ea_step head": launches_head["rows_dominate_counts"],
             "bench_nsga2 A (grid peel)":
                 launches_bn_a["rows_dominate_counts"],
-            "bench_nsga2 B": launches_bn_b["rows_dominate_counts"]}})
+            "bench_nsga2 B": launches_bn_b["rows_dominate_counts"],
+            **{f"bench_nsga2 {path}": v["rows_dominate_counts"]
+               for path, v in mo_runs.items()},
+            **{f"examples/ga/{ex}.py": v["rows_dominate_counts"]
+               for ex, v in launches_ex.items()}}})
     # K5 in float64 (the toolbox slot's route) on path A's final
     # population; its other inputs and float32 are in the K5 phases above
     a64 = k5["path A"]["float64"]

@@ -16,7 +16,8 @@ import torch
 
 from ._device import resolve_device
 
-__all__ = ["Toolbox", "Fitness", "Population", "dominates",
+__all__ = ["Toolbox", "Fitness", "Population", "wvalues_of", "dominates",
+           "dominance_matrix", "lex_cmp_matrix", "lex_argmax",
            "lex_sort_indices"]
 
 
@@ -129,10 +130,47 @@ class Fitness:
                                    valid=self.valid[idx])
 
 
+def wvalues_of(values: torch.Tensor, weights: Sequence[float]) -> torch.Tensor:
+    """``values * weights`` (weights as a tensor of the values' dtype)."""
+    return values * torch.tensor(tuple(weights), dtype=values.dtype,
+                                 device=values.device)
+
+
 def dominates(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
     """Pareto dominance on weighted values: every objective ``>=`` and at
     least one ``>``.  Broadcasts over leading axes."""
     return (wa >= wb).all(-1) & (wa > wb).any(-1)
+
+
+def dominance_matrix(w: torch.Tensor) -> torch.Tensor:
+    """``(n, n)`` bool, ``[i, j]`` = row i dominates row j."""
+    return dominates(w[:, None, :], w[None, :, :])
+
+
+def lex_cmp_matrix(w: torch.Tensor) -> torch.Tensor:
+    """``(n, n)`` int8 lexicographic comparison of the rows of wvalues:
+    +1 where row i > row j at their first differing objective, -1 where
+    it is smaller, 0 where the rows are equal (a NaN differs from
+    everything and compares as neither, as in the JAX package)."""
+    neq = w[:, None, :] != w[None, :, :]
+    first = torch.argmax(neq.to(torch.int8), dim=-1, keepdim=True)
+    wi = torch.gather(w[:, None, :].expand(neq.shape), -1, first)[..., 0]
+    wj = torch.gather(w[None, :, :].expand(neq.shape), -1, first)[..., 0]
+    sign = torch.sign(wi - wj).to(torch.int8)
+    return torch.where(neq.any(-1), sign, torch.zeros_like(sign))
+
+
+def lex_argmax(w: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Index of the lexicographically largest row along ``axis`` of a
+    ``(..., k, nobj)`` tensor (the first such index on ties): narrow a
+    still-tied mask one objective at a time."""
+    w = torch.movedim(w, axis, -2)
+    alive = torch.ones(w.shape[:-1], dtype=torch.bool, device=w.device)
+    for j in range(w.shape[-1]):
+        col = torch.where(alive, w[..., j], float("-inf"))
+        best = torch.amax(col, dim=-1, keepdim=True)
+        alive = alive & (col >= best)
+    return torch.argmax(alive.to(torch.int8), dim=-1)
 
 
 def _sort_key(k: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ neuroevolution genome), fitness
 by its ``dtype`` and ``bound`` fields, and the state of a CMA strategy
 or an archive, read field by field from any object that has the JAX
 package's field names (``CMAState``, ``OnePlusLambdaState``,
-``_ArchiveState``).
+``_ArchiveState``), and the memory of ``SelNSGA3WithMemory`` (its
+``best_point`` and ``extreme_points``, host arrays in both packages).
 
 Like every entry point that creates tensors, the ``*_to_torch``
 functions default to ``device="cuda"`` and raise
@@ -36,7 +37,8 @@ from .utils.support import _ArchiveState
 __all__ = ["key_to_torch", "key_to_numpy", "genome_to_torch",
            "genome_to_numpy", "population_to_torch", "population_to_numpy",
            "storage_to_torch", "cma_state_to_torch",
-           "one_plus_lambda_state_to_torch", "archive_state_to_torch"]
+           "one_plus_lambda_state_to_torch", "archive_state_to_torch",
+           "nsga3_memory_to_torch"]
 
 
 def key_to_torch(key, device=None) -> torch.Tensor:
@@ -143,3 +145,22 @@ def archive_state_to_torch(state, device=None) -> _ArchiveState:
         values=torch.tensor(np.asarray(state.values), device=device),
         filled=torch.tensor(np.asarray(state.filled, bool), device=device),
         weights=tuple(float(w) for w in state.weights))
+
+
+def nsga3_memory_to_torch(ideal, extreme):
+    """The JAX package's ``SelNSGA3WithMemory`` state (``best_point``
+    ``(nobj,)``, ``extreme_points`` ``(nobj, nobj)`` or ``None``) → the
+    port's ``(best_point, extreme_points)``: float32 host arrays, which
+    the port's :class:`~deap_tpu_torch.ops.emo.SelNSGA3WithMemory` keeps
+    as they are (``sel.best_point, sel.extreme_points = ...``)."""
+    ideal = np.array(ideal, dtype=np.float32)
+    if ideal.ndim != 1:
+        raise ValueError(f"best_point of shape {ideal.shape}: expected "
+                         "(nobj,)")
+    if extreme is None:
+        return ideal, None
+    extreme = np.array(extreme, dtype=np.float32)
+    if extreme.shape != (ideal.shape[0],) * 2:
+        raise ValueError(f"extreme_points of shape {extreme.shape}: "
+                         f"expected {(ideal.shape[0],) * 2}")
+    return ideal, extreme

@@ -14,6 +14,20 @@ from ._dispatch import batched_op
 __all__ = ["cx_two_point", "cx_blend", "cx_simulated_binary_bounded"]
 
 
+def key_parts(key, num: int) -> list:
+    """``split(key, num)`` as a list of ``num`` keys, for one key or a
+    batch of keys (key ``i`` of every batch row)."""
+    ks = random.split(key, num)
+    return [ks[..., i, :] for i in range(num)]
+
+
+def draw_shape(key, ind) -> tuple:
+    """The draw shape of a shape-polymorphic operator: the whole of
+    ``ind`` for one key; for a batch of keys, a row each (the key batch
+    supplies the leading axes)."""
+    return tuple(ind.shape[key.ndim - 1:])
+
+
 def _two_cut_points(key, size, low=1, shape=()):
     """Two distinct cut points with the reference's law: ``c1`` in
     ``[low, size]``, ``c2`` in ``[low, size-1]`` bumped past ``c1``, then
@@ -78,7 +92,10 @@ def cx_simulated_binary_bounded(key, ind1, ind2, eta, low, up):
     """Bounded SBX as NSGA-II uses it: each gene is crossed with
     probability 0.5 where the parents differ; the spread factor is
     corrected for the bounds, the children are clipped and swapped at
-    random.  Shape-polymorphic: one key serves a ``(n, size)`` batch.
+    random.  Shape-polymorphic: one key serves a ``(n, size)`` batch, and
+    a batch of ``n`` keys draws row ``r`` from key ``r`` (``jax.vmap`` of
+    the per-pair operator over ``split`` keys, as the NSGA-II example
+    calls it).
 
     The float32 operations are the ones XLA's CPU backend runs when the
     operator is jitted inside a generation (``vary_genome`` in a scanned
@@ -90,12 +107,13 @@ def cx_simulated_binary_bounded(key, ind1, ind2, eta, low, up):
     fusions and contracts it, which moves 0.3% of the genes by one ulp
     (pinned in ``tests/test_torch_sbx_poly.py``)."""
     low, up = _bounds(low, ind1), _bounds(up, ind1)
-    k_apply, k_rand, k_swap = random.split(key, 3)
-    apply_ = random.bernoulli(k_apply, 0.5, ind1.shape) & (
+    k_apply, k_rand, k_swap = key_parts(key, 3)
+    shape = draw_shape(key, ind1)
+    apply_ = random.bernoulli(k_apply, 0.5, shape) & (
         (ind1 - ind2).abs() > 1e-14)
     x1 = torch.minimum(ind1, ind2)
     x2 = torch.maximum(ind1, ind2)
-    rand = random.uniform(k_rand, ind1.shape)
+    rand = random.uniform(k_rand, shape)
     gap = x2 - x1
     diff = torch.where(gap > 1e-14, gap, 1.0)         # guarded denominator
     total = x1 + x2
@@ -114,7 +132,7 @@ def cx_simulated_binary_bounded(key, ind1, ind2, eta, low, up):
     c2 = 0.5 * fma(beta_q(beta2), diff, total)
     c1 = _clip(c1, low, up)
     c2 = _clip(c2, low, up)
-    swap = random.bernoulli(k_swap, 0.5, ind1.shape)
+    swap = random.bernoulli(k_swap, 0.5, shape)
     o1 = torch.where(swap, c2, c1)
     o2 = torch.where(swap, c1, c2)
     return torch.where(apply_, o1, ind1), torch.where(apply_, o2, ind2)

@@ -1,9 +1,10 @@
 """Quality indicators — the PyTorch counterparts of
 ``deap_tpu/ops/indicator.py``.
 
-:func:`hypervolume` returns the index of the *least-contributing*
-individual of a nondominated front, for indicator-based selection
-(MO-CMA-ES).  Fronts are :class:`~deap_tpu_torch.base.Fitness` objects,
+:func:`hypervolume`, :func:`additive_epsilon` and
+:func:`multiplicative_epsilon` return the index of the
+*least-contributing* individual of a nondominated front, for
+indicator-based selection (MO-CMA-ES).  Fronts are :class:`~deap_tpu_torch.base.Fitness` objects,
 weighted-values tensors or arrays ``(n, nobj)``; as in the reference the
 objective space inside is ``-wvalues`` (implicit minimisation).  The
 host functions run in numpy on a host copy; :func:`hypervolume_contributions_2d`
@@ -18,8 +19,8 @@ import torch
 from ..base import Fitness, lexsort
 from .hv import hypervolume as _hv
 
-__all__ = ["hypervolume", "hypervolume_contributions",
-           "hypervolume_contributions_2d"]
+__all__ = ["hypervolume", "additive_epsilon", "multiplicative_epsilon",
+           "hypervolume_contributions", "hypervolume_contributions_2d"]
 
 
 def _wobj(front) -> np.ndarray:
@@ -113,3 +114,21 @@ def hypervolume_contributions_2d(obj: torch.Tensor, mask: torch.Tensor,
     out = torch.zeros(n, dtype=obj.dtype, device=obj.device)
     out[order] = contrib
     return out
+
+
+def additive_epsilon(front, **kargs) -> int:
+    """Least additive-epsilon contributor: the point whose smallest
+    worst-case objective gap to another point is smallest (host numpy)."""
+    wobj = _wobj(front)
+    worst = np.max(wobj[:, None, :] - wobj[None, :, :], axis=2)
+    np.fill_diagonal(worst, np.inf)
+    return int(np.argmin(np.min(worst, axis=1)))
+
+
+def multiplicative_epsilon(front, **kargs) -> int:
+    """Least multiplicative-epsilon contributor, by objective ratios
+    (host numpy)."""
+    wobj = _wobj(front)
+    worst = np.max(wobj[:, None, :] / wobj[None, :, :], axis=2)
+    np.fill_diagonal(worst, np.inf)
+    return int(np.argmin(np.min(worst, axis=1)))

@@ -11,7 +11,7 @@ import torch
 from .. import random
 from .._xla_math import fma, pow as xla_pow
 from ._dispatch import batched_op
-from .crossover import _bounds, _clip
+from .crossover import _bounds, _clip, draw_shape, key_parts
 
 __all__ = ["mut_gaussian", "mut_polynomial_bounded", "mut_flip_bit"]
 
@@ -62,11 +62,14 @@ def mut_polynomial_bounded(key, ind, eta, low, up, indpb):
     :func:`~deap_tpu_torch._xla_math.fma`; in the mirrored
     ``2 (1 - rand) + 2 (rand - 0.5) p`` XLA's backend fuses the exact
     doubling instead, so the product is rounded on its own.  The four
-    powers of a gene go through :func:`deap_tpu_torch._xla_math.pow`."""
+    powers of a gene go through :func:`deap_tpu_torch._xla_math.pow`.
+    A batch of keys draws row ``r`` from key ``r``, as
+    :func:`~deap_tpu_torch.ops.crossover.cx_simulated_binary_bounded`."""
     low, up = _bounds(low, ind), _bounds(up, ind)
-    k_mask, k_rand = random.split(key)
-    mask = random.bernoulli(k_mask, indpb, ind.shape)
-    rand = random.uniform(k_rand, ind.shape)
+    k_mask, k_rand = key_parts(key, 2)
+    shape = draw_shape(key, ind)
+    mask = random.bernoulli(k_mask, indpb, shape)
+    rand = random.uniform(k_rand, shape)
     if torch.is_tensor(low) or torch.is_tensor(up):
         span = torch.where(torch.as_tensor(up > low), up - low, 1.0)
         inv_span = 1.0 / span

@@ -36,10 +36,9 @@ name and power limit, or ``"cpu"``); the kernels' records add the least
 time of their work on the card (``bound_ms``, ``bound_by``).
 
 Inputs are the JAX tool's, drawn with the port's threefry ``random``
-(bitwise the same), except the permutation tables of ``gidx`` and
-``lookup``: ``random.permutation`` is not ported, so they come from
-``torch.randperm`` under an explicit seed and hold other values than the
-JAX tool's (the probes measure cost, which the values do not change).
+under the JAX tool's keys (bitwise the same), the permutation tables of
+``gidx`` (``split(PRNGKey(0))[1]``) and ``lookup`` (``PRNGKey(0)``)
+included.
 
 ``--recommend`` folds the gather probes into the gather the port's
 ``fused_generation`` would take on this card: ``"dma"`` (K2's in-kernel
@@ -66,7 +65,7 @@ from . import PAIRS, ProbeRun
 
 __all__ = ["POP", "DIM", "LANE", "K_ITERS", "PROBES", "stream", "chain24",
            "rast_reduce", "rast_inputs", "hash_normal", "lookup",
-           "lookup_inputs", "row_gather",
+           "lookup_inputs", "gidx_table", "lookup_table", "row_gather",
            "kernel_bound", "recommend_defaults", "main"]
 
 POP = 1 << 20          # 1,048,576 -- the flagship population
@@ -274,9 +273,17 @@ def _key(seed: int, run: ProbeRun):
     return random.PRNGKey(seed, device=run.device)
 
 
-def _permutation(n: int, run: ProbeRun) -> torch.Tensor:
-    gen = torch.Generator().manual_seed(0)
-    return torch.randperm(n, generator=gen).to(torch.int32).to(run.device)
+def gidx_table(pop: int, device=None) -> torch.Tensor:
+    """``gidx``'s table: ``permutation(split(PRNGKey(0))[1], pop)``, as
+    the JAX tool draws it."""
+    return random.permutation(random.split(random.PRNGKey(
+        0, device=device))[1], pop)
+
+
+def lookup_table(pop: int, device=None) -> torch.Tensor:
+    """``lookup``'s table: ``permutation(PRNGKey(0), pop)``, as the JAX
+    tool draws it."""
+    return random.permutation(random.PRNGKey(0, device=device), pop)
 
 
 def probe_sort(run: ProbeRun) -> None:
@@ -301,7 +308,7 @@ def probe_sort(run: ProbeRun) -> None:
 def probe_gidx(run: ProbeRun) -> None:
     pop = run.pop
     kp = random.split(_key(0, run))[0]
-    order = _permutation(pop, run)
+    order = gidx_table(pop, run.device)
     pos = random.randint(kp, (pop,), 0, pop)
 
     def variant(name, get, **extra):
@@ -439,7 +446,7 @@ def probe_rast(run: ProbeRun) -> None:
 
 def probe_lookup(run: ProbeRun) -> None:
     pop = run.pop
-    order = _permutation(pop, run)
+    order = lookup_table(pop, run.device)
     pos = random.randint(_key(1, run), (pop,), 0, pop)
 
     def step(p):

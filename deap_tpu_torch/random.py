@@ -46,7 +46,8 @@ from ._device import resolve_device
 from ._xla_math import erf_inv, fma
 
 __all__ = ["PRNGKey", "default_impl", "impl_of", "key_data", "split",
-           "fold_in", "bits", "uniform", "bernoulli", "randint", "normal"]
+           "fold_in", "bits", "uniform", "bernoulli", "randint", "normal",
+           "permutation", "shuffle"]
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -380,3 +381,36 @@ def normal_erf_inv(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     that multiply the normal (``mut_gaussian``'s ``sigma``)."""
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
     return erf_inv(uniform(key, shape, torch.float32, lo, 1.0))
+
+
+def _shuffle_rounds(n: int) -> int:
+    """jax's static round count: ``ceil(3 ln(max(1, n)) / ln(2**32 - 1))``
+    (one round up to n = 1625, two from there to beyond 2**20)."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(float(M32))))
+
+
+def shuffle(key: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The rows of ``x`` in a random order, as ``jax.random.permutation``
+    gives them for an array: each round splits the key, draws one 32-bit
+    sort key a row and sorts the rows by it, stably (ties keep their
+    order, so the result is the same on every device).  The words are
+    sorted as int64, whose order is uint32's on the CPU and the card."""
+    if key.ndim != 1:
+        raise ValueError("permutation takes one key, not a batch: shape "
+                         f"{tuple(key.shape)}")
+    n = x.shape[0]
+    for _ in range(_shuffle_rounds(n)):
+        key, sub = split(key)
+        order = torch.sort(bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def permutation(key: torch.Tensor, x) -> torch.Tensor:
+    """``jax.random.permutation``: for an integer ``n``, a random int32
+    permutation of ``arange(n)``; for a tensor, its rows shuffled (see
+    :func:`shuffle`)."""
+    if torch.is_tensor(x):
+        return shuffle(key, x)
+    return shuffle(key, torch.arange(int(x), dtype=torch.int32,
+                                     device=key.device))

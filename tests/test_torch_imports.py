@@ -48,7 +48,10 @@ def test_port_sources_exist():
                 "deap_tpu_torch/ops/indicator.py",
                 "deap_tpu_torch/examples/__init__.py",
                 "deap_tpu_torch/examples/ga/__init__.py",
-                "deap_tpu_torch/examples/ga/evopole.py"):
+                "deap_tpu_torch/examples/ga/evopole.py",
+                "deap_tpu_torch/ops/constraint.py",
+                "deap_tpu_torch/examples/ga/nsga2.py",
+                "deap_tpu_torch/examples/ga/nsga3.py"):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
                "hypervolume.cu", "probes.cu", "device_math.cuh"):
@@ -104,7 +107,8 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.ops.mutation, deap_tpu_torch.kernels.sass, "
             "deap_tpu_torch.kernels.peaks, "
             "deap_tpu_torch.probes, deap_tpu_torch.probes.ga, "
-            "deap_tpu_torch.probes.gp; "
+            "deap_tpu_torch.probes.gp, deap_tpu_torch.ops.constraint, "
+            "deap_tpu_torch.ops.indicator, deap_tpu_torch.random; "
             "deap_tpu_torch.base.Toolbox().hypervolume; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "
@@ -124,7 +128,9 @@ def test_port_examples_load_no_jax():
     """The port's examples (the evopole counterpart keeps its own copy of
     the JAX example's constants and functions) pull in no JAX, nothing
     of the JAX package and nothing of the repo's ``examples``."""
-    code = ("import sys; import deap_tpu_torch.examples.ga.evopole; "
+    code = ("import sys; import deap_tpu_torch.examples.ga.evopole, "
+            "deap_tpu_torch.examples.ga.nsga2, "
+            "deap_tpu_torch.examples.ga.nsga3; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu', 'examples')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -199,8 +199,7 @@ def _var_or_inputs(dev, n, lam, st, dim=DIM):
 
 def _dtlz2_w(dev, n, seed=7):
     x = random.uniform(random.PRNGKey(seed, device=dev), (n, 12))
-    v = torch.func.vmap(lambda g: torch.stack(benchmarks.dtlz2(g, 3)))(x)
-    return -v
+    return -torch.stack(benchmarks.dtlz2(x, 3), 1)
 
 
 @pytest.mark.gpu
@@ -263,6 +262,52 @@ def test_sel_nsga2_on_card_equals_cpu():
                     weights=(-1.0,) * 3)
         out.append(E.sel_nsga2(None, f, 1024, nd="peel", front_chunk=256))
     assert torch.equal(out[0].cpu(), out[1])
+
+
+@pytest.mark.gpu
+def test_spea2_strength_on_card_with_inf_rows():
+    """SPEA2's strength through K4 with the roles swapped: ``-w`` rows,
+    where the masked ``-inf`` rows become ``+inf``, equal the plain
+    version's counts."""
+    dev = _cuda()
+    w = _dtlz2_w(dev, 20_000, seed=11)
+    w[:64] = w[64:128]
+    w[::13] = float("-inf")
+    nw = (-w).contiguous()
+    kernels.reset_launches()
+    k4 = D.rows_dominate_counts(nw, nw)
+    p4 = D._rows_dominate_counts_plain(nw, nw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rows_dominate_counts"] == 1
+    assert torch.equal(k4, p4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["threefry2x32", "rbg"])
+@pytest.mark.parametrize("n", [1000, 1 << 20])
+def test_permutation_on_card_equals_cpu(impl, n):
+    dev = _cuda()
+    key = random.PRNGKey(n, impl=impl, device="cpu")
+    assert torch.equal(random.permutation(key.to(dev), n).cpu(),
+                       random.permutation(key, n))
+
+
+@pytest.mark.gpu
+def test_nsga3_and_spea2_on_card_equal_cpu():
+    dev = _cuda()
+    values = -_dtlz2_w(dev, 2048, seed=5)
+    rp = E.uniform_reference_points(3, 12)
+    out = []
+    for d in (dev, "cpu"):
+        f = Fitness(values=values.to(d),
+                    valid=torch.ones(2048, dtype=torch.bool, device=d),
+                    weights=(-1.0,) * 3)
+        key = random.PRNGKey(3, device=d)
+        out.append((E.sel_nsga3(key, f, 1024, rp).cpu(),
+                    E.sel_spea2(key, f, 1024, chunk=500).cpu(),
+                    E.sel_spea2_staged(key, f, 1024, chunk=500).cpu()))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
 
 
 def _gp_pset(which):
