@@ -222,12 +222,42 @@
              generations; hypervolume > 116) and ``examples/ga/nsga3.py``
              (DTLZ2, 92, 100; its front error) at their defaults, card
              and CPU populations bitwise;
-34. the ``kernels`` line, the card's name and power limit, and the result
+34. GP operators — on a POP 4096 x CAP 64 population three bench
+             generations old (the semantic operators on the bench set
+             with ``lf``): ``mut_node_replacement``, ``mut_ephemeral``
+             (one and all), ``mut_insert``, ``mut_shrink``,
+             ``mut_semantic``, ``cx_semantic`` and ``static_limit``
+             (height 17) around ``cx_one_point`` and ``mut_uniform``, the
+             card's children against the CPU's from the same keys
+             bitwise, then K6 on the children against the plain
+             interpreter bitwise (time, bound);
+35. HARM-GP — two generations at POP 512 (2000 natural children) on the
+             bench toolbox, each from the CPU's population before it, card
+             against CPU (trees bitwise, fitness within rtol 1e-5), then
+             POP 4096 with symbreg_harm.py's parameters: N = 2 and 2N,
+             three pairs (median marginal ms), K6 once a generation and
+             once before, the mean size;
+36. the bench generation with each new mutation in place of
+             ``mut_uniform`` and with ``static_limit`` on both operators
+             (N = 2 and 2N, three pairs, K6 once a generation);
+37. lexicase — ``sel_lexicase``, ``sel_epsilon_lexicase``,
+             ``sel_automatic_epsilon_lexicase`` and
+             ``sel_double_tournament`` (both orders) card against CPU on
+             512 trees' errors at 128 points, bitwise; then automatic
+             epsilon-lexicase alone over the bench population's 4096 x
+             1024 case errors (three calls, median) and two bench
+             generations that select with it (K6 counted);
+38. GP examples — the eight of ``deap_tpu_torch/examples/gp/`` at their
+             defaults on the card, each against ``tests/test_examples.py``'s
+             check, and card = CPU bitwise on the final population (trees
+             and every individual's fitness; the ant at the tests' depth
+             of 3 generations: the CPU would take minutes);
+39. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
-``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12 and 15, a
-per-stage and ``torch.profiler`` breakdown of a main-path generation of
-each path.
+``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12, 15, 35
+and 37, a per-stage and ``torch.profiler`` breakdown of a main-path
+generation of each path.
 
 Tolerance: K1-K4, K6 and P1-P5 must equal their plain versions bit for
 bit (the stated ulp bound is 0; K6's NaNs compare equal whatever their
@@ -977,18 +1007,22 @@ GP_OP_COST = {
     "xor": (4, 0, 0), "not": (2, 0, 0), "if": (2, 0, 0)}
 
 
-def gp_toolbox(dev, pset_kind: str = "bench", per_tree: bool = False):
+def gp_toolbox(dev, pset_kind: str = "bench", per_tree: bool = False,
+               **options):
     """bench_gp.py's primitive set, data and toolbox on ``dev``
-    (``deap_tpu_torch.probes.gp.bench_toolbox``); ``"all"`` is a second
-    set with every opcode of K6's table."""
+    (``deap_tpu_torch.probes.gp.bench_toolbox``, with its operator and
+    selection ``options``); ``"all"`` is a second set with every opcode
+    of K6's table, ``"semantic"`` the bench set with ``lf``."""
     from deap_tpu_torch.probes.gp import bench_toolbox
-    return bench_toolbox(dev, pset_kind, per_tree, GP_CAP, GP_NPOINTS)
+    return bench_toolbox(dev, pset_kind, per_tree, GP_CAP, GP_NPOINTS,
+                         **options)
 
 
-def gp_initial(tb, gen_init, key, n: int):
-    """``n`` half-and-half trees of depth 1-3, evaluated."""
+def gp_initial(tb, gen_init, key, n: int, nobj: int = 1):
+    """``n`` half-and-half trees of depth 1-3, evaluated (``nobj``
+    objectives)."""
     from deap_tpu_torch.probes.gp import bench_initial
-    return bench_initial(tb, gen_init, key, n)
+    return bench_initial(tb, gen_init, key, n, nobj)
 
 
 def gp_generation(tb, key, pop):
@@ -3105,6 +3139,545 @@ def examples_phase(kernels, card_line) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the rest of GP: the remaining tree operators, static_limit, HARM-GP, the
+# lexicase and double-tournament selections, and the eight GP examples
+# (ADFs, routines) — K6 evaluates every bench-width generation
+# ---------------------------------------------------------------------------
+
+# the operators of phase 34, in order: (name, mutation or crossover, the
+# pset it needs)
+GP_NEW_OPS = (("mut_node_replacement", "bench"), ("mut_ephemeral one",
+                                                  "bench"),
+              ("mut_ephemeral all", "bench"), ("mut_insert", "bench"),
+              ("mut_shrink", "bench"), ("mut_semantic", "semantic"),
+              ("cx_semantic", "semantic"),
+              ("static_limit(cx_one_point)", "bench"),
+              ("static_limit(mut_uniform)", "bench"))
+GP_OPS_WARM_GENS = 3               # bench generations before the operators
+# symbreg_harm.py's HARM parameters
+HARM_KW = dict(alpha=0.05, beta=10.0, gamma=0.25, rho=0.9, mincutoff=10)
+HARM_REF_POP, HARM_REF_GENS = 512, 2
+HARM_NGEN, HARM_PAIRS = 2, 3
+# the bench generation with each new mutation and with static_limit
+GP_VARIANT_NGEN, GP_VARIANT_PAIRS = 2, 3
+LEX_REF_N, LEX_REF_CASES = 512, 128
+LEX_EPS = 0.1
+LEX_REPS = 3
+# the examples: default generations on the card; on the CPU at the
+# defaults where that takes seconds, else at tests/test_examples.py's depth
+GP_EXAMPLES = ("symbreg", "symbreg_epsilon_lexicase", "symbreg_harm",
+               "adf_symbreg", "multiplexer", "parity", "spambase", "ant")
+GP_EXAMPLE_CPU_DEPTH = {"ant": 3}
+GP_EXAMPLE_CHECKS = {"multiplexer": 56, "parity": 8, "spambase": 0.6,
+                     "ant": 20}
+
+
+def _same_tensors(a, b) -> bool:
+    import torch
+    ta, tb = (x if isinstance(x, (tuple, list)) else (x,) for x in (a, b))
+    out = True
+    for x, y in zip(ta, tb):
+        if isinstance(x, (tuple, list)):
+            out = out and _same_tensors(x, y)
+            continue
+        x, y = x.cpu(), y.cpu()
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        out = out and torch.equal(x, y)
+    return out
+
+
+def gp_operator(name, ps, gen_mut):
+    """``(op(keys, *trees), arity)`` for a phase-34 operator name."""
+    from deap_tpu_torch import gp
+    from deap_tpu_torch.probes.gp import HEIGHT_LIMIT
+    frozen = ps.freeze()
+
+    def height(t):
+        return gp.tree_height(t[0], t[2], frozen.tables(t[0].device)["arity"])
+    expr = lambda kk: gen_mut(kk, 0, 2)                     # noqa: E731
+    ops = {
+        "mut_node_replacement": (lambda k, t: gp.mut_node_replacement(
+            k, t, ps), 1),
+        "mut_ephemeral one": (lambda k, t: gp.mut_ephemeral(
+            k, t, ps, mode="one"), 1),
+        "mut_ephemeral all": (lambda k, t: gp.mut_ephemeral(
+            k, t, ps, mode="all"), 1),
+        "mut_insert": (lambda k, t: gp.mut_insert(k, t, ps), 1),
+        "mut_shrink": (lambda k, t: gp.mut_shrink(k, t, ps), 1),
+        "mut_semantic": (lambda k, t: gp.mut_semantic(k, t, ps), 1),
+        "cx_semantic": (lambda k, a, b: gp.cx_semantic(k, a, b, ps), 2),
+        "static_limit(cx_one_point)": (lambda k, a, b: gp.static_limit(
+            height, HEIGHT_LIMIT)(gp.cx_one_point)(k, a, b, ps), 2),
+        "static_limit(mut_uniform)": (lambda k, t: gp.static_limit(
+            height, HEIGHT_LIMIT)(gp.mut_uniform)(k, t, expr, ps), 1)}
+    return ops[name]
+
+
+def gp_operators_phase(kernels, card_line, key, dev) -> dict:
+    """Phase 34: each new operator and ``static_limit`` (height <= 17)
+    on a POP 4096 x CAP 64 population a few bench generations old (the
+    semantic ones on the bench set with ``lf``): the card's children
+    against the CPU's from the same keys, bitwise; then K6 on the
+    children against the plain interpreter, bitwise (``k6_check``)."""
+    import torch
+    from deap_tpu_torch import random
+    cpu = torch.device("cpu")
+    out, k6 = {}, {}
+    pops = {}
+    for kind in ("bench", "semantic"):
+        ps, tb, _, gen_init, X = gp_toolbox(dev, kind)
+        k_init, k_run = random.split(random.fold_in(key, len(pops)))
+        pop = gp_initial(tb, gen_init, k_init, GP_POP)
+        for _ in range(GP_OPS_WARM_GENS):
+            k_run, pop, _ = gp_generation(tb, k_run, pop)
+        pops[kind] = (ps, pop.genome, X)
+    for i, (name, kind) in enumerate(GP_NEW_OPS):
+        ps, genome, X = pops[kind]
+        from deap_tpu_torch import gp
+        gen_mut = gp.make_generator(ps, GP_CAP, "full")
+        op, arity = gp_operator(name, ps, gen_mut)
+        k_op = random.fold_in(key, 100 + i)
+        n = GP_POP // arity
+        keys = random.split(k_op, n)
+        if arity == 1:
+            args = (genome,)
+        else:
+            args = (tuple(g[:n] for g in genome),
+                    tuple(g[n:2 * n] for g in genome))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = op(keys, *args)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        host = op(keys.to(cpu), *(tuple(g.to(cpu) for g in a) for a in args))
+        cpu_s = time.perf_counter() - t
+        same = _same_tensors(card, host)
+        kids = card if arity == 1 else tuple(torch.cat([a, b])
+                                             for a, b in zip(*card))
+        parents = genome if arity == 1 else tuple(
+            torch.cat([a, b]) for a, b in zip(*args))
+        changed = ((kids[2] != parents[2]) | (kids[0] != parents[0]).any(1)
+                   | (kids[1] != parents[1]).any(1))
+        full = kids[2] == GP_CAP
+        lf = ps.freeze().names.index("lf") if kind == "semantic" else -1
+        out[name] = dict(card_cpu_bitwise=same, card_s=card_s, cpu_s=cpu_s,
+                         rows_changed=int(changed.sum()),
+                         rows_at_capacity=int(full.sum()),
+                         mean_length=float(kids[2].float().mean()),
+                         rows_with_lf=int((kids[0] == lf).any(1).sum())
+                         if lf >= 0 else None)
+        if not same:
+            fail(f"{name} on the card differs from the CPU at {GP_POP} x "
+                 f"{GP_CAP}")
+        k6[name] = k6_check(kernels, card_line, f"children of {name}",
+                            ps.freeze(), kids, X)
+    phase("GP operators card vs CPU at bench width, K6 on the children",
+          card_line, pop=GP_POP, cap=GP_CAP, warm_generations=GP_OPS_WARM_GENS,
+          operators=out)
+    return k6
+
+
+def harm_reference_chain(key):
+    """The CPU's side of phase 35: the initial POP 512 population from
+    ``key``, then ``HARM_REF_GENS`` generations each from the one before."""
+    import torch
+    from deap_tpu_torch import gp, random
+    _, tb, _, gen, _ = gp_toolbox(torch.device("cpu"))
+    chain = [gp_initial(tb, gen, key, HARM_REF_POP)]
+    k = random.fold_in(key, 1)
+    for _ in range(HARM_REF_GENS):
+        chain.append(gp.harm(k, chain[-1], tb, GP_CXPB, GP_MUTPB, 1,
+                             **HARM_KW)[0])
+        k = random.split(k, 4)[0]
+    return chain
+
+
+def harm_phase(kernels, card_line, key, dev) -> tuple:
+    """Phase 35: HARM-GP.  Two generations at POP 512 (2000 natural
+    children) on the bench toolbox, each from the CPU's population and
+    key before it, card against CPU: trees bitwise, fitness within
+    ``GP_FITNESS_RTOL`` (the MSE's mean reduces in another order on the
+    card).  Then POP 4096 with symbreg_harm.py's parameters: N and 2N
+    generations in pairs (median marginal ms), K6 counted, the mean size
+    and best MSE."""
+    import torch
+    from deap_tpu_torch import base, gp, random
+    k_ref, k_init, k_run = random.split(key, 3)
+    _, tb_d, ev_d, _, _ = gp_toolbox(dev)
+    t = time.perf_counter()
+    chain = harm_reference_chain(k_ref.cpu())
+    cpu_s = time.perf_counter() - t
+    k = random.fold_in(k_ref, 1)
+    ref = []
+    for pop_h, pop_h1 in zip(chain, chain[1:]):
+        pop_d = base.Population(tuple(g.to(dev) for g in pop_h.genome),
+                                base.Fitness(pop_h.fitness.values.to(dev),
+                                             pop_h.fitness.valid.to(dev),
+                                             (-1.0,)))
+        out_d, _ = gp.harm(k, pop_d, tb_d, GP_CXPB, GP_MUTPB, 1, **HARM_KW)
+        trees = _same_tensors(out_d.genome, pop_h1.genome)
+        v1, fd = pop_h1.fitness.values, out_d.fitness.values.cpu()
+        rel = float(((v1 - fd).abs() / v1.abs().clamp(min=1e-30)).max())
+        ref.append(dict(trees_bitwise=trees, fitness_max_rel_err=rel))
+        if not (trees and rel <= GP_FITNESS_RTOL):
+            fail(f"HARM generation on the card differs from the CPU: trees "
+                 f"{trees}, fitness rel err {rel}")
+        k = random.split(k, 4)[0]
+    # full width
+    ps, tb, pop_ev, gen_init, X = gp_toolbox(dev)
+    pop0 = gp_initial(tb, gen_init, k_init, GP_POP)
+    state = {}
+
+    def run(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pop, log = gp.harm(k_run, pop0, tb, GP_CXPB, GP_MUTPB, n, **HARM_KW)
+        torch.cuda.synchronize()
+        state[n] = pop
+        return time.perf_counter() - t
+
+    run(1)
+    kernels.reset_launches()
+    t2n = run(2 * HARM_NGEN)
+    launches = dict(kernels.LAUNCHES)
+    per_gen, marginals, pairs = _timed_pairs(run, HARM_NGEN, HARM_PAIRS)
+    pop = state[2 * HARM_NGEN]
+    size0 = float(pop0.genome[2].float().mean())
+    size1 = float(pop.genome[2].float().mean())
+    best0 = float(pop0.fitness.values.min())
+    best1 = float(pop.fitness.values.min())
+    ok = bool(pop.fitness.valid.all()) and bool(
+        torch.isfinite(pop.fitness.values).all())
+    phase("HARM-GP at bench width (symbreg_harm.py's parameters)", card_line,
+          reference=dict(pop=HARM_REF_POP, natural=max(2000, HARM_REF_POP),
+                         generations=ref, fitness_rtol=GP_FITNESS_RTOL,
+                         cpu_chain_s=cpu_s),
+          pop=GP_POP, cap=GP_CAP, points=GP_NPOINTS,
+          natural=max(2000, GP_POP), ngen=[HARM_NGEN, 2 * HARM_NGEN],
+          seconds=[list(p) for p in pairs], counted_run_seconds=t2n,
+          marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
+          launches=launches, mean_size_start=size0, mean_size_end=size1,
+          best_mse_start=best0, best_mse_end=best1, valid_finite=ok,
+          evaluator_backend=pop_ev.last_backend)
+    if launches["gp_interp"] != 2 * HARM_NGEN + 1:
+        fail(f"K6 ran {launches['gp_interp']} times in {2 * HARM_NGEN} HARM "
+             f"generations (expected {2 * HARM_NGEN + 1})")
+    if not ok:
+        fail("HARM left an invalid or non-finite population")
+    return launches, pop, tb
+
+
+def profile_harm(key, pop, tb, card_line) -> None:
+    """``--profile`` for HARM: each stage of a generation alone."""
+    import torch
+    from deap_tpu_torch import gp, random
+    from deap_tpu_torch.algorithms import evaluate_population, var_or
+    from deap_tpu_torch.gp.harm import _KDE, acceptance, size_histogram
+    n, m = pop.size, max(2000, pop.size)
+    k_sel, k_nat, k_acc = random.split(key, 4)[1:]
+    idx = tb.select(k_sel, pop.fitness, m)
+    parents = pop.take(idx)
+    natural = var_or(k_nat, parents, tb, m, GP_CXPB, GP_MUTPB)
+
+    def accept():
+        return acceptance(k_acc, natural.genome[2],
+                          natural.fitness.masked_wvalues(), n,
+                          HARM_KW["alpha"], HARM_KW["beta"],
+                          HARM_KW["gamma"], HARM_KW["rho"],
+                          HARM_KW["mincutoff"], GP_CAP + 3)[0]
+    chosen = accept()
+    nbins = GP_CAP + 3
+    sizes = natural.genome[2].to(torch.int64)
+
+    def hist_on_card():
+        # the same hits by index_add_ on the card: its float32 adds run in
+        # no fixed order, so its last bits are not XLA's (timed, not used)
+        hist = torch.zeros(nbins, device=sizes.device)
+        for off, w in _KDE:
+            b = sizes + off
+            ok = (b >= 0) & (b < nbins)
+            hist.index_add_(0, torch.where(ok, b, nbins - 1),
+                            torch.where(ok, w, 0.0))
+        return hist
+    stages = {
+        "select m parents (sel_tournament)": lambda: tb.select(
+            k_sel, pop.fitness, m),
+        "var_or m natural children": lambda: var_or(
+            k_nat, parents, tb, m, GP_CXPB, GP_MUTPB),
+        "acceptance (histogram on the host, cutoff, target)": accept,
+        "size histogram on the host (read + numpy.add.at)":
+            lambda: size_histogram(sizes, nbins),
+        "size histogram by index_add_ on the card (unordered)": hist_on_card,
+        "evaluate n offspring (K6)": lambda: evaluate_population(
+            tb, natural.take(chosen)),
+        "whole generation": lambda: gp.harm(key, pop, tb, GP_CXPB,
+                                            GP_MUTPB, 1, **HARM_KW)}
+    phase("profile: HARM stage wall ms (synchronized, alone)", card_line,
+          stages={k: _wall_ms(f, reps=3) for k, f in stages.items()})
+
+
+def gp_variants_phase(kernels, card_line, key, dev) -> dict:
+    """Phase 36: bench_gp.py's generation with each new mutation in place
+    of ``mut_uniform`` (``mut_semantic`` on the set with ``lf``) and with
+    ``static_limit`` on both operators: N and 2N generations in pairs,
+    K6 once a generation."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.probes.gp import HEIGHT_LIMIT, MUTATIONS
+    variants = [(m, dict(mutate=m)) for m in MUTATIONS[1:]]
+    variants.append(("static_limit both", dict(limit=HEIGHT_LIMIT)))
+    out, launches_all = {}, {}
+    for i, (name, kw) in enumerate(variants):
+        kind = "semantic" if name == "semantic" else "bench"
+        ps, tb, pop_ev, gen_init, X = gp_toolbox(dev, kind, **kw)
+        k_init, k_run = random.split(random.fold_in(key, i))
+        pop0 = gp_initial(tb, gen_init, k_init, GP_POP)
+        state = {}
+
+        def run(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            k, pop = k_run, pop0
+            for _ in range(n):
+                k, pop, _ = gp_generation(tb, k, pop)
+            torch.cuda.synchronize()
+            state[n] = pop
+            return time.perf_counter() - t
+
+        run(1)
+        kernels.reset_launches()
+        run(2 * GP_VARIANT_NGEN)
+        launches = dict(kernels.LAUNCHES)
+        per_gen, marginals, pairs = _timed_pairs(run, GP_VARIANT_NGEN,
+                                                 GP_VARIANT_PAIRS)
+        pop = state[2 * GP_VARIANT_NGEN]
+        out[name] = dict(marginal_ms_per_gen=per_gen * 1e3,
+                         marginal_ms_range=[marginals[0] * 1e3,
+                                            marginals[-1] * 1e3],
+                         launches=launches,
+                         mean_length_start=float(pop0.genome[2].float()
+                                                 .mean()),
+                         mean_length_end=float(pop.genome[2].float().mean()),
+                         best_mse_start=float(pop0.fitness.values.min()),
+                         best_mse_end=float(pop.fitness.values.min()))
+        launches_all[name] = launches["gp_interp"]
+        if launches["gp_interp"] != 2 * GP_VARIANT_NGEN:
+            fail(f"K6 ran {launches['gp_interp']} times in "
+                 f"{2 * GP_VARIANT_NGEN} bench generations with {name}")
+        if not bool(torch.isfinite(pop.fitness.values).all()):
+            fail(f"bench generation with {name}: non-finite fitness")
+    phase("GP bench generation with each new mutation and static_limit",
+          card_line, pop=GP_POP, cap=GP_CAP, points=GP_NPOINTS,
+          ngen=[GP_VARIANT_NGEN, 2 * GP_VARIANT_NGEN],
+          pairs=GP_VARIANT_PAIRS, height_limit=HEIGHT_LIMIT, variants=out)
+    return launches_all
+
+
+def lexicase_phase(kernels, card_line, key, dev) -> tuple:
+    """Phase 37: the lexicase forms and ``sel_double_tournament`` card
+    against CPU on 512 trees' absolute errors at 128 points (bitwise
+    indices); then ``sel_automatic_epsilon_lexicase`` alone on the card
+    over the bench population's 4096 x 1024 case errors, and bench
+    generations that select with it (K6 counted)."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.ops import selection as S
+    cpu = torch.device("cpu")
+    k_ref, k_sel, k_init, k_run = random.split(key, 4)
+    k_ref = k_ref.cpu()
+    from deap_tpu_torch.probes.gp import bench_toolbox
+    _, tb_r, _, gen_r, _ = bench_toolbox(cpu, "bench", False, GP_CAP,
+                                         LEX_REF_CASES, select="lexicase")
+    pop_r = gp_initial(tb_r, gen_r, k_ref, LEX_REF_N, LEX_REF_CASES)
+    cases = pop_r.fitness.masked_wvalues()
+    sizes = pop_r.genome[2]
+    mse = pop_r.fitness.values.mean(dim=1, keepdim=True)
+    forms = {
+        "sel_lexicase": lambda k, c, d: S.sel_lexicase(k, c, LEX_REF_N),
+        "sel_epsilon_lexicase": lambda k, c, d: S.sel_epsilon_lexicase(
+            k, c, LEX_REF_N, LEX_EPS),
+        "sel_automatic_epsilon_lexicase":
+            lambda k, c, d: S.sel_automatic_epsilon_lexicase(k, c, LEX_REF_N),
+        "sel_double_tournament fitness_first":
+            lambda k, c, d: S.sel_double_tournament(
+                k, -mse.to(d), sizes.to(d), LEX_REF_N, 3, 1.4, True),
+        "sel_double_tournament size_first":
+            lambda k, c, d: S.sel_double_tournament(
+                k, -mse.to(d), sizes.to(d), LEX_REF_N, 3, 1.4, False)}
+    ref = {}
+    for name, f in forms.items():
+        a = f(k_sel, cases.to(dev), dev)
+        b = f(k_sel.cpu(), cases, cpu)
+        ref[name] = dict(bitwise=bool(torch.equal(a.cpu(), b)),
+                         distinct=int(torch.unique(b).numel()))
+        if not ref[name]["bitwise"]:
+            fail(f"{name} on the card differs from the CPU")
+    # full width: 4096 x 1024 case errors of a bench population
+    ps, tb, pop_ev, gen_init, X = gp_toolbox(dev, "bench",
+                                                  select="lexicase")
+    pop0 = gp_initial(tb, gen_init, k_init, GP_POP, GP_NPOINTS)
+    cases = pop0.fitness.masked_wvalues()
+    secs = []
+    for _ in range(LEX_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        idx = S.sel_automatic_epsilon_lexicase(k_sel, cases, GP_POP)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    secs.sort()
+    state = {}
+
+    def run(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        k, pop = k_run, pop0
+        for _ in range(n):
+            k, pop, _ = gp_generation(tb, k, pop)
+        torch.cuda.synchronize()
+        state[n] = pop
+        return time.perf_counter() - t
+
+    kernels.reset_launches()
+    t1 = run(1)
+    launches = dict(kernels.LAUNCHES)
+    t2 = run(2)
+    pop = state[2]
+    phase("lexicase and double tournament: card vs CPU, full width",
+          card_line, reference=dict(rows=LEX_REF_N, cases=LEX_REF_CASES,
+                                    epsilon=LEX_EPS, forms=ref),
+          pop=GP_POP, cases=GP_NPOINTS,
+          automatic_epsilon_lexicase_s=secs[len(secs) // 2],
+          automatic_epsilon_lexicase_s_all=secs,
+          distinct_selected=int(torch.unique(idx).numel()),
+          generation_s=[t1, t2], marginal_ms_per_gen=(t2 - t1) * 1e3,
+          launches=launches,
+          mean_abs_err_start=float(pop0.fitness.values.mean()),
+          mean_abs_err_end=float(pop.fitness.values.mean()))
+    if launches["gp_interp"] != 1:
+        fail(f"K6 ran {launches['gp_interp']} times in one lexicase bench "
+             "generation")
+    return launches, cases, k_sel
+
+
+def profile_lexicase(key, cases, card_line) -> None:
+    """``--profile`` for lexicase: one case step's stages at full width
+    (the gather of the case column, the best, the MAD epsilon's two
+    medians, the mask update) and the whole selection under
+    ``torch.profiler``."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.ops import selection as S
+    k, n = cases.shape[0], cases.shape[0]
+    order = random.permutation(random.split(key, k), cases.shape[1]).long()
+    by_case = cases.t().contiguous()
+    mask = torch.rand(k, n, device=cases.device) < 0.5
+    col = by_case[order[:, 0]]
+    stages = {
+        "permutation of the cases (k keys)": lambda: random.permutation(
+            random.split(key, k), cases.shape[1]),
+        "case column gather (k, n)": lambda: by_case[order[:, 0]],
+        "best of the candidates": lambda: torch.where(
+            mask, col, float("-inf")).amax(dim=1),
+        "MAD epsilon (two nanmedians)": lambda: S._mad_eps(col, mask),
+        "whole selection": lambda: S.sel_automatic_epsilon_lexicase(
+            key, cases, k)}
+    phase("profile: lexicase stage wall ms (synchronized, alone)", card_line,
+          stages={name: _wall_ms(f, reps=3) for name, f in stages.items()})
+    phase("profile: automatic epsilon-lexicase, one selection", card_line,
+          **_profile_window(lambda: S.sel_automatic_epsilon_lexicase(
+              key, cases, k), 1))
+
+
+def gp_example_run(mod, dev, ngen=None):
+    """``(population, quality)`` of one example's run on ``dev``: the
+    final population and the best value the example reports (for the
+    four that report one, from their ``run``)."""
+    kw = {} if ngen is None else {"ngen": ngen}
+    if hasattr(mod, "run"):
+        return mod.run(device=dev, **kw)
+    pop = mod.main(verbose=False, device=dev, **kw)
+    v = pop.fitness.values
+    return pop, float(v.sum(dim=1).min() if v.shape[1] > 1 else v.min())
+
+
+def gp_examples_phase(kernels, card_line) -> dict:
+    """Phase 38: the eight GP examples at their defaults on the card, each
+    against its check (tests/test_examples.py), and card = CPU bitwise on
+    the final population, trees and every individual's fitness: at the
+    defaults, or at the tests' depth where the CPU would take minutes
+    (the ant, whose fitness is each routine's food eaten)."""
+    import importlib
+    import torch
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    out, launches = {}, {}
+    for name in GP_EXAMPLES:
+        mod = importlib.import_module(f"deap_tpu_torch.examples.gp.{name}")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card, quality = gp_example_run(mod, dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        launches[name] = dict(kernels.LAUNCHES)
+        depth = GP_EXAMPLE_CPU_DEPTH.get(name)
+        card_at = card if depth is None else gp_example_run(mod, dev,
+                                                            depth)[0]
+        t = time.perf_counter()
+        host = gp_example_run(mod, cpu, depth)[0]
+        cpu_s = time.perf_counter() - t
+        same = (_same_tensors(card_at.genome, host.genome)
+                and _same_tensors(card_at.fitness.values,
+                                  host.fitness.values))
+        ok = bool(card.fitness.valid.all()) and bool(
+            torch.isfinite(card.fitness.values).all())
+        if name in GP_EXAMPLE_CHECKS:
+            ok = ok and quality >= GP_EXAMPLE_CHECKS[name]
+        extra = {}
+        if name == "symbreg_harm":
+            size = float(card.genome[2].float().mean())
+            extra = {"mean_size": size}
+            ok = ok and size < mod.CAP * 0.8
+        out[name] = dict(card_cpu_bitwise=same, cpu_generations=depth or
+                         "default", rows_compared=host.size,
+                         card_seconds=card_s, cpu_seconds=cpu_s,
+                         quality=quality, check=ok, **extra)
+        if not same:
+            fail(f"examples/gp/{name}.py: card and CPU differ")
+        if not ok:
+            fail(f"examples/gp/{name}.py: {quality} fails its check")
+    phase("GP examples at their defaults", card_line, runs=out,
+          cpu_threads=torch.get_num_threads())
+    return launches
+
+
+def gp_rest_phases(kernels, card_line, key, dev) -> dict:
+    """Phases 34-38; returns K6's launches and times on their paths."""
+    import torch
+    from deap_tpu_torch import random
+    torch.cuda.empty_cache()
+    k_ops, k_harm, k_var, k_lex = random.split(random.fold_in(key, 8), 4)
+    out = {"k6_children": gp_operators_phase(kernels, card_line, k_ops, dev)}
+    launches_harm, harm_pop, harm_tb = harm_phase(kernels, card_line,
+                                                  k_harm, dev)
+    if "--profile" in sys.argv[1:]:
+        profile_harm(k_harm, harm_pop, harm_tb, card_line)
+    del harm_pop
+    out["harm"] = launches_harm["gp_interp"]
+    out["variants"] = gp_variants_phase(kernels, card_line, k_var, dev)
+    launches_lex, lex_cases, k_lsel = lexicase_phase(kernels, card_line,
+                                                     k_lex, dev)
+    if "--profile" in sys.argv[1:]:
+        profile_lexicase(k_lsel, lex_cases, card_line)
+    del lex_cases
+    out["lexicase"] = launches_lex["gp_interp"]
+    out["examples"] = gp_examples_phase(kernels, card_line)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3424,6 +3997,9 @@ def main() -> int:
     spea2_checks_phase(card_line, k_spea)
     launches_ex = examples_phase(kernels, card_line)
 
+    # ---- 34.-38. the rest of GP ---------------------------------------------
+    gp_rest = gp_rest_phases(kernels, card_line, key, dev)
+
     # ---- 34. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
@@ -3531,14 +4107,31 @@ def main() -> int:
         "source": "deap_tpu_torch/kernels/gp_interp.cu",
         "replaces": "deap_tpu/gp/interp_pallas.py:201",
         "launches": launches_gp["gp_interp"],
-        "max_abs_err": max(v["max_abs_err"] for v in k6.values()),
+        "max_abs_err": max(v["max_abs_err"] for v in (
+            *k6.values(), *gp_rest["k6_children"].values())),
         "ms": ev["ms"], "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
         "bound_by": ev["bound_by"], "library_ms": None,
-        "launches_by_path": {"bench generation": launches_gp["gp_interp"],
-                             "ea_simple": launches_gp_ea["gp_interp"]},
-        "ms_by_input": {k: v["ms"] for k, v in k6.items()},
-        "device_ms_by_input": {k: v["device_ms"] for k, v in k6.items()},
-        "bound_ms_by_input": {k: v["bound_ms"] for k, v in k6.items()}})
+        "launches_by_path": {
+            "bench generation": launches_gp["gp_interp"],
+            "ea_simple": launches_gp_ea["gp_interp"],
+            f"HARM, {2 * HARM_NGEN} generations": gp_rest["harm"],
+            **{f"bench generation, {v}, {2 * GP_VARIANT_NGEN} generations":
+               n for v, n in gp_rest["variants"].items()},
+            "bench generation, automatic epsilon-lexicase": gp_rest[
+                "lexicase"],
+            **{f"examples/gp/{ex}.py": v["gp_interp"]
+               for ex, v in gp_rest["examples"].items()}},
+        "ms_by_input": {**{k: v["ms"] for k, v in k6.items()},
+                        **{f"children of {k}": v["ms"]
+                           for k, v in gp_rest["k6_children"].items()}},
+        "device_ms_by_input": {
+            **{k: v["device_ms"] for k, v in k6.items()},
+            **{f"children of {k}": v["device_ms"]
+               for k, v in gp_rest["k6_children"].items()}},
+        "bound_ms_by_input": {
+            **{k: v["bound_ms"] for k, v in k6.items()},
+            **{f"children of {k}": v["bound_ms"]
+               for k, v in gp_rest["k6_children"].items()}}})
     rows[-1]["launches_by_path"]["probes.gp real63"] = launches_pgp[
         "gp_interp"]
     # P1-P4 at the GA tool's shape (stream and the row tiles at 2048

@@ -15,9 +15,10 @@ equal the JAX package's on the CPU; ``torch.sin``/``torch.cos`` differ
 from them in the last bit on a few percent of inputs and have no kernel
 form.
 
-Not ported yet: ``mut_node_replacement``, ``mut_ephemeral``,
-``mut_insert``, ``mut_shrink``, ``static_limit``, the semantic
-operators, ``harm``, ADFs, ``routine`` and ``tree.graph``.
+HARM-GP (:mod:`.harm`), ADFs (:mod:`.adf`) and control-flow routines
+(:mod:`.routine`) sit on top; the ADF and routine interpreters are
+plain PyTorch on every device, as the JAX package runs them on XLA and
+never in its kernel.
 """
 
 import numpy as np
@@ -32,10 +33,16 @@ from .interp_cuda import KernelFormUnavailable  # noqa: F401
 from .generate import (make_generator, gen_full, gen_grow,  # noqa: F401
                        gen_half_and_half)
 from .variation import (cx_one_point, cx_one_point_leaf_biased,  # noqa: F401
-                        mut_uniform, subtree_bounds, node_depths,
-                        tree_height)
-from .tree import to_string, from_string  # noqa: F401
+                        mut_uniform, mut_node_replacement, mut_ephemeral,
+                        mut_insert, mut_shrink, static_limit, subtree_bounds,
+                        node_depths, tree_height, cx_semantic, mut_semantic)
+from .tree import to_string, from_string, graph  # noqa: F401
+from .harm import harm  # noqa: F401
+from .adf import (make_adf_evaluator,  # noqa: F401
+                  make_adf_population_evaluator, compile_adf)
+from .routine import make_routine_interpreter  # noqa: F401
 
+compileADF = compile_adf
 compile = compile_tree
 genFull = gen_full
 genGrow = gen_grow
@@ -43,6 +50,13 @@ genHalfAndHalf = gen_half_and_half
 cxOnePoint = cx_one_point
 cxOnePointLeafBiased = cx_one_point_leaf_biased
 mutUniform = mut_uniform
+mutNodeReplacement = mut_node_replacement
+mutEphemeral = mut_ephemeral
+mutInsert = mut_insert
+mutShrink = mut_shrink
+staticLimit = static_limit
+cxSemantic = cx_semantic
+mutSemantic = mut_semantic
 
 _EPS = float(np.float32(1e-9))
 

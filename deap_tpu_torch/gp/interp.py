@@ -7,10 +7,12 @@ top of the stack (its leftmost child on top), for all sample points at
 once.
 
 :func:`run_stack_machine` is the plain version over a batch of trees:
-the JAX function's scan as a Python loop over the ``cap`` tokens, every
-primitive computed for every tree at each step and the tree's own picked
-by its code (what ``lax.switch`` does under ``vmap``), with the same
-active mask, clamped stack rows and result row.  On the card
+the JAX function's scan as a Python loop over the ``cap`` tokens, each
+primitive computed for every tree at a step and the tree's own picked by
+its code (what ``lax.switch`` does under ``vmap``), with the same active
+mask, clamped stack rows and result row; a primitive that no running
+tree has at that token, and a token no tree runs, are skipped (their
+values would be discarded).  On the card
 :func:`make_population_evaluator` runs the CUDA kernel K6 instead
 (:mod:`deap_tpu_torch.gp.interp_cuda`), which walks only ``length``
 tokens, decoded once per tree, with the stack in shared memory; both
@@ -30,13 +32,24 @@ __all__ = ["run_stack_machine", "make_evaluator", "make_population_evaluator",
            "compile_tree", "PopulationEvaluator"]
 
 
-def run_stack_machine(codes, consts, lengths, X, frozen, cap: int):
+def run_stack_machine(codes, consts, lengths, X, frozen, cap: int,
+                      calls=None):
     """The plain interpreter: ``(pop, n_points)`` values of the trees
     ``codes``/``consts`` ``(pop, cap)`` with ``lengths`` ``(pop,)`` over
-    ``X`` ``(n_args, n_points)``."""
+    ``X`` ``(n_args, n_points)``, or ``(pop, n_args, n_points)`` with one
+    input a tree.
+
+    ``calls`` maps a node's code to ``call(rows, args) -> (len(rows),
+    n_points)``, its value on the rows (an index tensor) whose token at
+    this step is that node, from their argument rows ``(len(rows),
+    max_arity, n_points)``: the ADF evaluator's nested machines, run only
+    on the rows that call them (a row's value depends on its own inputs
+    alone, so this equals computing the branch for every row)."""
     f = freeze_pset(frozen)
     t = f.tables(X.device)
-    pop, n_points = codes.shape[0], X.shape[1]
+    pop, n_points = codes.shape[0], X.shape[-1]
+    per_row = X.ndim == 3
+    calls = calls or {}
     max_arity = max(f.max_arity, 1)
     rows = torch.arange(pop, device=X.device)
     lanes = torch.arange(max_arity, device=X.device)
@@ -46,7 +59,12 @@ def run_stack_machine(codes, consts, lengths, X, frozen, cap: int):
     nodes = f.pset.nodes
     leaf_const = torch.as_tensor(~f.is_primitive & ~f.is_argument,
                                  device=X.device)
+    present = _codes_present(codes, lengths, f.n_nodes, cap)
     for pos in range(cap - 1, -1, -1):
+        if not present[pos].any():
+            # no tree runs this token: its result would go to the scratch
+            # row ``cap``, which nothing reads
+            continue
         c = codes[:, pos].long().clamp(0, f.n_nodes - 1)
         const = consts[:, pos]
         active = pos < lengths
@@ -55,18 +73,46 @@ def run_stack_machine(codes, consts, lengths, X, frozen, cap: int):
         res = torch.where(leaf_const[c][:, None], const[:, None].to(X.dtype),
                           torch.zeros((), dtype=X.dtype, device=X.device))
         for code, node in enumerate(nodes):
-            if isinstance(node, Primitive):
+            if code in calls or not present[pos, code]:
+                continue
+            if isinstance(node, Primitive) and node.func is None:
+                # an ADF node: only the ADF evaluator gives it a value
+                val = torch.full((), float("nan"), dtype=X.dtype,
+                                 device=X.device)
+            elif isinstance(node, Primitive):
                 val = node.func(*(args[:, j] for j in range(node.arity)))
             elif isinstance(node, Argument):
-                val = X[node.index][None, :]
+                val = X[:, node.index] if per_row else X[node.index][None, :]
             else:
                 continue
             res = torch.where((c == code)[:, None], val, res)
+        for code, call in calls.items():
+            if not present[pos, code]:
+                continue
+            sel = ((c == code) & active).nonzero()[:, 0]
+            if sel.numel():
+                res = res.expand(pop, n_points).index_copy(
+                    0, sel, call(sel, args[sel]))
         new_sp = torch.where(active, sp - t["arity"][c] + 1, sp)
         row = torch.where(active, torch.clamp(new_sp - 1, 0, cap - 1), cap)
         stack[rows, row] = res
         sp = new_sp
     return stack[rows, torch.clamp(sp - 1, 0, cap - 1)]
+
+
+def _codes_present(codes, lengths, n_nodes: int, cap: int):
+    """``(cap, n_nodes)`` bools on the host (one read): whether some tree
+    runs a token of that code at that position.  Only those branches
+    need computing: a row whose token is another code, or that does not
+    run the position, discards the value (the machine is JAX's
+    compute-every-branch-and-select, whose unselected values go
+    nowhere)."""
+    pos = torch.arange(cap, device=codes.device)
+    runs = pos[None, :] < lengths[:, None]
+    c = codes.long().clamp(0, n_nodes - 1)
+    flat = torch.zeros(cap * n_nodes, dtype=torch.bool, device=codes.device)
+    flat[(pos[None, :] * n_nodes + c)[runs]] = True
+    return flat.view(cap, n_nodes).cpu()
 
 
 class PopulationEvaluator:
@@ -131,10 +177,16 @@ def make_population_evaluator(pset, cap: int, *, backend: str = "auto",
 
 def make_evaluator(pset, cap: int) -> Callable:
     """``evaluate(codes (cap,), consts (cap,), length, X) -> (n_points,)``
-    for one tree, with the plain interpreter."""
+    for one tree, with the plain interpreter.  Given a batch (``codes``
+    ``(n, cap)``, ``lengths`` ``(n,)``) it returns ``(n, n_points)``, the
+    same values row by row: a per-tree ``evaluate`` written over the last
+    axis can so be registered as its own batched form
+    (:func:`~deap_tpu_torch.ops._dispatch.batched_op`)."""
     f = freeze_pset(pset)
 
     def evaluate(codes, consts, length, X):
+        if codes.ndim == 2:
+            return run_stack_machine(codes, consts, length, X, f, cap)
         length = torch.as_tensor(length, device=X.device).reshape(1)
         return run_stack_machine(codes[None], consts[None], length, X, f,
                                  cap)[0]

@@ -151,6 +151,18 @@ class PrimitiveSetTyped:
         self._frozen = None
         return eph
 
+    def add_adf(self, adfset: "PrimitiveSetTyped"):
+        """Register another primitive set as a callable ADF node
+        (reference addADF): its signature is the ADF set's argument and
+        return types, its behaviour each individual's ADF tree, run by
+        :func:`deap_tpu_torch.gp.adf.make_adf_evaluator` (the plain
+        interpreter gives NaN for an ADF node)."""
+        inv = {v: k for k, v in adfset._type_ids.items()}
+        # the typed base method: the untyped facade takes (func, arity)
+        return PrimitiveSetTyped.add_primitive(
+            self, None, [inv[i] for i in adfset.ins], inv[adfset.ret],
+            name=adfset.name)
+
     def rename_arguments(self, **kargs):
         """Rename input arguments, e.g. ``rename_arguments(ARG0="x")``."""
         for old_name, new_name in kargs.items():
@@ -167,6 +179,7 @@ class PrimitiveSetTyped:
     addPrimitive = add_primitive
     addTerminal = add_terminal
     addEphemeralConstant = add_ephemeral_constant
+    addADF = add_adf
     renameArguments = rename_arguments
 
     @property

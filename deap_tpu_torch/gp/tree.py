@@ -2,9 +2,9 @@
 ``deap_tpu/gp/tree.py``'s string round trip (reference
 ``PrimitiveTree.__str__`` and ``from_string``).
 
-Device code never needs these; they serve logging, debugging and tests
-of ``(codes, consts, length)`` prefix arrays (tensors or numpy arrays).
-``graph`` is not ported yet.
+Device code never needs these; they serve logging, debugging, plotting
+(``graph``) and tests of ``(codes, consts, length)`` prefix arrays
+(tensors or numpy arrays).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from .pset import Ephemeral, Primitive, Terminal, freeze_pset
 
-__all__ = ["to_string", "from_string"]
+__all__ = ["to_string", "from_string", "graph"]
 
 
 def _host(x) -> np.ndarray:
@@ -88,3 +88,35 @@ def from_string(string: str, pset, cap: int = 64):
     codes_arr[:length] = codes
     consts_arr[:length] = consts
     return codes_arr, consts_arr, np.int32(length)
+
+
+def graph(tree, pset):
+    """``(nodes, edges, labels)`` for NetworkX/pygraphviz rendering
+    (reference ``graph``): node ``i`` is token ``i``, an edge joins a
+    primitive to each argument, an ephemeral's label is its constant
+    rounded to 4 places and every other label the node's name."""
+    f = freeze_pset(pset)
+    codes, consts, length = tree
+    codes, consts = _host(codes), _host(consts)
+    length = int(_host(length))
+    nodes = list(range(length))
+    edges = []
+    labels = {}
+    stack = []
+    for i in range(length):
+        c = int(codes[i])
+        node = f.pset.nodes[c]
+        if stack:
+            edges.append((stack[-1][0], i))
+            stack[-1][1] -= 1
+        if isinstance(node, Ephemeral):
+            labels[i] = round(float(consts[i]), 4)
+        else:
+            labels[i] = node.name
+        a = int(f.arity[c])
+        if a > 0:
+            stack.append([i, a])
+        else:
+            while stack and stack[-1][1] == 0:
+                stack.pop()
+    return nodes, edges, labels

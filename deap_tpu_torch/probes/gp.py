@@ -54,7 +54,8 @@ from ..ops import selection
 from . import ProbeRun
 
 __all__ = ["LEN", "PROBES", "BENCH_POP", "BENCH_CAP", "BENCH_NPOINTS",
-           "BENCH_CXPB", "BENCH_MUTPB", "settings", "bench_pset",
+           "BENCH_CXPB", "BENCH_MUTPB", "MUTATIONS", "HEIGHT_LIMIT",
+           "settings", "bench_pset",
            "bench_toolbox", "bench_initial", "bench_generation",
            "full_binary_trees", "comb_trees", "probe_edges",
            "make_probe_kernel", "probe_bound", "main"]
@@ -79,10 +80,13 @@ def settings() -> dict:
             "iters": int(env.get("PROBE_ITERS", 32))}
 
 
-def bench_pset():
-    """``bench_gp.py``'s primitive set (nine codes after freezing)."""
+def bench_pset(semantic: bool = False):
+    """``bench_gp.py``'s primitive set (nine codes after freezing); with
+    ``semantic`` a copy that adds ``lf`` (K6's logistic opcode), which
+    the semantic operators compose with."""
     ps = gp.PrimitiveSet("MAIN", 1)
-    for name in ("add", "sub", "mul", "div", "neg", "cos", "sin"):
+    names = ("add", "sub", "mul", "div", "neg", "cos", "sin")
+    for name in names + (("lf",) if semantic else ()):
         func, arity = gp.safe_ops[name]
         ps.add_primitive(func, arity, name=name)
     ps.add_ephemeral_constant(
@@ -90,17 +94,35 @@ def bench_pset():
     return ps
 
 
+#: the mutations a bench generation can take in place of ``mut_uniform``
+MUTATIONS = ("uniform", "node_replacement", "ephemeral_one",
+             "ephemeral_all", "insert", "shrink", "semantic")
+#: DEAP's usual height limit for ``static_limit``
+HEIGHT_LIMIT = 17
+
+
 def bench_toolbox(dev, pset_kind: str = "bench", per_tree: bool = False,
-                  cap: int = BENCH_CAP, n_points: int = BENCH_NPOINTS):
+                  cap: int = BENCH_CAP, n_points: int = BENCH_NPOINTS,
+                  mutate: str = "uniform", limit: int | None = None,
+                  select: str = "tournament"):
     """``(pset, toolbox, evaluator, initial generator, X)``: bench_gp.py's
     primitive set, data and toolbox on ``dev`` (symbolic regression of
     x^4 + x^3 + x^2 + x on ``n_points`` points of [-1, 1]).  The GP
     operators are registered with their ``rowwise_op`` mark, or with
     ``per_tree`` as the reference examples register them (a lambda over
     one key and one tree, called once a row).  ``"all"`` is a second set
-    with every opcode of K6's table (two arguments and a terminal)."""
-    if pset_kind == "bench":
-        ps = bench_pset()
+    with every opcode of K6's table (two arguments and a terminal);
+    ``"semantic"`` the bench set with ``lf``.
+
+    ``mutate`` names the mutation (:data:`MUTATIONS`; ``"semantic"``
+    needs the ``"semantic"`` set), the crossover is ``cx_one_point``,
+    ``limit`` wraps both operators in ``static_limit`` on the tree
+    height, and
+    ``select="lexicase"`` selects with automatic epsilon-lexicase on the
+    per-point absolute errors, which the evaluation then returns (one
+    objective a point) in place of the MSE."""
+    if pset_kind in ("bench", "semantic"):
+        ps = bench_pset(pset_kind == "semantic")
     else:
         ps = gp.PrimitiveSet("ALL", 2)
         ps.add_terminal(1.0, name="one")
@@ -121,6 +143,9 @@ def bench_toolbox(dev, pset_kind: str = "bench", per_tree: bool = False,
             # skipped rows run no stack-machine step (length 0)
             lengths = torch.where(skip, 0, lengths)
         out = pop_ev(codes, consts, lengths, X)
+        if select == "lexicase":
+            err = (out - target[None, :]).abs()
+            return torch.where(torch.isfinite(err), err, 1e6)
         mse = ((out - target[None, :]) ** 2).mean(dim=1)
         return torch.where(torch.isfinite(mse), mse, 1e6)[:, None]
 
@@ -131,19 +156,48 @@ def bench_toolbox(dev, pset_kind: str = "bench", per_tree: bool = False,
         tb.register("mutate", lambda k, t: gp.mut_uniform(
             k, t, lambda kk: gen_mut(kk, 0, 2), ps))
     else:
-        tb.register("mate", gp.cx_one_point, pset=ps)
-        tb.register("mutate", gp.mut_uniform,
-                    expr=lambda kk: gen_mut(kk, 0, 2), pset=ps)
-    tb.register("select", selection.sel_tournament, tournsize=3)
+        _register_operators(tb, ps, gen_mut, mutate, limit)
+    if select == "lexicase":
+        tb.register("select", lambda k, fit, n:
+                    selection.sel_automatic_epsilon_lexicase(
+                        k, fit.masked_wvalues(), n))
+    else:
+        tb.register("select", selection.sel_tournament, tournsize=3)
     gen_init = gp.make_generator(ps, cap, "half_and_half")
     return ps, tb, pop_ev, gen_init, X
 
 
-def bench_initial(tb, gen_init, key, n: int):
-    """``n`` half-and-half trees of depth 1-3, evaluated."""
+def _register_operators(tb, ps, gen_mut, mutate, limit):
+    """``mate`` and ``mutate`` by name, each wrapped in ``static_limit``
+    on the tree height when ``limit`` is set."""
+    mutations = {
+        "uniform": (gp.mut_uniform, dict(expr=lambda kk: gen_mut(kk, 0, 2))),
+        "node_replacement": (gp.mut_node_replacement, {}),
+        "ephemeral_one": (gp.mut_ephemeral, dict(mode="one")),
+        "ephemeral_all": (gp.mut_ephemeral, dict(mode="all")),
+        "insert": (gp.mut_insert, {}),
+        "shrink": (gp.mut_shrink, {}),
+        "semantic": (gp.mut_semantic, {})}
+    mut_op, mut_kw = mutations[mutate]
+    cx_op = gp.cx_one_point
+    if limit is not None:
+        frozen = freeze_pset(ps)
+
+        def height(t):
+            return gp.tree_height(t[0], t[2],
+                                  frozen.tables(t[0].device)["arity"])
+        cx_op = gp.static_limit(height, limit)(cx_op)
+        mut_op = gp.static_limit(height, limit)(mut_op)
+    tb.register("mate", cx_op, pset=ps)
+    tb.register("mutate", mut_op, pset=ps, **mut_kw)
+
+
+def bench_initial(tb, gen_init, key, n: int, nobj: int = 1):
+    """``n`` half-and-half trees of depth 1-3, evaluated (``nobj``
+    minimized objectives: the points, under ``select="lexicase"``)."""
     genome = gen_init(random.split(key, n), 1, 3)
     pop = base.Population(genome, base.Fitness.empty(
-        n, (-1.0,), device=key.device))
+        n, (-1.0,) * nobj, device=key.device))
     return evaluate_population(tb, pop)[0]
 
 

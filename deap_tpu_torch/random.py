@@ -395,9 +395,11 @@ def shuffle(key: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     sort key a row and sorts the rows by it, stably (ties keep their
     order, so the result is the same on every device).  The words are
     sorted as int64, whose order is uint32's on the CPU and the card."""
+    if key.ndim == 2:
+        return _shuffle_rows(key, x)
     if key.ndim != 1:
-        raise ValueError("permutation takes one key, not a batch: shape "
-                         f"{tuple(key.shape)}")
+        raise ValueError("permutation takes one key or a (k, w) batch, "
+                         f"not shape {tuple(key.shape)}")
     n = x.shape[0]
     for _ in range(_shuffle_rounds(n)):
         key, sub = split(key)
@@ -406,10 +408,25 @@ def shuffle(key: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _shuffle_rows(keys: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap`` of the shuffle over a ``(k, w)`` key batch: ``(k, n,
+    ...)``, row ``i`` the rows of ``x`` in key ``i``'s order (each key its
+    own rounds, a stable sort a row)."""
+    n = x.shape[0]
+    idx = torch.arange(n, device=keys.device).expand(keys.shape[0], n)
+    for _ in range(_shuffle_rounds(n)):
+        ks = split(keys)
+        keys, sub = ks[:, 0], ks[:, 1]
+        order = torch.sort(bits(sub, (n,)), dim=1, stable=True).indices
+        idx = idx.gather(1, order)
+    return x[idx]
+
+
 def permutation(key: torch.Tensor, x) -> torch.Tensor:
     """``jax.random.permutation``: for an integer ``n``, a random int32
     permutation of ``arange(n)``; for a tensor, its rows shuffled (see
-    :func:`shuffle`)."""
+    :func:`shuffle`).  A ``(k, w)`` batch of keys gives ``k`` of them,
+    one a key, as ``jax.vmap`` over the keys does."""
     if torch.is_tensor(x):
         return shuffle(key, x)
     return shuffle(key, torch.arange(int(x), dtype=torch.int32,

@@ -12,6 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "deap_tpu", "examples")
+GP_EXAMPLES = ("symbreg", "symbreg_epsilon_lexicase", "symbreg_harm",
+               "adf_symbreg", "ant", "multiplexer", "parity", "spambase")
 
 
 def _port_files():
@@ -51,7 +53,11 @@ def test_port_sources_exist():
                 "deap_tpu_torch/examples/ga/evopole.py",
                 "deap_tpu_torch/ops/constraint.py",
                 "deap_tpu_torch/examples/ga/nsga2.py",
-                "deap_tpu_torch/examples/ga/nsga3.py"):
+                "deap_tpu_torch/examples/ga/nsga3.py",
+                "deap_tpu_torch/gp/harm.py", "deap_tpu_torch/gp/adf.py",
+                "deap_tpu_torch/gp/routine.py",
+                "deap_tpu_torch/benchmarks/gp.py",
+                *(f"deap_tpu_torch/examples/gp/{m}.py" for m in GP_EXAMPLES)):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
                "hypervolume.cu", "probes.cu", "device_math.cuh"):
@@ -108,7 +114,10 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.kernels.peaks, "
             "deap_tpu_torch.probes, deap_tpu_torch.probes.ga, "
             "deap_tpu_torch.probes.gp, deap_tpu_torch.ops.constraint, "
-            "deap_tpu_torch.ops.indicator, deap_tpu_torch.random; "
+            "deap_tpu_torch.ops.indicator, deap_tpu_torch.random, "
+            "deap_tpu_torch.gp.harm, deap_tpu_torch.gp.adf, "
+            "deap_tpu_torch.gp.routine, deap_tpu_torch.benchmarks.gp, "
+            "deap_tpu_torch.ops.selection; "
             "deap_tpu_torch.base.Toolbox().hypervolume; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "
@@ -125,12 +134,14 @@ def test_scan_catches_an_import_of_the_jax_examples():
 
 
 def test_port_examples_load_no_jax():
-    """The port's examples (the evopole counterpart keeps its own copy of
+    """The port's examples (each keeps its own copy of
     the JAX example's constants and functions) pull in no JAX, nothing
     of the JAX package and nothing of the repo's ``examples``."""
     code = ("import sys; import deap_tpu_torch.examples.ga.evopole, "
             "deap_tpu_torch.examples.ga.nsga2, "
-            "deap_tpu_torch.examples.ga.nsga3; "
+            "deap_tpu_torch.examples.ga.nsga3, "
+            + ", ".join(f"deap_tpu_torch.examples.gp.{m}"
+                        for m in GP_EXAMPLES) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu', 'examples')]; print(bad); "
             "sys.exit(1 if bad else 0)")

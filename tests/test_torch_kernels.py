@@ -409,6 +409,103 @@ def test_gp_interp_kernel_edges_on_card(case):
         assert (k6 == 0).all()
 
 
+def _gp_children(dev, op, pop=4096, cap=64):
+    """A bench-set population (with ``lf`` for the semantic operators) and
+    its children under ``op``, from fixed keys on ``dev``."""
+    ps = PGP.bench_pset(semantic=op != "mut_insert")
+    keys = random.split(random.PRNGKey(6, device=dev), pop)
+    trees = gp.make_generator(ps, cap, "half_and_half")(keys, 1, 4)
+    if op == "cx_semantic":
+        h = pop // 2
+        k = random.split(random.PRNGKey(7, device=dev), h)
+        a, b = gp.cx_semantic(k, tuple(t[:h] for t in trees),
+                              tuple(t[h:] for t in trees), ps)
+        kids = tuple(torch.cat([x, y]) for x, y in zip(a, b))
+    else:
+        k = random.split(random.PRNGKey(7, device=dev), pop)
+        kids = getattr(gp, op)(k, trees, ps)
+    return ps, kids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mut_insert", "mut_semantic", "cx_semantic"])
+def test_gp_interp_kernel_on_new_operator_children_on_card(op):
+    """K6 on inserted trees and on semantic children (``lf`` around
+    random trees, rows at the capacity), bitwise to the plain
+    interpreter; the children themselves equal the CPU's."""
+    dev = _cuda()
+    ps, kids = _gp_children(dev, op)
+    _, host = _gp_children(torch.device("cpu"), op)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(kids, host))
+    X = torch.linspace(-1, 1, 1024, device=dev)[None, :]
+    kernels.reset_launches()
+    k6 = gp.make_population_evaluator(ps, 64, backend="cuda")(*kids, X)
+    plain = gp.run_stack_machine(*kids, X, ps.freeze(), 64)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gp_interp"] == 1
+    assert _nan_equal(k6, plain)
+    if op != "mut_insert":
+        lf = ps.freeze().names.index("lf")
+        assert bool((kids[0] == lf).any())
+
+
+@pytest.mark.gpu
+def test_harm_generation_on_card_equals_cpu():
+    """One HARM generation (pop 256, 2000 natural children) on the bench
+    toolbox from the same evaluated population and key: the card's
+    trees equal the CPU's, the fitness within 1e-5 (the MSE's mean
+    reduces in another order)."""
+    dev, cpu = _cuda(), torch.device("cpu")
+    outs = []
+    pop_c = None
+    for d in (cpu, dev):
+        ps, tb, _, gen, _ = PGP.bench_toolbox(d, n_points=256)
+        if pop_c is None:
+            pop_c = PGP.bench_initial(tb, gen, random.PRNGKey(8, device=cpu),
+                                      256)
+        pop = type(pop_c)(tuple(g.to(d) for g in pop_c.genome),
+                          Fitness(pop_c.fitness.values.to(d),
+                                  pop_c.fitness.valid.to(d),
+                                  pop_c.fitness.weights))
+        out, _ = gp.harm(random.PRNGKey(9, device=d), pop, tb, 0.5, 0.1, 1,
+                         mincutoff=10)
+        outs.append(out)
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(outs[0].genome,
+                                                       outs[1].genome))
+    torch.testing.assert_close(outs[1].fitness.values.cpu(),
+                               outs[0].fitness.values, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_lexicase_selections_on_card_equal_cpu():
+    from deap_tpu_torch.ops import selection as S
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    cases = -torch.from_numpy(rng.integers(0, 5, (300, 64)).astype(
+        np.float32) + rng.random((300, 64)).astype(np.float32) * 0.01)
+    key = random.PRNGKey(4, device="cpu")
+    for f in (lambda k, c: S.sel_lexicase(k, c, 300),
+              lambda k, c: S.sel_epsilon_lexicase(k, c, 300, 0.5),
+              lambda k, c: S.sel_automatic_epsilon_lexicase(k, c, 300)):
+        assert torch.equal(f(key.to(dev), cases.to(dev)).cpu(),
+                           f(key, cases))
+
+
+@pytest.mark.gpu
+def test_routine_cuda_graph_on_card_equals_cpu():
+    """The ant's routines run as replayed CUDA graphs on the card, the
+    eager loop on the CPU: the same final states."""
+    from deap_tpu_torch.examples.gp import ant
+    dev = _cuda()
+    ps = ant.build_pset()
+    keys = random.split(random.PRNGKey(2, device="cpu"), 64)
+    trees = gp.make_generator(ps, ant.CAP, "half_and_half")(keys, 1, 5)
+    ev = ant.make_evaluate(ps)
+    host = ev(trees)[0]
+    card = ev(tuple(t.to(dev) for t in trees))[0]
+    assert torch.equal(card.cpu(), host)
+
+
 def test_cpu_tensors_take_the_plain_version():
     st = G.GenomeStorage()
     g, order, pos, seed, knobs = _inputs("cpu", 256, st)
