@@ -252,7 +252,56 @@
              check, and card = CPU bitwise on the final population (trees
              and every individual's fitness; the ant at the tests' depth
              of 3 generations: the CPU would take minutes);
-39. the ``kernels`` line, the card's name and power limit, and the result
+39. reference — the rest of the operators on the card against the CPU
+             from the same keys, bit for bit: one point, uniform and SBX
+             (eta 20) crossovers on 4096 x 100 float32 genomes, the ES
+             blend and two point crossovers and the log-normal mutation
+             on (x, strategy) pairs, PMX, UPMX, OX and the index shuffle
+             on permutations of 4096 x 100 and 4096 x 25 (every child a
+             permutation), the messy one-point crossover on pairs of
+             mixed lengths, the uniform integer mutation on int8, int16
+             and int32 genomes, and the worst, roulette and SUS
+             selections over 1e5 fitnesses with ties and invalid rows;
+             then every benchmark function, ``binary.py``, the moving
+             peaks (three scenarios and the fluctuating mode, 20 changes)
+             and the five decorators on 4096 rows (``rotate`` within
+             ``ROTATE_RTOL``: the matrix product);
+40. flagship width — ``bench.py``'s megakernel body (``ea_step``, K2)
+             with ``evaluate`` in turn each function of any width (plane,
+             cigar, rosenbrock, griewank, the scaled and skewed
+             rastrigins, schaffer, schwefel, bohachevsky) and its xla
+             body (tournament, row gather, ``vary_genome(pairing=
+             "halves")``) with ``mate`` in turn the one point, uniform
+             (0.1) and SBX (eta 20) crossovers, 1e6 x 100 float32, rbg
+             keys, N = 1 and 2 generations: K2 once a generation, the best
+             fitness must fall; card = CPU on the evaluation of every
+             1000th row of the last generation, and on one whole
+             generation at 2048 x 100 (rastrigin's fitness within
+             ``FLAG_RTOL``);
+41. the suites — ``bench_nsga2.py``'s generation (bounded SBX,
+             polynomial mutation, ``sel_nsga2`` at its default) at POP
+             1e5 on ZDT2, ZDT3 (30 variables), ZDT4 (10: x1 in [0, 1], the
+             rest in [-5, 5], per-gene bounds), ZDT6 (10), DTLZ1 (k 5),
+             DTLZ3-6 (k 10, DTLZ4 at alpha 100) and DTLZ7 (k 20) at three
+             objectives: one generation at pool 1024 card against CPU
+             (offspring and values bitwise, selection equal, ranks equal
+             to the count peel's), then N = 1 and 2 generations, the
+             hypervolume at ``HV_REF`` (points inside it,
+             it must not fall; K5 once at three objectives, held against
+             the plain float64 sweep and the host tier), K4's launches by
+             problem, and K4 (C = 1024) and K5 against their plain
+             versions on each DTLZ population;
+42. examples — ``deap_tpu_torch/examples/``'s tsp (40 of its 80
+             generations), nqueens (50 of 150), knn, evoknn (5 of 40),
+             evoknn_jmlr (10 of 50), kursawefct (5 of 50), es/fctmin (40
+             of 120) and bbob (20 of 60) on the card, each with its check
+             (tours stay permutations, the Kursawe front in bounds, the
+             sphere below 1, accuracy above 0.5, bbob's table finite),
+             card = CPU on the final population of the same run (knn on
+             every 16th feature mask; bbob's CMA-ES on its first
+             generation, as ``eigh`` rounds differently on the two
+             devices);
+43. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12, 15, 35
@@ -270,6 +319,11 @@ CMA-ES (phase 23): the card's and the CPU's matrix products and
 ``eigh`` (cuSOLVER's Jacobi solver on the card, LAPACK on the host)
 round differently, so each state field must agree within relative
 1e-4, and ``|B_cardᵀ B_cpu|`` with I within 1e-2.
+Phases 39-42 (no kernel of their own): every new operator, selection,
+benchmark function and example card = CPU bit for bit, except
+``rotate``'s matrix product (``ROTATE_RTOL``, 1e-5) and rastrigin's
+fitness in the xla body (``FLAG_RTOL``, 1e-5: ``torch.cos`` and the sum
+in each device's order); bbob's CMA-ES on its first generation only.
 Any failed phase exits non-zero without the result line.  No JAX, and
 nothing of the JAX package, is imported.
 """
@@ -2556,6 +2610,8 @@ def _bits_of(t):
         return t.view(torch.int32)
     if t.dtype in (torch.bfloat16, torch.float16):
         return t.view(torch.int16)
+    if t.dtype == torch.float64:
+        return t.contiguous().view(torch.int64)
     return t
 
 
@@ -3174,18 +3230,18 @@ GP_EXAMPLE_CHECKS = {"multiplexer": 56, "parity": 8, "spambase": 0.6,
 
 
 def _same_tensors(a, b) -> bool:
+    """Two outputs (tensors, Python numbers, nested tuples, lists or
+    dicts) bit for bit."""
     import torch
-    ta, tb = (x if isinstance(x, (tuple, list)) else (x,) for x in (a, b))
-    out = True
-    for x, y in zip(ta, tb):
-        if isinstance(x, (tuple, list)):
-            out = out and _same_tensors(x, y)
-            continue
-        x, y = x.cpu(), y.cpu()
-        if x.dtype == torch.float32:
-            x, y = x.view(torch.int32), y.view(torch.int32)
-        out = out and torch.equal(x, y)
-    return out
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tensors(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_tensors(x, y)
+                                        for x, y in zip(a, b))
+    if not torch.is_tensor(a):
+        return a == b
+    return _same_bits(a, b)
 
 
 def gp_operator(name, ps, gen_mut):
@@ -3678,6 +3734,686 @@ def gp_rest_phases(kernels, card_line, key, dev) -> dict:
     return out
 
 
+
+# ---- 39.-42. the rest of the operators and benchmarks ----------------------
+
+OPS_ROWS = 4096
+SEL_N = 100_000
+# every function of deap_tpu_torch.benchmarks that takes one individual,
+# with its keywords and its 4096-row input's width and range
+BENCH_FUNCS = (
+    ("plane", {}, 100, -5.0, 5.0), ("cigar", {}, 100, -5.0, 5.0),
+    ("rosenbrock", {}, 100, -5.0, 5.0), ("h1", {}, 2, -5.0, 10.0),
+    ("ackley", {}, 100, -5.0, 5.0), ("bohachevsky", {}, 100, -5.0, 5.0),
+    ("griewank", {}, 100, -5.0, 5.0), ("rastrigin_scaled", {}, 100, -5.0,
+                                       5.0),
+    ("rastrigin_skew", {}, 100, -5.0, 5.0), ("schaffer", {}, 100, -5.0, 5.0),
+    ("schwefel", {}, 100, -500.0, 500.0), ("himmelblau", {}, 2, -5.0, 5.0),
+    ("kursawe", {}, 3, -5.0, 5.0), ("schaffer_mo", {}, 1, -5.0, 5.0),
+    ("zdt1", {}, 30, 0.0, 1.0), ("zdt2", {}, 30, 0.0, 1.0),
+    ("zdt3", {}, 30, 0.0, 1.0), ("zdt4", {}, 10, 0.0, 1.0),
+    ("zdt6", {}, 10, 0.0, 1.0), ("dtlz1", {"obj": 3}, 7, 0.0, 1.0),
+    ("dtlz2", {"obj": 3}, 12, 0.0, 1.0), ("dtlz3", {"obj": 3}, 12, 0.0, 1.0),
+    ("dtlz4", {"obj": 3, "alpha": 100.0}, 12, 0.0, 1.0),
+    ("dtlz5", {"n_objs": 3}, 12, 0.0, 1.0),
+    ("dtlz6", {"n_objs": 3}, 12, 0.0, 1.0),
+    ("dtlz7", {"n_objs": 3}, 22, 0.0, 1.0), ("fonseca", {}, 3, -4.0, 4.0),
+    ("poloni", {}, 2, -3.14, 3.14), ("dent", {}, 2, -1.5, 1.5))
+BINARY_FUNCS = (("trap", {}, 5), ("inv_trap", {}, 5), ("chuang_f1", {}, 41),
+                ("chuang_f2", {}, 42), ("chuang_f3", {}, 41),
+                ("royal_road1", {"order": 8}, 64),
+                ("royal_road2", {"order": 4}, 64))
+PEAKS_CHANGES = 20
+ROTATE_RTOL = 1e-5     # the inverse: cuSOLVER on the card, LAPACK on the CPU
+# phase 40: bench.py's two bodies at the flagship's width, rbg keys
+FLAG_FUNCS = ("plane", "cigar", "rosenbrock", "griewank", "rastrigin_scaled",
+              "rastrigin_skew", "schaffer", "schwefel", "bohachevsky")
+FLAG_MATES = (("cx_one_point", {}), ("cx_uniform", {"indpb": 0.1}),
+              ("cx_simulated_binary", {"eta": 20.0}))
+FLAG_NGEN = 1
+FLAG_REF_POP = 2048
+FLAG_STRIDE = 1000     # card = CPU on every 1000th row's evaluation
+FLAG_RTOL = 1e-5       # rastrigin (the xla body's) sums in each device's order
+# phase 41: the ZDT and DTLZ suites at bench_nsga2.py's width (published
+# variable counts; ZDT4's x1 in [0, 1], the rest in [-5, 5])
+SUITE_POP, SUITE_NGEN, SUITE_REF_POP = 100_000, 1, 1024
+ZDT4_LOW, ZDT4_UP = [0.0] + [-5.0] * 9, [1.0] + [5.0] * 9
+SUITE = {
+    "zdt2": ({}, 2, 30, 0.0, 1.0), "zdt3": ({}, 2, 30, 0.0, 1.0),
+    "zdt4": ({}, 2, 10, ZDT4_LOW, ZDT4_UP), "zdt6": ({}, 2, 10, 0.0, 1.0),
+    "dtlz1": ({"obj": 3}, 3, 7, 0.0, 1.0),
+    "dtlz3": ({"obj": 3}, 3, 12, 0.0, 1.0),
+    "dtlz4": ({"obj": 3, "alpha": 100.0}, 3, 12, 0.0, 1.0),
+    "dtlz5": ({"n_objs": 3}, 3, 12, 0.0, 1.0),
+    "dtlz6": ({"n_objs": 3}, 3, 12, 0.0, 1.0),
+    "dtlz7": ({"n_objs": 3}, 3, 22, 0.0, 1.0)}
+# each problem's reference point: the componentwise maximum of its
+# initial population's objectives (suite_initial, this script's keys)
+# plus 10%, fixed once
+HV_REF.update({
+    "zdt2": (1.09999, 8.21289), "zdt3": (1.09997, 7.62431),
+    "zdt4": (1.09999, 317.453), "zdt6": (1.1, 10.5751),
+    "dtlz1": (508.138, 491.99, 543.367),
+    "dtlz3": (2055.15, 1954.37, 2054.25),
+    "dtlz4": (3.12809, 2.74437, 2.7294),
+    "dtlz5": (0.548323, 2.70296, 3.14839),
+    "dtlz6": (4.67293, 11.6464, 11.7705),
+    "dtlz7": (1.09999, 1.1, 28.4718),
+})
+# phase 42: the examples, each at one depth on the card and the CPU:
+# generations cut to keep the script inside its time limit (defaults:
+# tsp 80, nqueens 150, evoknn 40, evoknn_jmlr 50, kursawefct 50, fctmin
+# 120, bbob 60); knn (no loop) on every 16th of the 8192 feature masks
+GA_EXAMPLES = ("ga.tsp", "ga.nqueens", "ga.knn", "ga.evoknn",
+               "ga.evoknn_jmlr", "ga.kursawefct", "es.fctmin", "bbob")
+GA_EXAMPLE_DEPTH = {"ga.tsp": 40, "ga.nqueens": 50, "ga.evoknn": 5,
+                    "ga.evoknn_jmlr": 10, "ga.kursawefct": 5,
+                    "es.fctmin": 40, "bbob": 20}
+KNN_MASK_STRIDE = 16
+
+
+def _is_perm(t) -> bool:
+    import torch
+    s = t.sort(-1).values
+    return bool(torch.equal(s, torch.arange(t.shape[-1], dtype=s.dtype,
+                                            device=s.device).expand_as(s)))
+
+
+def ops_reference_phase(card_line, key) -> None:
+    """Phase 39's operators: each new crossover, mutation and selection on
+    the card against the CPU from the same keys, bit for bit."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.ops import crossover as cx, mutation as mut
+    from deap_tpu_torch.ops import selection as sel
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    ks = random.split(key, 12)
+    n = OPS_ROWS
+    a = random.uniform(ks[0], (n, DIM), minval=-5.12, maxval=5.12)
+    b = random.uniform(ks[1], (n, DIM), minval=-5.12, maxval=5.12)
+    s1 = random.uniform(ks[2], (n, DIM), minval=0.5, maxval=3.0)
+    s2 = random.uniform(ks[3], (n, DIM), minval=0.5, maxval=3.0)
+    cases = {
+        "cx_one_point": lambda k, d: cx.cx_one_point.batched(
+            k, a.to(d), b.to(d)),
+        "cx_uniform": lambda k, d: cx.cx_uniform.batched(
+            k, a.to(d), b.to(d), 0.1),
+        "cx_simulated_binary": lambda k, d: cx.cx_simulated_binary.batched(
+            k, a.to(d), b.to(d), 20.0),
+        "cx_es_blend": lambda k, d: cx.cx_es_blend.batched(
+            k, (a.to(d), s1.to(d)), (b.to(d), s2.to(d)), 0.1),
+        "cx_es_two_point": lambda k, d: cx.cx_es_two_point.batched(
+            k, (a.to(d), s1.to(d)), (b.to(d), s2.to(d))),
+        "mut_es_log_normal": lambda k, d: mut.mut_es_log_normal.batched(
+            k, (a.to(d), s1.to(d)), 1.0, 0.3)}
+    perms = {}
+    for size in (DIM, 25):
+        keys = random.split(ks[4], 2 * n)
+        p1 = random.permutation(keys[:n], size)
+        p2 = random.permutation(keys[n:], size)
+        perms[size] = (p1, p2)
+        for name, kw in (("cx_partialy_matched", {}),
+                         ("cx_uniform_partialy_matched", {"indpb": 0.3}),
+                         ("cx_ordered", {})):
+            op = getattr(cx, name)
+            cases[f"{name} {n} x {size}"] = (
+                lambda k, d, op=op, kw=kw, p1=p1, p2=p2: op(
+                    random.split(k, n), p1.to(d), p2.to(d), **kw))
+        cases[f"mut_shuffle_indexes {n} x {size}"] = (
+            lambda k, d, p1=p1: mut.mut_shuffle_indexes(
+                random.split(k, n), p1.to(d), 0.2))
+    lengths = random.randint(ks[5], (2, n), 0, DIM + 1)
+    p1, p2 = perms[DIM]
+    cases["cx_messy_one_point"] = lambda k, d: cx.cx_messy_one_point(
+        random.split(k, n), (p1.to(d), lengths[0].to(d)),
+        (p2.to(d), lengths[1].to(d)))
+    for dtype, low, up in ((torch.int8, -5, 20), (torch.int16, -300, 3000),
+                           (torch.int32, 0, 1 << 20)):
+        g = random.randint(ks[6], (n, DIM), -5, 5).to(dtype)
+        cases[f"mut_uniform_int {dtype}"] = (
+            lambda k, d, g=g, lo=low, hi=up: mut.mut_uniform_int(
+                k, g.to(d), lo, hi, 0.5))
+    vals = random.uniform(ks[7], (SEL_N, 2), minval=0.0, maxval=5.0)
+    vals[::7] = vals[3]                              # ties
+    valid = random.bernoulli(ks[8], 0.9, (SEL_N,))   # invalid rows read 0
+    for name in ("sel_worst", "sel_roulette",
+                 "sel_stochastic_universal_sampling"):
+        cases[f"{name} {SEL_N}"] = (
+            lambda k, d, name=name: getattr(sel, name)(
+                k, base.Fitness(vals.to(d), valid.to(d), (1.0, -1.0)),
+                SEL_N))
+    out, t = {}, time.perf_counter()
+    for i, (name, fn) in enumerate(cases.items()):
+        k = random.fold_in(ks[9], i)
+        card = fn(k, dev)
+        host = fn(k.cpu(), cpu)
+        same = _same_tensors(card, host)
+        if name.startswith(("cx_partialy", "cx_uniform_partialy",
+                            "cx_ordered", "mut_shuffle")):
+            kids = card if isinstance(card, tuple) else (card,)
+            same = same and all(_is_perm(c) for c in kids)
+        out[name] = same
+    phase("reference: the rest of the operators card vs CPU", card_line,
+          rows=n, genes=DIM, selection_n=SEL_N, bitwise=out,
+          seconds=time.perf_counter() - t)
+    bad = [k for k, v in out.items() if not v]
+    if bad:
+        fail(f"operators differ between card and CPU (or a child is not a "
+             f"permutation): {bad}")
+
+
+def benchmarks_reference_phase(card_line, key) -> None:
+    """Phase 39's benchmarks: every function, ``binary.py``, the moving
+    peaks (three scenarios and the fluctuating mode, 20 changes) and the
+    five decorators on 4096 rows, card against CPU."""
+    import torch
+    from deap_tpu_torch import benchmarks, random
+    from deap_tpu_torch.benchmarks import binary, movingpeaks as mp
+    from deap_tpu_torch.benchmarks import tools as bt
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    n = OPS_ROWS
+    out = {}
+    for i, (name, kw, width, lo, hi) in enumerate(BENCH_FUNCS):
+        x = random.uniform(random.fold_in(key, i), (n, width), minval=lo,
+                           maxval=hi)
+        fn = getattr(benchmarks, name)
+        out[name] = _same_tensors(fn(x, **kw), fn(x.cpu(), **kw))
+    x = random.uniform(random.fold_in(key, 100), (n, 4), minval=0.0,
+                       maxval=10.0)
+    peaks = torch.linspace(0.0, 10.0, 40, device=dev).reshape(10, 4)
+    widths = torch.linspace(0.1, 1.0, 10, device=dev)
+    out["shekel"] = _same_tensors(benchmarks.shekel(x, peaks, widths),
+                                benchmarks.shekel(x.cpu(), peaks.cpu(),
+                                                  widths.cpu()))
+    kr = random.PRNGKey(3, device=dev)
+    out["rand"] = _same_tensors(benchmarks.rand(x[0], kr),
+                              benchmarks.rand(x[0].cpu(), kr.cpu()))
+    for i, (name, kw, width) in enumerate(BINARY_FUNCS):
+        bits = random.bernoulli(random.fold_in(key, 200 + i), 0.8,
+                                (n, width)).to(torch.int32)
+        fn = getattr(binary, name)
+        out[f"binary.{name}"] = _same_tensors(fn(bits, **kw),
+                                            fn(bits.cpu(), **kw))
+    bits = random.bernoulli(random.fold_in(key, 300), 0.5, (n, 90))
+    dec = binary.bin2float(-5.12, 5.12, 30)(lambda v: v)
+    out["binary.bin2float"] = _same_tensors(dec(bits), dec(bits.cpu()))
+    xp = random.uniform(random.fold_in(key, 400), (n, 5), minval=0.0,
+                        maxval=100.0)
+    for label, sc, extra in (("1", mp.SCENARIO_1, {}),
+                             ("2", mp.SCENARIO_2, {}),
+                             ("3", mp.SCENARIO_3, {}),
+                             ("fluctuating", mp.SCENARIO_2,
+                              {"npeaks": [3, 10, 20],
+                               "number_severity": 0.4})):
+        kp = random.fold_in(key, 500)
+        card = mp.MovingPeaks(5, kp, **{**sc, **extra})
+        host = mp.MovingPeaks(5, kp.cpu(), **{**sc, **extra})
+        same = True
+        for _ in range(PEAKS_CHANGES):
+            same &= _same_tensors(card.evaluate(xp), host.evaluate(xp.cpu()))
+            card.changePeaks()
+            host.changePeaks()
+            same &= all(_same_tensors(getattr(card.state, f),
+                                    getattr(host.state, f))
+                        for f in ("position", "height", "width",
+                                  "last_change", "active"))
+        same &= card(xp[0]) == host(xp[0].cpu())
+        out[f"movingpeaks {label}"] = same
+    xd = random.uniform(random.fold_in(key, 600), (n, 4), minval=-20.0,
+                        maxval=20.0)
+    vec = [0.5, -1.0, 2.0, 3.0]
+    mat = torch.linalg.qr(torch.randn(4, 4, generator=torch.Generator()
+                                      .manual_seed(0)))[0]
+    bounds = ([-5.0, -1.0, 0.0, 2.0], [5.0, 1.0, 3.0, 2.5])
+    decs = {"translate": bt.translate(vec), "scale": bt.scale([2.0] * 4),
+            "rotate": bt.rotate(mat.numpy()),
+            "noise": bt.noise(lambda k: random.uniform(k, ())),
+            **{f"bound {m}": bt.bound(bounds, m)
+               for m in ("clip", "wrap", "mirror")}}
+    rot_gap = None
+    for name, d in decs.items():
+        if name.startswith("bound"):
+            f = d(lambda v: (v, -v))
+            out[name] = _same_tensors(f(xd), f(xd.cpu()))
+            continue
+        f = d(benchmarks.cigar)
+        kw = {"key": kr} if name == "noise" else {}
+        card = f(xd[0], **kw) if name == "noise" else f(xd)
+        host = (f(xd[0].cpu(), key=kr.cpu()) if name == "noise"
+                else f(xd.cpu()))
+        if name == "rotate":
+            rot_gap = _rel(card[0].cpu(), host[0])
+            out[name] = rot_gap <= ROTATE_RTOL
+        else:
+            out[name] = _same_tensors(card, host)
+    phase("reference: benchmarks, binary, moving peaks, decorators card vs "
+          "CPU", card_line, rows=n, bitwise=out, rotate_rel_gap=rot_gap,
+          rotate_rtol=ROTATE_RTOL, peaks_changes=PEAKS_CHANGES,
+          seconds=time.perf_counter() - t)
+    bad = [k for k, v in out.items() if not v]
+    if bad:
+        fail(f"benchmarks differ between card and CPU: {bad}")
+
+
+def _flag_toolbox(evaluate="rastrigin", mate=("cx_two_point", {}),
+                  engine="megakernel"):
+    import torch
+    from deap_tpu_torch import base, benchmarks
+    from deap_tpu_torch.ops import crossover, mutation, selection
+    tb = base.Toolbox()
+    tb.register("evaluate", getattr(benchmarks, evaluate))
+    tb.register("mate", getattr(crossover, mate[0]), **mate[1])
+    tb.register("mutate", mutation.mut_gaussian, mu=MU, sigma=SIGMA,
+                indpb=INDPB)
+    tb.register("select", selection.sel_tournament, tournsize=3,
+                tie_break="rank")
+    if engine == "megakernel":
+        tb.generation_engine = "megakernel"
+    return tb
+
+
+def _flag_xla_generation(tb, key, pop):
+    """``bench.py``'s xla body: tournament, the row gather,
+    ``vary_genome(pairing="halves")``, evaluation."""
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import evaluate_population, vary_genome
+    n = pop.size
+    key, k_sel, k_var = random.split(key, 3)
+    idx = tb.select(k_sel, pop.fitness, n)
+    genome, _ = vary_genome(k_var, pop.genome[idx.long()], tb, CXPB, MUTPB,
+                            pairing="halves")
+    off = base.Population(genome, base.Fitness.empty(
+        n, (-1.0,), device=genome.device))
+    return key, evaluate_population(tb, off)[0]
+
+
+def flagship_rest_phase(kernels, card_line) -> dict:
+    """Phase 40: ``bench.py``'s megakernel body with each new objective
+    and its xla body with each new crossover, 1e6 x 100 float32, rbg
+    keys, N and 2N generations.  Returns K2's launches by objective."""
+    import torch
+    from deap_tpu_torch import base, benchmarks, random
+    from deap_tpu_torch.algorithms import ea_step, evaluate_population
+    dev = torch.device("cuda")
+    key = random.PRNGKey(0, impl="rbg", device=dev)
+    k_init, k_run, k_ref = random.split(random.fold_in(key, 40), 3)
+    genome = random.uniform(k_init, (POP, DIM), minval=-5.12, maxval=5.12)
+    launches_k2 = {}
+    for body, variants in (("megakernel", FLAG_FUNCS), ("xla", FLAG_MATES)):
+        for v in variants:
+            if body == "megakernel":
+                tb, label = _flag_toolbox(evaluate=v), v
+            else:
+                tb = _flag_toolbox(mate=v, engine="xla")
+                label = v[0]
+            pop0 = evaluate_population(tb, base.Population(
+                genome, base.Fitness.empty(POP, (-1.0,), device=dev)))[0]
+            state = {}
+
+            def run(ngen):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                k, pop = k_run, pop0
+                for _ in range(ngen):
+                    if body == "megakernel":
+                        k, pop, _ = ea_step(k, pop, tb, CXPB, MUTPB)
+                    else:
+                        k, pop = _flag_xla_generation(tb, k, pop)
+                torch.cuda.synchronize()
+                state[ngen] = pop
+                return time.perf_counter() - t
+
+            kernels.reset_launches()
+            t2 = run(2 * FLAG_NGEN)
+            launches = dict(kernels.LAUNCHES)
+            t1 = run(FLAG_NGEN)
+            best0 = float(pop0.fitness.values.min())
+            best = [float(state[g].fitness.values.min())
+                    for g in (FLAG_NGEN, 2 * FLAG_NGEN)]
+            last = state[2 * FLAG_NGEN]
+            # card = CPU: the evaluation of every 100th row of the last
+            # generation's children, and one whole generation at 10240 x
+            # 100 from the same keys
+            rows = last.genome[::FLAG_STRIDE]
+            ev = evaluate_population(tb, base.Population(
+                rows.cpu(), base.Fitness.empty(rows.shape[0], (-1.0,),
+                                               device="cpu")))[0]
+            if body == "megakernel":
+                eval_same = _same_tensors(last.fitness.values[::FLAG_STRIDE],
+                                        ev.fitness.values)
+            else:
+                eval_same = _rel(last.fitness.values[::FLAG_STRIDE],
+                                 ev.fitness.values) <= FLAG_RTOL
+            small = pop0.take(torch.arange(FLAG_REF_POP, device=dev))
+            host = base.Population(small.genome.cpu(), base.Fitness(
+                small.fitness.values.cpu(), small.fitness.valid.cpu(),
+                (-1.0,)))
+            if body == "megakernel":
+                _, g_card, _ = ea_step(k_ref, small, tb, CXPB, MUTPB)
+                _, g_cpu, _ = ea_step(k_ref.cpu(), host, tb, CXPB, MUTPB)
+            else:
+                _, g_card = _flag_xla_generation(tb, k_ref, small)
+                _, g_cpu = _flag_xla_generation(tb, k_ref.cpu(), host)
+            gen_same = _same_tensors(g_card.genome, g_cpu.genome)
+            if body == "megakernel":      # the new objectives: bitwise
+                gen_same &= _same_tensors(g_card.fitness.values,
+                                        g_cpu.fitness.values)
+            else:                         # rastrigin: within FLAG_RTOL
+                gen_same &= _rel(g_card.fitness.values,
+                                 g_cpu.fitness.values) <= FLAG_RTOL
+            k2 = launches.get("megakernel_gather_vary", 0)
+            phase(f"flagship width: bench.py {body} body, {label}",
+                  card_line, key_impl="rbg", pop=POP, dim=DIM,
+                  ngen=[FLAG_NGEN, 2 * FLAG_NGEN], seconds=[t1, t2],
+                  marginal_ms_per_gen=(t2 - t1) / FLAG_NGEN * 1e3,
+                  best_start=best0, best=best, launches=launches,
+                  eval_card_eq_cpu_rows=rows.shape[0],
+                  eval_card_eq_cpu=eval_same,
+                  generation_card_eq_cpu_pop=FLAG_REF_POP,
+                  generation_card_eq_cpu=gen_same)
+            if body == "megakernel":
+                launches_k2[label] = k2
+                if k2 != 2 * FLAG_NGEN:
+                    fail(f"K2 ran {k2} times in {2 * FLAG_NGEN} generations "
+                         f"of the megakernel body on {label}")
+            if not best[-1] < best0:
+                fail(f"{body} body, {label}: best fitness did not fall: "
+                     f"{best0} -> {best}")
+            if not (eval_same and gen_same):
+                fail(f"{body} body, {label}: card and CPU differ "
+                     f"(evaluation {eval_same}, generation {gen_same})")
+            del pop0, state, last
+            torch.cuda.empty_cache()
+    return launches_k2
+
+
+def suite_toolbox(problem: str):
+    from deap_tpu_torch import base, benchmarks
+    from deap_tpu_torch.ops import crossover, mutation
+    kw, _, ndim, low, up = SUITE[problem]
+    tb = base.Toolbox()
+    tb.register("evaluate", getattr(benchmarks, problem), **kw)
+    tb.register("mate", crossover.cx_simulated_binary_bounded, low=low,
+                up=up, eta=BN_ETA)
+    tb.register("mutate", mutation.mut_polynomial_bounded, low=low, up=up,
+                eta=BN_ETA, indpb=1.0 / ndim)
+    return tb
+
+
+def suite_select(k_sel, fitness, n):
+    """``sel_nsga2`` at its defaults (``nd="standard"``: the staircase at
+    two objectives, the grid at three with n >= 16384, else the peel)."""
+    from deap_tpu_torch.ops import emo
+    return emo.sel_nsga2(k_sel, fitness, n)
+
+
+def suite_initial(tb, key, problem: str, n: int):
+    """``n`` genomes uniform within the problem's bounds, evaluated."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import evaluate_population
+    _, nobj, ndim, low, up = SUITE[problem]
+    lo = torch.tensor(low, dtype=torch.float32, device=key.device)
+    span = torch.tensor(up, dtype=torch.float32, device=key.device) - lo
+    genome = lo + span * random.uniform(key, (n, ndim))
+    pop = base.Population(genome, base.Fitness.empty(
+        n, (-1.0,) * nobj, device=key.device))
+    return evaluate_population(tb, pop)[0]
+
+
+def suite_keys(key, i: int):
+    from deap_tpu_torch import random
+    return random.split(random.fold_in(key, 41 + i), 3)
+
+
+def suite_reference(card_line, key, problem: str) -> None:
+    """One generation at pool 1024 card against CPU: offspring and
+    values bitwise, the selection equal on the CPU pool's values, and
+    the default method's ranks equal to the count peel's."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import evaluate_population, vary_genome
+    from deap_tpu_torch.ops import emo
+    dev = torch.device("cuda")
+    tb = suite_toolbox(problem)
+    n = SUITE_REF_POP // 2
+    k_init, k_var, k_sel = random.split(key.cpu(), 3)
+    pop = suite_initial(tb, k_init, problem, n)
+    g_cpu, _ = vary_genome(k_var, pop.genome, tb, BN_CXPB, BN_MUTPB,
+                           pairing="halves")
+    g_dev, _ = vary_genome(k_var.to(dev), pop.genome.to(dev), tb, BN_CXPB,
+                           BN_MUTPB, pairing="halves")
+    same_off = _same_tensors(g_dev, g_cpu)
+    weights = pop.fitness.weights
+    off = evaluate_population(tb, base.Population(g_cpu, base.Fitness.empty(
+        n, weights, device="cpu")))[0]
+    off_dev = evaluate_population(tb, base.Population(
+        g_cpu.to(dev), base.Fitness.empty(n, weights, device=dev)))[0]
+    same_vals = _same_tensors(off_dev.fitness.values, off.fitness.values)
+    pool = pop.concat(off)
+    pool_dev = base.Fitness(pool.fitness.values.to(dev),
+                            pool.fitness.valid.to(dev), weights)
+    idx_cpu = suite_select(k_sel, pool.fitness, n)
+    idx_dev = suite_select(k_sel.to(dev), pool_dev, n)
+    same_idx = torch.equal(idx_cpu, idx_dev.cpu())
+    w = pool_dev.masked_wvalues()
+    method = "staircase" if w.shape[1] == 2 else "grid"
+    a = emo.nondominated_ranks(w, method=method, stop_at_k=n)
+    b = emo.nondominated_ranks(w, method="peel", stop_at_k=n)
+    same_ranks = torch.equal(a[0], b[0]) and int(a[1]) == int(b[1])
+    phase(f"reference: suite {problem} generation card vs CPU", card_line,
+          pool=2 * n, offspring_bitwise=same_off, values_bitwise=same_vals,
+          selection_equal=same_idx, method=method,
+          ranks_equal_peel=same_ranks, fronts=int(b[1]))
+    if not (same_off and same_vals and same_idx and same_ranks):
+        fail(f"suite {problem} at pool {2 * n}: offspring {same_off}, values "
+             f"{same_vals}, selection {same_idx}, {method} ranks {same_ranks}")
+
+
+def suite_phase(kernels, card_line, key) -> tuple:
+    """Phase 41: each problem at POP 1e5 through bench_nsga2.py's
+    generation, N and 2N generations, then the final population's
+    hypervolume.  Returns ``(launches by problem, K4 and K5 times by
+    problem)``."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.ops import dominance as D, hv as host_hv
+    from deap_tpu_torch.ops import hypervolume as H
+    launches_by, k4_by, k5_by = {}, {}, {}
+    for i, problem in enumerate(SUITE):
+        _, nobj, ndim, _, _ = SUITE[problem]
+        ngen = SUITE_NGEN
+        k_init, k_run, k_ref = suite_keys(key, i)
+        suite_reference(card_line, k_ref, problem)
+        tb = suite_toolbox(problem)
+        ref = HV_REF[problem]
+        pop0 = suite_initial(tb, k_init, problem, SUITE_POP)
+        hv0 = tb.hypervolume(-pop0.fitness.wvalues, ref)
+        state = {}
+
+        def run(ngen):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            k, pop = k_run, pop0
+            for _ in range(ngen):
+                k, pop = bench_nsga2_generation(tb, k, pop,
+                                                select=suite_select)
+            torch.cuda.synchronize()
+            state[ngen] = (pop, k)
+            return time.perf_counter() - t
+
+        kernels.reset_launches()
+        t2 = run(2 * ngen)
+        pop2 = state[2 * ngen][0]
+        t = time.perf_counter()
+        hv2 = tb.hypervolume(-pop2.fitness.wvalues, ref)
+        hv_ms = (time.perf_counter() - t) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        t1 = run(ngen)
+        pts = -pop2.fitness.wvalues
+        inside = int((pts < torch.tensor(ref, device=pts.device)).all(1)
+                     .sum().item())
+        extra = {}
+        if nobj == 3:
+            plain = float(H.hypervolume_3d(pts.double(), ref))
+            sub = pts.double()[::SUITE_POP // HV_SUBSAMPLE][:HV_SUBSAMPLE]
+            sub_card = tb.hypervolume(sub, ref)
+            sub_host = host_hv.hypervolume(sub, ref)
+            extra = {"hypervolume_plain_float64": plain,
+                     "rel_gap_to_plain": abs(hv2 - plain) / abs(plain),
+                     "subsample_card": sub_card, "subsample_host": sub_host}
+        widths = front_widths(pop2.fitness, SUITE_POP)
+        ok = (bool(torch.isfinite(pop2.fitness.values).all())
+              and bool(pop2.fitness.valid.all())
+              and tuple(pop2.genome.shape) == (SUITE_POP, ndim))
+        phase(f"suite at bench_nsga2 width: {problem}", card_line,
+              pop=SUITE_POP, dim=ndim, nobj=nobj,
+              ngen=[ngen, 2 * ngen], seconds=[t1, t2],
+              marginal_ms_per_gen=(t2 - t1) / ngen * 1e3,
+              launches=launches, hv_ref=list(ref), hypervolume_start=hv0,
+              hypervolume_end=hv2, hypervolume_wall_ms=hv_ms,
+              points_inside_ref=inside, fronts_final=len(widths),
+              widest_front_final=max(widths), finite_valid_shaped=ok,
+              **extra)
+        if not ok:
+            fail(f"suite {problem}: the final population is not finite, "
+                 "valid and shaped")
+        if inside == 0:
+            fail(f"suite {problem}: no final point inside HV_REF {ref}")
+        if not hv2 >= hv0:
+            fail(f"suite {problem}: the hypervolume fell {hv0} -> {hv2}")
+        if nobj == 3:
+            if launches["rows_dominate_counts"] < 1:
+                fail(f"K4 never ran in {problem}'s grid peel")
+            if launches["hv3d_sweep"] != 1:
+                fail(f"K5 ran {launches['hv3d_sweep']} times for {problem}'s "
+                     "hypervolume")
+            if extra["rel_gap_to_plain"] > HV_RTOL["float64"]:
+                fail(f"{problem}: hypervolume {hv2} against the plain sweep's "
+                     f"{extra['hypervolume_plain_float64']}")
+            if abs(sub_card - sub_host) > 1e-12 * max(1.0, abs(sub_host)):
+                fail(f"{problem}: subsample hypervolume card {sub_card}, "
+                     f"host {sub_host}")
+            # K4 at the grid peel's chunk shape on this problem's last pool
+            w = pop2.fitness.masked_wvalues().contiguous()
+            rows = w[:FRONT_CHUNK].contiguous()
+            k4 = kernels.launch_rows_dominate_counts(rows, w)
+            p4 = D._rows_dominate_counts_plain(rows, w)
+            if not torch.equal(k4, p4):
+                fail(f"K4 on {problem}'s population differs from its plain "
+                     "version")
+            ms = cuda_ms(lambda: kernels.launch_rows_dominate_counts(rows, w),
+                         reps=10, warm=1)
+            plain_ms = cuda_ms(lambda: D._rows_dominate_counts_plain(rows, w),
+                               reps=3, warm=1)
+            b, by = counts_bound(FRONT_CHUNK, w.shape[0], nobj)
+            k4_by[problem] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                              "bound_by": by, "max_abs_err": 0}
+            k5_by[problem] = k5_check(kernels, card_line,
+                                      f"{problem}'s final population", pts,
+                                      ref)
+        launches_by[problem] = launches
+        del pop0, pop2, state
+        torch.cuda.empty_cache()
+    return launches_by, k4_by, k5_by
+
+
+def ga_example_run(mod, dev, depth=None):
+    """One example at ``depth`` generations: its final population (bbob:
+    the table)."""
+    if mod.__name__.endswith(".bbob"):
+        return mod.main(verbose=False, device=dev, ngen=depth)
+    if mod.__name__.endswith(".knn"):
+        X, y = mod.make_dataset(device=dev)
+        import torch
+        masks = (torch.arange(0, 2 ** mod.N_FEATURES, KNN_MASK_STRIDE,
+                              device=dev)[:, None]
+                 >> torch.arange(mod.N_FEATURES, device=dev)) & 1
+        n = mod.N_TRAIN
+        return mod.knn_accuracy(masks.float(), X[:n], y[:n], X[n:], y[n:])
+    kw = {} if depth is None else {"ngen": depth}
+    out = mod.main(verbose=False, device=dev, **kw)
+    return out[0] if isinstance(out, tuple) else out
+
+
+def ga_examples_phase(kernels, card_line) -> dict:
+    """Phase 42: the eight GA / ES examples at ``GA_EXAMPLE_DEPTH`` on
+    the card, each example's own check, card = CPU on the final
+    population of the same run (bbob: its first generation, and the table
+    finite)."""
+    import importlib
+    import math
+    import torch
+    from deap_tpu_torch import benchmarks
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    out = {}
+    for name in GA_EXAMPLES:
+        mod = importlib.import_module(f"deap_tpu_torch.examples.{name}")
+        kernels.reset_launches()
+        t = time.perf_counter()
+        depth = GA_EXAMPLE_DEPTH.get(name)
+        card = ga_example_run(mod, dev, depth)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        if name == "bbob":
+            same = all(
+                mod.run_problem(getattr(benchmarks, f), d, 31, dev, 1)[1]
+                == mod.run_problem(getattr(benchmarks, f), d, 31, cpu, 1)[1]
+                for f in mod.SUITE for d in mod.DIMS)
+            check = all(math.isfinite(v) for v in card.values())
+            detail = {f"{f} d{d}": v for (f, d), v in card.items()}
+        else:
+            host = ga_example_run(mod, cpu, depth)
+            if name == "ga.knn":
+                same = _same_tensors(card, host)
+                check = float(card.max()) > 0.5
+                detail = {"best_accuracy": float(card.max())}
+            else:
+                same = (_same_tensors(card.genome, host.genome)
+                        and _same_tensors(card.fitness.values,
+                                        host.fitness.values))
+                vals = card.fitness.values
+                detail = {"best": float(vals[:, 0].min()),
+                          "size": card.size}
+                if name in ("ga.tsp", "ga.nqueens"):
+                    check = _is_perm(card.genome)
+                elif name == "ga.kursawefct":
+                    check = bool((card.genome.abs() <= mod.BOUND).all())
+                elif name == "es.fctmin":
+                    check = detail["best"] < 1.0
+                else:
+                    detail = {"best_accuracy": float(vals[:, 0].max())}
+                    check = detail["best_accuracy"] > 0.5
+        cpu_secs = time.perf_counter() - t
+        phase(f"example: {name}", card_line, card_seconds=secs,
+              generations=depth, cpu_seconds=cpu_secs, card_eq_cpu=same,
+              quality_check=check,
+              launches=launches, **detail)
+        if not (same and check):
+            fail(f"example {name}: card = CPU {same}, its check {check}")
+        out[name] = launches
+    return out
+
+
+def rest_of_ops_phases(kernels, card_line, key) -> dict:
+    """Phases 39-42; returns the launch counts of their paths and K4's
+    and K5's times on the suite's fronts."""
+    import torch
+    from deap_tpu_torch import random
+    torch.cuda.empty_cache()
+    k_ops, k_bench, k_suite = random.split(random.fold_in(key, 9), 3)
+    ops_reference_phase(card_line, k_ops)
+    benchmarks_reference_phase(card_line, k_bench)
+    k2 = flagship_rest_phase(kernels, card_line)
+    suite_launches, k4_by, k5_by = suite_phase(kernels, card_line, k_suite)
+    examples = ga_examples_phase(kernels, card_line)
+    return {"k2": k2, "suite": suite_launches, "k4": k4_by, "k5": k5_by,
+            "examples": examples}
+
+
 def main() -> int:
     try:
         import torch
@@ -4000,7 +4736,10 @@ def main() -> int:
     # ---- 34.-38. the rest of GP ---------------------------------------------
     gp_rest = gp_rest_phases(kernels, card_line, key, dev)
 
-    # ---- 34. the kernels line and the result -------------------------------
+    # ---- 39.-42. the rest of the operators and benchmarks -------------------
+    rest = rest_of_ops_phases(kernels, card_line, key)
+
+    # ---- 43. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -4029,7 +4768,9 @@ def main() -> int:
     rows[1]["launches_by_path"] = {
         f"ea_simple, {NGEN} generations": launches_main[
             "megakernel_gather_vary"],
-        f"ea_simple, rbg keys, {RBG_NGEN} generations": launches_rbg["K2"]}
+        f"ea_simple, rbg keys, {RBG_NGEN} generations": launches_rbg["K2"],
+        **{f"bench.py megakernel body, {fn}, {2 * FLAG_NGEN} generations": n
+           for fn, n in rest["k2"].items()}}
     # K1 at the NSGA-II head's shape beside the flagship's: host-paced
     # ms, device ms with the launches queued, and the bound
     rows[0]["ms_by_shape"] = {
@@ -4080,7 +4821,18 @@ def main() -> int:
             **{f"bench_nsga2 {path}": v["rows_dominate_counts"]
                for path, v in mo_runs.items()},
             **{f"examples/ga/{ex}.py": v["rows_dominate_counts"]
-               for ex, v in launches_ex.items()}}})
+               for ex, v in launches_ex.items()},
+            **{f"suite {p}, {2 * SUITE_NGEN} generations": v["rows_dominate_counts"]
+               for p, v in rest["suite"].items()},
+            **{f"examples/{ex.replace('.', '/')}.py":
+               v["rows_dominate_counts"]
+               for ex, v in rest["examples"].items()}},
+        "ms_by_input": {f"C = {FRONT_CHUNK} rows of the {p} pool": v["ms"]
+                        for p, v in rest["k4"].items()},
+        "plain_ms_by_input": {f"C = {FRONT_CHUNK} rows of the {p} pool":
+                              v["plain_ms"] for p, v in rest["k4"].items()},
+        "bound_ms_by_input": {f"C = {FRONT_CHUNK} rows of the {p} pool":
+                              v["bound_ms"] for p, v in rest["k4"].items()}})
     # K5 in float64 (the toolbox slot's route) on path A's final
     # population; its other inputs and float32 are in the K5 phases above
     a64 = k5["path A"]["float64"]
@@ -4089,16 +4841,21 @@ def main() -> int:
         "source": "deap_tpu_torch/kernels/hypervolume.cu",
         "replaces": "deap_tpu/ops/hypervolume.py:161",
         "launches": launches_bn_a["hv3d_sweep"],
-        "max_abs_err": max(v["max_abs_err"] for c in k5.values()
-                           for v in c.values()),
+        "max_abs_err": max(v["max_abs_err"] for c in (
+            *k5.values(), *rest["k5"].values()) for v in c.values()),
         "ms": a64["ms"], "plain_ms": a64["plain_ms"],
         "bound_ms": a64["bound_ms"], "bound_by": a64["bound_by"],
         "library_ms": None,
-        "ms_by_input": {f"{c} {d}": v["ms"] for c, cs in k5.items()
-                        for d, v in cs.items()},
-        "device_ms_by_input": {f"{c} {d}": v["device_ms"]
-                               for c, cs in k5.items()
-                               for d, v in cs.items()}})
+        "launches_by_path": {
+            "bench_nsga2 A": launches_bn_a["hv3d_sweep"],
+            **{f"suite {p}": v["hv3d_sweep"]
+               for p, v in rest["suite"].items() if v["hv3d_sweep"]}},
+        "ms_by_input": {f"{c} {d}": v["ms"] for c, cs in (
+            *k5.items(), *rest["k5"].items()) for d, v in cs.items()},
+        "device_ms_by_input": {f"{c} {d}": v["device_ms"] for c, cs in (
+            *k5.items(), *rest["k5"].items()) for d, v in cs.items()},
+        "bound_ms_by_input": {f"{c} {d}": v["bound_ms"] for c, cs in (
+            *k5.items(), *rest["k5"].items()) for d, v in cs.items()}})
     # K6 on the population after 2N generations of the main path (its
     # other inputs are in the K6 phases above)
     ev = k6["evolved"]

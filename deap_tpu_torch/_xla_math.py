@@ -34,7 +34,8 @@ import torch
 
 __all__ = ["fma", "fma_product", "deferred_rounding", "fma64", "sqrt", "log", "log1p", "exp",
            "expm1", "tanh", "erf_inv", "sin", "cos", "sincos",
-           "sincos_small", "pow", "row_sum", "row_mean"]
+           "sincos_small", "pow", "row_sum", "row_sum_vectorized", "row_dot",
+           "row_prod", "row_mean", "cumsum", "vectorized_row_loop"]
 
 _INF = float("inf")
 _FLT_MIN = 1.1754943508222875e-38           # smallest normal float32
@@ -597,18 +598,155 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 sum over the last axis, in its order."""
     n = x.shape[-1]
     if n > _REDUCE_WINDOW:
-        m = -(-n // _REDUCE_WINDOW) * _REDUCE_WINDOW
-        lo = (m - n) // 2
-        x = torch.nn.functional.pad(x, (lo, m - n - lo))
-        x = x.reshape(x.shape[:-1] + (m // _REDUCE_WINDOW, _REDUCE_WINDOW))
-        return row_sum(row_sum(x))
+        return row_sum(row_sum(_windows(x)))
     s = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
     for i in range(n):
         s = s + x[..., i]
     return s
 
 
+_VECTOR_LANES = 8               # float32 lanes of the host's AVX2 loops
+
+
+def row_sum_vectorized(x: torch.Tensor) -> torch.Tensor:
+    """A float32 sum over the last axis (up to 32 terms) as LLVM's loop
+    vectorizer compiles it inside some of XLA's fusions: eight running
+    sums over whole chunks of eight terms, folded in halves (lane ``i``
+    plus lane ``i + 4``, and again), then the remaining terms in
+    order."""
+    lanes = _VECTOR_LANES
+    n = x.shape[-1]
+    m = n - n % lanes
+    if m == 0:
+        return row_sum(x)
+    acc = x[..., :lanes]
+    for i in range(lanes, m, lanes):
+        acc = acc + x[..., i:i + lanes]
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    s = acc[..., 0]
+    for i in range(m, n):
+        s = s + x[..., i]
+    return s
+
+
+def _windows(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s last axis padded with zeros as :func:`row_sum` pads it and
+    cut into windows of 32: ``(..., windows, 32)``."""
+    n = x.shape[-1]
+    m = -(-n // _REDUCE_WINDOW) * _REDUCE_WINDOW
+    lo = (m - n) // 2
+    x = torch.nn.functional.pad(x, (lo, m - n - lo))
+    return x.reshape(x.shape[:-1] + (m // _REDUCE_WINDOW, _REDUCE_WINDOW))
+
+
+def row_dot(a: torch.Tensor, b, fused: bool | None = None) -> torch.Tensor:
+    """XLA CPU's float32 sum over the last axis of ``a * b``.  Its
+    backend either fuses each product into the running sum as a fused
+    multiply-add (the first product rounded alone) or sums the rounded
+    products, in :func:`row_sum`'s order and windows.  Which one depends
+    on the program: ``fused=None`` takes what it does for a function of
+    one individual under ``jax.vmap`` (a row reduction of an ``(n,
+    length)`` input) — fused for lengths up to 4 and from 9 to 32, not
+    for 5 to 8 and past 32; ``fused=True`` or ``False`` forces one.
+    ``b`` is a tensor that broadcasts against ``a`` or a Python
+    number."""
+    if not torch.is_tensor(b):
+        b = torch.full_like(a, float(np.float32(b)))
+    a, b = torch.broadcast_tensors(a, b)
+    n = a.shape[-1]
+    if fused is None:
+        fused = not (n > _REDUCE_WINDOW or 5 <= n <= 8)
+    if not fused:
+        return row_sum(a * b)
+    if n > _REDUCE_WINDOW:
+        return row_sum(row_dot(_windows(a), _windows(b), True))
+    p = a.double() * b.double()                 # exact products
+    s = p[..., 0].float()
+    for i in range(1, n):
+        s = fma_product(p[..., i], s)
+    return s
+
+
+def row_prod(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 product over the last axis, in :func:`row_sum`'s
+    order and windows (padding with ones)."""
+    n = x.shape[-1]
+    if n > _REDUCE_WINDOW:
+        m = -(-n // _REDUCE_WINDOW) * _REDUCE_WINDOW
+        lo = (m - n) // 2
+        x = torch.nn.functional.pad(x, (lo, m - n - lo), value=1.0)
+        x = x.reshape(x.shape[:-1] + (m // _REDUCE_WINDOW, _REDUCE_WINDOW))
+        return row_prod(row_prod(x))
+    p = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(n):
+        p = p * x[..., i]
+    return p
+
+
 def row_mean(x: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 mean over the last axis: :func:`row_sum` times
     the float32 reciprocal of the length."""
     return row_sum(x) * float(np.float32(1.0 / x.shape[-1]))
+
+
+# XLA's CPU pipeline rewrites a cumulative sum longer than 16 into blocks
+# of 16: each block's prefix sums in order, then the blocks' totals summed
+# the same way (recursively) and added to the next block's prefixes
+_SCAN_BLOCK = 16
+
+
+def _prefix_in_order(x: torch.Tensor) -> torch.Tensor:
+    out = x.clone()
+    for i in range(1, x.shape[-1]):
+        out[..., i] = out[..., i - 1] + x[..., i]
+    return out
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``jnp.cumsum`` of a 1-D tensor, in its order:
+    up to 16 entries one running sum; beyond that, the entries padded
+    with zeros to rows of 16, each row's running sum, and to each row
+    the sum of the rows before it, taken by this same rule over the row
+    totals."""
+    n = x.shape[0]
+    if n <= _SCAN_BLOCK:
+        return _prefix_in_order(x)
+    m = -(-n // _SCAN_BLOCK)
+    rows = _prefix_in_order(torch.nn.functional.pad(
+        x, (0, m * _SCAN_BLOCK - n)).reshape(m, _SCAN_BLOCK))
+    before = torch.nn.functional.pad(cumsum(rows[:, -1])[:-1], (1, 0))
+    return (rows + before[:, None]).reshape(-1)[:n]
+
+
+_LOOP_LANES, _LOOP_INTERLEAVE = 4, 2
+
+
+def vectorized_row_loop(update, n: int, init: torch.Tensor) -> torch.Tensor:
+    """A float32 sum of ``n`` terms over the last axis as LLVM's loop
+    vectorizer compiles it inside an XLA CPU fusion whose loop runs along
+    the row: chunks of 4 terms, two interleaved accumulators that the
+    backend reassociates into one chain (chunks 0, 2, 4, ..., then 1, 3,
+    5, ...), the four lanes folded as ``(l0 + l2) + (l1 + l3)``, then the
+    terms past the last whole pair of chunks one at a time.
+    ``update(acc, lo, hi)`` adds terms ``lo:hi`` into ``acc`` (last axis
+    ``hi - lo``) in the fusion's own form; ``init`` is the row shape's
+    starting value (zeros)."""
+    step = _LOOP_LANES * _LOOP_INTERLEAVE
+    m = n - n % step
+    if m:
+        acc = init[..., None].expand(init.shape + (_LOOP_LANES,))
+        chunks = m // _LOOP_LANES
+        for c in (list(range(0, chunks, _LOOP_INTERLEAVE))
+                  + list(range(1, chunks, _LOOP_INTERLEAVE))):
+            acc = update(acc, c * _LOOP_LANES, (c + 1) * _LOOP_LANES)
+        while acc.shape[-1] > 1:
+            h = acc.shape[-1] // 2
+            acc = acc[..., :h] + acc[..., h:]
+        s = acc[..., 0]
+    else:
+        s = init
+    for i in range(m, n):
+        s = update(s[..., None], i, i + 1)[..., 0]
+    return s

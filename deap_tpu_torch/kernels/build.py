@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
-One ``nvcc`` call compiles every file of :data:`SOURCES` (plain C
-interfaces, no PyTorch headers: seconds, not minutes; the shared device
-functions of :data:`HEADERS` are included) for ``sm_90a``
-into one shared library under ``deap_tpu_torch/_build/``.  The library
+One ``nvcc`` call a file of :data:`SOURCES` (plain C interfaces, no
+PyTorch headers: seconds, not minutes; the shared device functions of
+:data:`HEADERS` are included), all started together, compiles each for
+``sm_90a`` to an object; one more call links the objects into one
+shared library under ``deap_tpu_torch/_build/``.  The library
 is named by a hash of every source, header and flag, so an edited file is
 rebuilt and an unchanged tree is reused.  Any failure raises
 :class:`KernelBuildError` with the compiler's output; nothing falls back.
@@ -36,7 +37,7 @@ ARCH = "sm_90a"
 #: __fmaf_rn calls, so the kernels equal their plain versions bitwise
 NVCC_FLAGS = ("-O3", "-std=c++17", "--fmad=false",
               f"-gencode=arch=compute_{ARCH[3:]},code={ARCH}",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class KernelBuildError(RuntimeError):
@@ -67,27 +68,41 @@ def digest(sources=SOURCES + HEADERS) -> str:
     return h.hexdigest()[:12]
 
 
+def _failed(returncode: int, names, output: str) -> KernelBuildError:
+    return KernelBuildError(f"nvcc failed ({returncode}) on "
+                            f"{', '.join(names)}:\n{output}")
+
+
 def build(verbose: bool = False) -> Path:
     """Compile :data:`SOURCES` into one library if it is not built yet
-    and return its path."""
+    and return its path: one compiler process a source, all running at
+    once, then the link."""
     lib = BUILD_DIR / f"libdeap_kernels-{digest()}.so"
     if lib.exists():
         return lib
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}) on "
-                               f"{', '.join(s.name for s in SOURCES)}:\n"
-                               f"{proc.stdout}")
-    if verbose:
-        print(proc.stdout, file=sys.stderr)
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, log in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise _failed(p.returncode, [src.name], log)
+        tmp = Path(work) / "lib.so"
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise _failed(proc.returncode, [o.name for o in objs],
+                          proc.stdout)
+        if verbose:
+            print("".join(logs), file=sys.stderr)
+        os.replace(tmp, lib)
     return lib
 
 

@@ -1,7 +1,10 @@
 """Mutation operators — the PyTorch counterparts of
-``deap_tpu/ops/mutation.py``.  Every operator is shape-polymorphic:
-called on a ``(pop, size)`` batch with one key each is its own batched
-form."""
+``deap_tpu/ops/mutation.py``.  The elementwise operators are
+shape-polymorphic: called on a ``(pop, size)`` batch with one key each
+is its own batched form.  ``mut_es_log_normal`` registers
+``_mut_es_log_normal_batched`` (one common normal a row), and
+``mut_shuffle_indexes``, a sequential swap chain, is a
+:func:`~deap_tpu_torch.ops._dispatch.rowwise_op`."""
 
 from __future__ import annotations
 
@@ -9,11 +12,14 @@ import numpy as np
 import torch
 
 from .. import random
-from .._xla_math import fma, pow as xla_pow
-from ._dispatch import batched_op
+from .._xla_math import exp, fma, pow as xla_pow
+from ._dispatch import batched_op, rowwise_op
 from .crossover import _bounds, _clip, draw_shape, key_parts
 
-__all__ = ["mut_gaussian", "mut_polynomial_bounded", "mut_flip_bit"]
+__all__ = [
+    "mut_gaussian", "mut_polynomial_bounded", "mut_shuffle_indexes",
+    "mut_flip_bit", "mut_uniform_int", "mut_es_log_normal",
+]
 
 
 def mut_gaussian(key, ind, mu, sigma, indpb):
@@ -106,3 +112,92 @@ def mut_flip_bit(key, ind, indpb):
 
 
 batched_op(mut_flip_bit, mut_flip_bit)
+
+
+@rowwise_op
+def mut_shuffle_indexes(keys, ind, indpb):
+    """Swap each gene with probability ``indpb`` with another position
+    drawn uniformly from the rest (reference mutation.py:98-121): a
+    ``randint(0, size - 1)`` bumped past ``i``, then the sequential swap
+    chain, ``size`` steps over a leading row axis."""
+    size = ind.shape[-1]
+    k_mask, k_idx = key_parts(keys, 2)
+    mask = random.bernoulli(k_mask, indpb, (size,))
+    raw = random.randint(k_idx, (size,), 0, size - 1).long()
+    idx = torch.arange(size, device=ind.device)
+    swap_to = torch.where(raw >= idx, raw + 1, raw)
+    x = ind.clone()
+    rows = torch.arange(x.shape[0], device=x.device)
+    for i in range(size):
+        j, m = swap_to[:, i], mask[:, i]
+        xi, xj = x[:, i].clone(), x[rows, j]
+        x[:, i] = torch.where(m, xj, xi)
+        x[rows, j] = torch.where(m, xi, xj)
+    return x
+
+
+def mut_uniform_int(key, ind, low, up, indpb):
+    """Replace each gene with probability ``indpb`` by a uniform integer
+    in ``[low, up]``, drawn for the genome's dtype (int8, int16 or
+    int32: :func:`deap_tpu_torch.random.randint`, whose narrow law clips
+    the bounds to the dtype and draws in int32); a float genome raises,
+    as in jax.  Shape-polymorphic: its own batched form."""
+    if ind.dtype not in (torch.int8, torch.int16, torch.int32):
+        raise TypeError(f"mut_uniform_int takes an int8, int16 or int32 "
+                        f"genome, not {ind.dtype}")
+    k_mask, k_val = key_parts(key, 2)
+    shape = draw_shape(key, ind)
+    mask = random.bernoulli(k_mask, indpb, shape)
+    vals = random.randint(k_val, shape, low, up + 1, dtype=ind.dtype)
+    return torch.where(mask, vals, ind)
+
+
+batched_op(mut_uniform_int, mut_uniform_int)
+
+
+
+def _log_normal_scales(c: float, size: int):
+    """The float32 factors XLA folds onto ``erf_inv`` of the common and
+    the per-gene normals: ``t0 * sqrt(2)`` and ``t * sqrt(2)``, with ``t
+    = c / sqrt(2 sqrt(size))`` and ``t0 = c / sqrt(2 size)``, every step
+    a float32 operation."""
+    f = np.float32
+    t = f(c) / np.sqrt(f(2.0) * np.sqrt(f(size)))
+    t0 = f(c) / np.sqrt(f(2.0) * f(size))
+    root2 = f(random.SQRT2)
+    return float(t0 * root2), float(t * root2)
+
+
+def _log_normal(key, ind, c, indpb, common_shape):
+    x, s = ind
+    k_mask, k_common, k_gene, k_val = key_parts(key, 4)
+    c0, cg = _log_normal_scales(c, x.shape[-1])
+    shape = draw_shape(key, x)
+    mask = random.bernoulli(k_mask, indpb, shape)
+    common = random.normal_erf_inv(k_common, common_shape) * c0
+    if key.ndim > 1:                    # a key a row: one common normal each
+        common = common[..., None]
+    new_s = s * exp(fma(random.normal_erf_inv(k_gene, shape), cg, common))
+    new_x = fma(new_s, random.normal(k_val, shape), x)
+    return torch.where(mask, new_x, x), torch.where(mask, new_s, s)
+
+
+def mut_es_log_normal(key, ind, c, indpb):
+    """Self-adaptive ES mutation on ``(x, strategy)`` pairs (reference
+    mutation.py:180-219): each mutated gene's strategy is multiplied by
+    ``exp(t0 N + t N_i)`` (one common normal, one a gene) and its value
+    moves by ``strategy * N``.  The float32 form XLA compiles: ``t0`` and
+    ``t`` fold into the normals' ``sqrt(2)``, the per-gene product is
+    fused into the exponent's add, and ``new_s * N`` into the add to
+    ``x``.  One key and one pair, or a batch of keys (one a row) and
+    ``(n, size)`` pairs, as ``jax.vmap`` over ``split`` keys."""
+    return _log_normal(key, ind, c, indpb, ())
+
+
+def _mut_es_log_normal_batched(key, ind, c, indpb):
+    """:func:`mut_es_log_normal` over ``(n, size)`` pairs from one key,
+    with one common normal a row."""
+    return _log_normal(key, ind, c, indpb, (ind[0].shape[0], 1))
+
+
+batched_op(mut_es_log_normal, _mut_es_log_normal_batched)

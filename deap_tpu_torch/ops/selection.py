@@ -10,12 +10,15 @@ import numpy as np
 import torch
 
 from .. import random
-from .._xla_math import expm1, log1p
+from .._xla_math import cumsum, expm1, fma, log1p, row_sum
 from ..base import Fitness, lex_argmax, lex_sort_indices, lexsort
 
-__all__ = ["sel_random", "sel_best", "sel_tournament",
-           "tournament_positions", "sel_double_tournament", "sel_lexicase",
-           "sel_epsilon_lexicase", "sel_automatic_epsilon_lexicase"]
+__all__ = [
+    "sel_random", "sel_best", "sel_worst", "sel_tournament",
+    "tournament_positions", "sel_roulette",
+    "sel_double_tournament", "sel_stochastic_universal_sampling",
+    "sel_lexicase", "sel_epsilon_lexicase", "sel_automatic_epsilon_lexicase",
+]
 
 
 def _wv(fitness) -> torch.Tensor:
@@ -33,6 +36,57 @@ def sel_best(key, fitness, k):
     """Top-``k`` by lexicographic fitness; ``key`` is unused."""
     del key
     return lex_sort_indices(_wv(fitness), descending=True)[:k]
+
+
+def sel_worst(key, fitness, k):
+    """Bottom-``k`` by lexicographic fitness (the stable ascending
+    order); ``key`` is unused."""
+    del key
+    return lex_sort_indices(_wv(fitness), descending=False)[:k]
+
+
+def _first_values(fitness) -> torch.Tensor:
+    """The first objective's raw values, invalid rows read 0."""
+    if isinstance(fitness, Fitness):
+        return torch.where(fitness.valid, fitness.values[:, 0], 0.0)
+    return fitness[:, 0]
+
+
+def sel_roulette(key, fitness, k):
+    """Fitness-proportionate selection on the first objective's raw
+    value (like the reference, unsuitable for minimization or negative
+    fitness): ``k`` uniforms placed in the cumulative shares by a
+    left-sided search.  The sum and the cumulative sum are XLA's float32
+    orders (:func:`~deap_tpu_torch._xla_math.row_sum`,
+    :func:`~deap_tpu_torch._xla_math.cumsum`)."""
+    vals = _first_values(fitness)
+    n = vals.shape[0]
+    total = row_sum(vals)
+    p = torch.where(total > 0, vals / torch.where(total > 0, total, 1.0),
+                    float(np.float32(1.0) / np.float32(n)))
+    u = random.uniform(key, (k,))
+    idx = torch.searchsorted(cumsum(p), u)
+    return torch.clamp(idx, max=n - 1).to(torch.int32)
+
+
+def sel_stochastic_universal_sampling(key, fitness, k):
+    """SUS: ``k`` evenly spaced pointers, the first uniform in ``[0,
+    total / k)``, over the cumulative first-objective values in
+    descending fitness order, placed by a right-sided search.  The
+    pointers are ``start + distance * i`` with the product fused into
+    the add, as XLA compiles them."""
+    vals = _first_values(fitness)
+    n = vals.shape[0]
+    order = lex_sort_indices(_wv(fitness), descending=True)
+    total = row_sum(vals)
+    # a divisor tensor: the card divides a tensor by a Python number as
+    # a multiply by its reciprocal
+    distance = total / torch.full_like(total, float(k))
+    start = torch.clamp(random.uniform(key, ()) * distance, min=0.0)
+    points = fma(distance, torch.arange(k, dtype=torch.float32,
+                                        device=vals.device), start)
+    picks = torch.searchsorted(cumsum(vals[order]), points, right=True)
+    return order[torch.clamp(picks, max=n - 1)]
 
 
 def tournament_positions(key, n, k, tournsize):

@@ -326,11 +326,24 @@ def randint_from_bits(higher, lower, minval, maxval) -> torch.Tensor:
     return (out - (1 << 31)).to(torch.int32)
 
 
-def randint(key: torch.Tensor, shape: Shape, minval, maxval) -> torch.Tensor:
-    """int32 draws in ``[minval, maxval)`` of ``(*batch, *shape)``.  The
+def randint(key: torch.Tensor, shape: Shape, minval, maxval,
+            dtype=torch.int32) -> torch.Tensor:
+    """Integer draws in ``[minval, maxval)`` of ``(*batch, *shape)``.  The
     bounds are Python ints or integer tensors of the key batch's shape
-    (one bound per key, as a traced bound under ``jax.vmap``)."""
+    (one bound per key, as a traced bound under ``jax.vmap``).
+
+    ``dtype`` int8 or int16 takes jax's narrow law: Python int bounds
+    clipped to ``[min, max]`` and ``[min, max + 1]`` of the dtype, the
+    int32 draw on those, and its conversion to the dtype (jax always
+    draws at least 32 bits)."""
     shape = _shape(shape)
+    if dtype in (torch.int8, torch.int16):
+        info = torch.iinfo(dtype)
+        lo = min(max(int(minval), info.min), info.max)
+        hi = min(max(int(maxval), info.min), info.max + 1)
+        return randint(key, shape, lo, hi).to(dtype)
+    if dtype != torch.int32:
+        raise TypeError(f"randint draws int8, int16 or int32, not {dtype}")
     higher, lower = randint_bits(key, shape)
     tail = (1,) * len(shape)
     minval, maxval = (b.reshape(b.shape + tail) if torch.is_tensor(b) else b

@@ -14,6 +14,9 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "deap_tpu", "examples")
 GP_EXAMPLES = ("symbreg", "symbreg_epsilon_lexicase", "symbreg_harm",
                "adf_symbreg", "ant", "multiplexer", "parity", "spambase")
+GA_EXAMPLES = ("ga/tsp", "ga/nqueens", "ga/knn", "ga/evoknn",
+               "ga/evoknn_jmlr", "ga/kursawefct", "es/__init__", "es/fctmin",
+               "bbob")
 
 
 def _port_files():
@@ -57,7 +60,10 @@ def test_port_sources_exist():
                 "deap_tpu_torch/gp/harm.py", "deap_tpu_torch/gp/adf.py",
                 "deap_tpu_torch/gp/routine.py",
                 "deap_tpu_torch/benchmarks/gp.py",
-                *(f"deap_tpu_torch/examples/gp/{m}.py" for m in GP_EXAMPLES)):
+                "deap_tpu_torch/benchmarks/binary.py",
+                "deap_tpu_torch/benchmarks/movingpeaks.py",
+                *(f"deap_tpu_torch/examples/gp/{m}.py" for m in GP_EXAMPLES),
+                *(f"deap_tpu_torch/examples/{m}.py" for m in GA_EXAMPLES)):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
                "hypervolume.cu", "probes.cu", "device_math.cuh"):

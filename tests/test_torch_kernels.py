@@ -661,8 +661,10 @@ def _fake_nvcc(tmp_path, body: str):
 
 def test_build_is_one_compiler_call_over_every_source(monkeypatch,
                                                       tmp_path):
-    """Every source goes to one nvcc call that writes one library, named
-    by the digest; a second build reuses it without calling nvcc again."""
+    """Every source goes to one nvcc call of its own (``-c``, an object),
+    and one more call links the objects into one library, named by the
+    digest; a second build reuses it without calling nvcc again, and
+    the objects do not stay."""
     log = tmp_path / "calls.jsonl"
     nvcc = _fake_nvcc(tmp_path, (
         f"open({str(log)!r}, 'a').write(json.dumps(sys.argv[1:]) + '\\n')\n"
@@ -675,9 +677,13 @@ def test_build_is_one_compiler_call_over_every_source(monkeypatch,
     assert lib.read_bytes() == b"lib"
     assert build.build() == lib
     calls = [json.loads(line) for line in log.read_text().splitlines()]
-    assert len(calls) == 1
-    assert "-shared" in calls[0]
-    assert calls[0][-len(build.SOURCES):] == [str(s) for s in build.SOURCES]
+    assert len(calls) == len(build.SOURCES) + 1
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(c[-1] for c in compiles) == sorted(
+        str(s) for s in build.SOURCES)
+    assert all("-c" in c and "-shared" not in c for c in compiles)
+    objs = [c[c.index("-o") + 1] for c in compiles]
+    assert "-shared" in link and sorted(link[-len(objs):]) == sorted(objs)
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
         lib.name]
 
