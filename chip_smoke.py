@@ -301,7 +301,45 @@
              every 16th feature mask; bbob's CMA-ES on its first
              generation, as ``eigh`` rounds differently on the two
              devices);
-43. the ``kernels`` line, the card's name and power limit, and the result
+43. creator and checkpoint — ``creator.IndividualSpec.init_population``
+             at 1e6 x 100 (``ops.init.uniform``) in float32, bfloat16 and
+             int8 storage, card = CPU on every 1000th row; then the
+             flagship generation (``ea_simple``'s ``ea_step``, megakernel
+             engine, K2) from it: 2 generations, ``save_checkpoint`` of
+             (key, population), 2 more, ``load_checkpoint`` onto the card
+             and 2 generations from it, which must equal the undisturbed
+             4 bit for bit; again with ``async_save_checkpoint``
+             overlapping the next generation; save, load and host-copy
+             seconds and MB/s, K2 once a generation;
+44. DE       — ``de_step`` rand/1/bin at POP 8192 x 100 on rastrigin (in
+             fixed float32 forms, the same bits on both devices): ms a
+             generation (median of 3) and the donor shuffle's share
+             (one (n, n - 1) permutation, two sort rounds); one
+             generation at 2048 x 100 card = CPU bit for bit;
+45. PSO      — ``pso_step`` at 1e6 x 100 on that rastrigin, the
+             canonical rule with speed limits and the constriction rule
+             (ms a generation, median of 3; two steps at 2048 rows card =
+             CPU bit for bit), and the multiswarm at
+             ``examples/pso/multiswarm.py``'s defaults (ms a generation);
+46. EDA      — EMNA at BASELINE config 3's width (N = 100, lambda =
+             4096, mu = 2048) on the sphere and PBIL (100 bits, lambda =
+             4096) on OneMax through ``ea_generate_update``: ms a
+             generation; one generation from the same state and key card
+             = CPU bit for bit;
+47. migration — ``mig_ring_stacked`` over 8 islands of 131072 x 100, the
+             best 1024 of each island replacing the worst 1024 of the
+             next, on the default ring (a roll) and a non-cyclic
+             ``migarray`` (a gather): card = CPU bit for bit, ms a call;
+48. library examples — the ten of ``deap_tpu_torch/examples/``
+             (``ga/onemax_multidemic``, ``de/basic``, ``de/sphere``,
+             ``de/dynamic``, ``pso/basic``, ``pso/multiswarm`` at 20
+             generations, ``eda/emna``, ``eda/pbil``, ``coev/coop_evol``,
+             ``coev/hillis``) at ``tests/test_examples.py``'s arguments on
+             the card, each with that table's check, card = CPU bit for
+             bit on the final population or state of the same run; then
+             each of phases 43-48's seconds.  No kernel of the port runs
+             on phases 44-48 (their launch counts are printed, zero);
+49. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12, 15, 35
@@ -319,6 +357,9 @@ CMA-ES (phase 23): the card's and the CPU's matrix products and
 ``eigh`` (cuSOLVER's Jacobi solver on the card, LAPACK on the host)
 round differently, so each state field must agree within relative
 1e-4, and ``|B_cardᵀ B_cpu|`` with I within 1e-2.
+Phases 43-48: the resumed flagship run equal to the undisturbed one, and
+init_population (every 1000th row), the DE / PSO / EDA / migration steps
+and the library examples card = CPU, all bit for bit.
 Phases 39-42 (no kernel of their own): every new operator, selection,
 benchmark function and example card = CPU bit for bit, except
 ``rotate``'s matrix product (``ROTATE_RTOL``, 1e-5) and rastrigin's
@@ -4414,6 +4455,523 @@ def rest_of_ops_phases(kernels, card_line, key) -> dict:
             "examples": examples}
 
 
+# ---------------------------------------------------------------------------
+# the rest of the library: creator, checkpoint / resume (K2), DE, PSO,
+# EDA, migration and their ten examples
+# ---------------------------------------------------------------------------
+
+CK_STORAGES = (("float32", 0.0), ("bfloat16", 0.0), ("int8", 5.12))
+CK_GENS = 2                        # generations before and after the save
+CK_STRIDE = 1000                   # init_population card = CPU rows
+DE_POP, DE_REF_POP, DE_GENS = 8192, 2048, 3
+PSO_GENS, PSO_REF_POP = 3, 2048
+EDA_DIM, EDA_LAMBDA, EDA_MU, EDA_GENS = 100, 4096, 2048, 10
+MIG_ISLANDS, MIG_POP, MIG_K = 8, 131072, 1024
+MIG_NONCYCLIC = (2, 0, 1, 4, 3, 6, 7, 5)
+LIB_EXAMPLES = ("ga.onemax_multidemic", "de.basic", "de.sphere",
+                "de.dynamic", "pso.basic", "pso.multiswarm", "eda.emna",
+                "eda.pbil", "coev.coop_evol", "coev.hillis")
+# tests/test_examples.py's SMOKE arguments and checks (None: it runs)
+LIB_EXAMPLE_ARGS = {"pso.multiswarm": {"ngen": 20}}
+LIB_EXAMPLE_CHECKS = {
+    "ga.onemax_multidemic": lambda r: float(r.fitness.values.max()) >= 85,
+    "de.basic": lambda r: r < 1e-1, "pso.basic": lambda r: r < 1.0,
+    "eda.emna": lambda r: r < 1e-2, "eda.pbil": lambda r: r >= 45,
+    "coev.coop_evol": lambda r: r >= 85, "coev.hillis": lambda r: r <= 20}
+
+
+def rastrigin_exact(x):
+    """Rastrigin over a leading row axis in fixed float32 forms (XLA's
+    cosine through float64, the sum in index order, XLA's windows past
+    32): the same bits on the card and the CPU, which
+    ``benchmarks.rastrigin``'s ``torch.cos`` and ``torch.sum`` are not."""
+    import math
+    from deap_tpu_torch._xla_math import cos, row_sum
+    n = x.shape[-1]
+    return 10.0 * n + row_sum(x * x - 10.0 * cos((2.0 * math.pi) * x)),
+
+
+def _exact_rastrigin():
+    from deap_tpu_torch.ops._dispatch import batched_op
+    if getattr(rastrigin_exact, "batched", None) is None:
+        batched_op(rastrigin_exact, rastrigin_exact)
+    return rastrigin_exact
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` between synchronizations."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _tree_bytes(state) -> int:
+    import dataclasses
+    import torch
+    if torch.is_tensor(state):
+        return state.numel() * state.element_size()
+    if isinstance(state, dict):
+        return sum(_tree_bytes(v) for v in state.values())
+    if isinstance(state, (tuple, list)):
+        return sum(_tree_bytes(v) for v in state)
+    if dataclasses.is_dataclass(state):
+        return sum(_tree_bytes(getattr(state, f.name))
+                   for f in dataclasses.fields(state))
+    return 0
+
+
+def creator_checkpoint_phase(kernels, card_line) -> dict:
+    """Phase 43: ``creator.IndividualSpec.init_population`` at 1e6 x 100
+    in float32, bfloat16 and int8 storage (card = CPU on every 1000th
+    row), then the flagship generation (``ea_simple``'s ``ea_step`` on the
+    megakernel engine, K2) with a checkpoint after 2 generations: 2 more
+    generations, the checkpoint loaded onto the card and 2 generations
+    from it equal the undisturbed 4 bit for bit; again with the
+    asynchronous save overlapping the next generation.  Returns K2's
+    launches on the path."""
+    import torch
+    from deap_tpu_torch import creator, random
+    from deap_tpu_torch.algorithms import ea_step, evaluate_population
+    from deap_tpu_torch.ops import init
+    from deap_tpu_torch.ops.generation import GenomeStorage
+    from deap_tpu_torch.utils import checkpoint
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    t0 = time.perf_counter()
+    spec = creator.IndividualSpec(creator.FitnessSpec((-1.0,)))
+    attr = init.uniform(-5.12, 5.12, (DIM,))
+    key = random.fold_in(random.PRNGKey(0, device=dev), 43)
+    k_init, k_run = random.split(key)
+    init_rows = {}
+    for st, bound in CK_STORAGES:
+        pop = spec.init_population(k_init, POP, attr, storage_dtype=st,
+                                   storage_bound=bound)
+        keys = random.split(k_init.cpu(), POP)[::CK_STRIDE]
+        rows = attr(keys)
+        if st != "float32":
+            rows = GenomeStorage(st, bound).to_storage(rows)
+        same = _same_bits(pop.genome[::CK_STRIDE], rows)
+        init_rows[st] = same
+        if not (same and pop.genome.shape == (POP, DIM)
+                and pop.genome.device.type == "cuda"):
+            fail(f"init_population {st}: card != CPU on every "
+                 f"{CK_STRIDE}th row, or shape {tuple(pop.genome.shape)}")
+        if st == "float32":
+            pop0 = pop
+        del pop
+    tb = _flag_toolbox()
+    pop0 = evaluate_population(tb, pop0)[0]
+    out_dir = os.path.join(ROOT, "chip_smoke_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "flagship.ckpt")
+
+    def gens(k, pop, n):
+        for _ in range(n):
+            k, pop, _ = ea_step(k, pop, tb, CXPB, MUTPB)
+        return k, pop
+
+    kernels.reset_launches()
+    k_ref, ref = gens(k_run, pop0, 2 * CK_GENS)
+    torch.cuda.synchronize()
+    runs, ngen = {}, 2 * CK_GENS
+    for mode in ("sync", "async"):
+        k, pop = gens(k_run, pop0, CK_GENS)
+        state = {"key": k, "population": pop, "generation": CK_GENS}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if mode == "sync":
+            checkpoint.save_checkpoint(path, state)
+            save_s = time.perf_counter() - t
+            k, pop = gens(k, pop, CK_GENS)
+            torch.cuda.synchronize()
+        else:
+            handle = checkpoint.async_save_checkpoint(path, state)
+            save_s = time.perf_counter() - t           # the host copy
+            k, pop = gens(k, pop, 1)                    # overlaps the write
+            torch.cuda.synchronize()
+            handle.result()
+            write_s = time.perf_counter() - t
+            k, pop = gens(k, pop, CK_GENS - 1)
+        ngen += 2 * CK_GENS
+        continued = _same_tensors(pop.genome, ref.genome)
+        t = time.perf_counter()
+        back = checkpoint.load_checkpoint(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        k2, pop2 = gens(back["key"], back["population"], CK_GENS)
+        ngen += CK_GENS
+        resumed = (_same_tensors(pop2.genome, ref.genome)
+                   and _same_tensors(pop2.fitness.values, ref.fitness.values)
+                   and torch.equal(pop2.fitness.valid, ref.fitness.valid)
+                   and torch.equal(k2, k_ref))
+        size = os.path.getsize(path)
+        mb = _tree_bytes(state) / 1e6
+        runs[mode] = {"resumed_bitwise": resumed, "continued_bitwise":
+                      continued, "file_mb": size / 1e6, "state_mb": mb,
+                      "save_s": save_s, "load_s": load_s,
+                      "save_mb_per_s": mb / save_s,
+                      "load_mb_per_s": mb / load_s}
+        if mode == "async":
+            runs[mode]["host_copy_s"] = save_s
+            runs[mode]["write_done_s"] = write_s
+            runs[mode].pop("save_mb_per_s")
+            runs[mode]["host_copy_mb_per_s"] = mb / save_s
+        if not (resumed and continued):
+            fail(f"checkpoint ({mode}): the resumed run differs from the "
+                 f"undisturbed one (resumed {resumed}, continued {continued})")
+        del back, pop, pop2, state
+    os.remove(path)
+    k2_launches = kernels.LAUNCHES["megakernel_gather_vary"]
+    phase("creator and checkpoint: flagship init_population and resume",
+          card_line, pop=POP, dim=DIM, init_card_eq_cpu_every=CK_STRIDE,
+          init_card_eq_cpu=init_rows, runs=runs, generations=ngen,
+          launches=dict(kernels.LAUNCHES),
+          seconds=time.perf_counter() - t0)
+    if k2_launches != ngen:
+        fail(f"K2 ran {k2_launches} times in {ngen} generations of the "
+             "checkpoint phase")
+    del pop0, ref
+    torch.cuda.empty_cache()
+    return {"checkpoint": k2_launches, "generations": ngen}
+
+
+def de_phase(kernels, card_line) -> None:
+    """Phase 44: DE rand/1/bin at POP 8192 x 100 on rastrigin: ms a
+    generation (median of DE_GENS) and the donor shuffle's share
+    (``_distinct_indices`` alone: one (n, n - 1) permutation a
+    generation, two sort rounds); one generation at 2048 x 100 card =
+    CPU bit for bit."""
+    import torch
+    from deap_tpu_torch import base, de, random
+    from deap_tpu_torch.algorithms import evaluate_rows
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    fn = _exact_rastrigin()
+    key = random.fold_in(random.PRNGKey(0, device=dev), 44)
+    k_init, k_run, k_ref = random.split(key, 3)
+    genome = random.uniform(k_init, (DE_POP, DIM), minval=-5.12,
+                            maxval=5.12)
+    pop = base.Population(genome, base.Fitness.empty(DE_POP, (-1.0,),
+                                                     device=dev))
+    pop = pop.evaluated(evaluate_rows(fn, genome))
+    best0 = float(pop.fitness.values.min())
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = {"pop": pop, "key": k_run}
+
+    def one_gen():
+        k, kk = random.split(state["key"])
+        state["key"] = k
+        state["pop"] = de.de_step(kk, state["pop"], fn, cr=0.25, f=1.0)
+
+    one_gen()                                          # warm
+    times = [_host_ms(one_gen, reps=1) for _ in range(DE_GENS)]
+    gen_ms = sorted(times)[len(times) // 2]
+    shuffle_ms = _host_ms(lambda: de._distinct_indices(k_run, DE_POP, 3))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    best = float(state["pop"].fitness.values.min())
+    small = pop.take(torch.arange(DE_REF_POP, device=dev))
+    card = de.de_step(k_ref, small, fn)
+    host = de.de_step(k_ref.cpu(), base.Population(
+        small.genome.cpu(), base.Fitness(small.fitness.values.cpu(),
+                                         small.fitness.valid.cpu(),
+                                         (-1.0,))), fn)
+    same = (_same_tensors(card.genome, host.genome)
+            and _same_tensors(card.fitness.values, host.fitness.values))
+    phase("DE: rand/1/bin at 8192 x 100 rastrigin", card_line, pop=DE_POP,
+          dim=DIM, ms_per_gen=gen_ms, ms_per_gen_readings=times,
+          donor_shuffle_ms=shuffle_ms, shuffle_share=shuffle_ms / gen_ms,
+          best_start=best0, best_end=best, peak_gb=peak,
+          card_eq_cpu_pop=DE_REF_POP, card_eq_cpu=same,
+          launches=dict(kernels.LAUNCHES),
+          seconds=time.perf_counter() - t0)
+    if not same:
+        fail("DE: a generation at 2048 x 100 differs card vs CPU")
+    if not best <= best0:
+        fail(f"DE: the best fitness rose: {best0} -> {best}")
+    del pop, state, genome
+    torch.cuda.empty_cache()
+
+
+def pso_phase(kernels, card_line) -> None:
+    """Phase 45: gbest PSO at 1e6 x 100 rastrigin (speed limits 1) and
+    constriction PSO (ms a generation, median of PSO_GENS); the
+    multiswarm at ``examples/pso/multiswarm.py``'s defaults (ms a
+    generation); two steps at 2048 rows card = CPU bit for bit."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch import pso
+    from deap_tpu_torch.examples.pso import multiswarm
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    t0 = time.perf_counter()
+    fn = _exact_rastrigin()
+    key = random.fold_in(random.PRNGKey(0, device=dev), 45)
+    k_init, k_run = random.split(key)
+    rules = {"canonical": dict(phi1=2.0, phi2=2.0, smin=-1.0, smax=1.0),
+             "constriction": dict(constriction=True)}
+    out = {}
+    kernels.reset_launches()
+    for rule, kw in rules.items():
+        st0 = pso.pso_init(k_init, POP, DIM, -5.12, 5.12, -1.0, 1.0)
+        box = {"st": st0, "key": k_run}
+
+        def one_gen():
+            k, kk = random.split(box["key"])
+            box["key"] = k
+            box["st"] = pso.pso_step(kk, box["st"], fn, (-1.0,), **kw)[0]
+
+        one_gen()
+        times = [_host_ms(one_gen, reps=1) for _ in range(PSO_GENS)]
+        fields = ("position", "speed", "pbest", "pbest_w", "gbest",
+                  "gbest_w")
+        card = pso.PSOState(**{f: getattr(st0, f)[:PSO_REF_POP]
+                               if f in fields[:4] else getattr(st0, f)
+                               for f in fields})
+        host = pso.PSOState(**{f: getattr(card, f).cpu() for f in fields})
+        k = k_run
+        for _ in range(2):
+            k, kk = random.split(k)
+            card = pso.pso_step(kk, card, fn, (-1.0,), **kw)[0]
+            host = pso.pso_step(kk.cpu(), host, fn, (-1.0,), **kw)[0]
+        same = _same_tensors(_flat_state(card), _flat_state(host))
+        out[rule] = {"ms_per_gen": sorted(times)[len(times) // 2],
+                     "ms_per_gen_readings": times,
+                     "gbest_raw": -float(box["st"].gbest_w),
+                     "card_eq_cpu": same}
+        if not same:
+            fail(f"PSO {rule}: two steps at {PSO_REF_POP} rows differ card "
+                 "vs CPU")
+        del box, st0
+        torch.cuda.empty_cache()
+    launches = dict(kernels.LAUNCHES)
+    n_ms = multiswarm.NGEN
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ms_state, errors = multiswarm.run(ngen=n_ms, device=dev)
+    torch.cuda.synchronize()
+    ms_ms = (time.perf_counter() - t) / n_ms * 1e3
+    phase("PSO: pso at 1e6 x 100 rastrigin, the multiswarm at its "
+          "defaults", card_line, pop=POP, dim=DIM, rules=out,
+          card_eq_cpu_pop=PSO_REF_POP, multiswarm_ms_per_gen=ms_ms,
+          multiswarm_generations=n_ms, multiswarm_final_error=errors[-1],
+          launches=launches, seconds=time.perf_counter() - t0)
+    del ms_state
+
+
+def eda_phase(kernels, card_line) -> None:
+    """Phase 46: EMNA at BASELINE config 3's width (N = 100, lambda =
+    4096, mu = 2048) on the sphere and PBIL (100 bits, lambda = 4096) on
+    OneMax through ``ea_generate_update``: ms a generation; one
+    generation from the same state and key card = CPU bit for bit."""
+    import dataclasses
+    import torch
+    from deap_tpu_torch import base, eda, random
+    from deap_tpu_torch.algorithms import ea_generate_update
+    from deap_tpu_torch.examples.de.basic import sphere
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    t0 = time.perf_counter()
+    key = random.fold_in(random.PRNGKey(0, device=dev), 46)
+    out = {}
+    kernels.reset_launches()
+    for name in ("EMNA", "PBIL"):
+        def make(d):
+            if name == "EMNA":
+                return eda.EMNA([5.0] * EDA_DIM, 5.0, EDA_MU, EDA_LAMBDA,
+                                device=d), (-1.0,), sphere
+            return eda.PBIL(EDA_DIM, 0.3, 0.1, 0.05, EDA_LAMBDA,
+                            device=d), (1.0,), lambda g: (g.sum(),)
+
+        def toolbox(s, evaluate):
+            tb = base.Toolbox()
+            tb.register("evaluate", evaluate)
+            tb.register("generate", s.generate)
+            tb.register("update", s.update)
+            return tb
+
+        s, w, evaluate = make(dev)
+        tb = toolbox(s, evaluate)
+        state0 = s.init()
+        ea_generate_update(key, tb, state0, ngen=1, weights=w)    # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pop, state, log = ea_generate_update(key, tb, state0,
+                                             ngen=EDA_GENS, weights=w)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / EDA_GENS * 1e3
+        sc, _, _ = make(cpu)
+        host_state = type(state)(**{f.name: getattr(state, f.name).cpu()
+                                    for f in dataclasses.fields(state)})
+        k = random.fold_in(key, 1)
+        pc, nc, _ = ea_generate_update(k, tb, state, ngen=1, weights=w)
+        ph, nh, _ = ea_generate_update(k.cpu(), toolbox(sc, evaluate),
+                                       host_state, ngen=1, weights=w)
+        same = (_same_tensors(_flat_state(pc), _flat_state(ph))
+                and _same_tensors(_flat_state(nc), _flat_state(nh)))
+        vals = pop.fitness.values[:, 0]
+        out[name] = {"ms_per_gen": ms, "card_eq_cpu": same,
+                     "best": float(vals.min() if name == "EMNA"
+                                   else vals.max())}
+        if not same:
+            fail(f"{name}: one generation differs card vs CPU")
+    phase("EDA: EMNA and PBIL at lambda 4096 x 100", card_line,
+          dim=EDA_DIM, lambda_=EDA_LAMBDA, mu=EDA_MU, generations=EDA_GENS,
+          runs=out, launches=dict(kernels.LAUNCHES),
+          seconds=time.perf_counter() - t0)
+
+
+def migration_phase(kernels, card_line) -> None:
+    """Phase 47: ``mig_ring_stacked`` over 8 islands of 131072 x 100
+    (the best 1024 of each island replace the worst 1024 of the next),
+    the default ring (a roll) and a non-cyclic ``migarray`` (a gather):
+    card = CPU bit for bit, ms a call."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.ops import migration, selection
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    key = random.fold_in(random.PRNGKey(0, device=dev), 47)
+    k_g, k_w, k_m = random.split(key, 3)
+    genome = random.uniform(k_g, (MIG_ISLANDS, MIG_POP, DIM))
+    w = torch.floor(random.uniform(k_w, (MIG_ISLANDS, MIG_POP, 1))
+                    * 1000.0)                         # ties
+    g_cpu, w_cpu = genome.cpu(), w.cpu()
+    out = {}
+    kernels.reset_launches()
+    for label, migarray in (("ring", None), ("non-cyclic", MIG_NONCYCLIC)):
+        def call(g=genome, ww=w, k=k_m):
+            return migration.mig_ring_stacked(
+                k, g, ww, MIG_K, selection.sel_best, selection.sel_worst,
+                migarray)
+        card, slots = call()
+        ms = _host_ms(call)
+        host, hslots = call(g_cpu, w_cpu, k_m.cpu())
+        same = (_same_tensors(card, host)
+                and torch.equal(slots.cpu(), hslots))
+        moved = int((card != genome).any(-1).sum())
+        out[label] = {"ms": ms, "card_eq_cpu": same, "rows_changed": moved}
+        if not same or moved == 0:
+            fail(f"migration ({label}): card vs CPU {same}, rows changed "
+                 f"{moved}")
+        del card, host
+    phase("migration: mig_ring_stacked, 8 islands of 131072 x 100",
+          card_line, islands=MIG_ISLANDS, pop=MIG_POP, dim=DIM, k=MIG_K,
+          runs=out, launches=dict(kernels.LAUNCHES),
+          seconds=time.perf_counter() - t0)
+    del genome, g_cpu
+    torch.cuda.empty_cache()
+
+
+def _lib_example_run(mod, name, dev):
+    """``(result, final state)`` of one run of an example at its SMOKE
+    arguments: ``result`` is what its ``main`` returns."""
+    kw = LIB_EXAMPLE_ARGS.get(name, {})
+    if name == "ga.onemax_multidemic":
+        pops = mod.main(verbose=False, device=dev)
+        return pops, pops
+    if name == "de.sphere":
+        pops = {v: mod.run(variant=v, device=dev) for v in mod.VARIANTS}
+        return {v: float(p.fitness.values.min())
+                for v, p in pops.items()}, pops
+    state = mod.run(device=dev, **kw)
+    if name == "de.basic":
+        return float(state.fitness.values.min()), state
+    if name in ("de.dynamic", "pso.multiswarm"):
+        return state[1], state
+    if name == "pso.basic":
+        return -float(state.gbest_w), state
+    if name == "eda.emna":
+        return float(state[0].fitness.values.min()), state
+    if name == "eda.pbil":
+        return float(state[0].fitness.values.max()), state
+    if name == "coev.coop_evol":
+        return float(state[1].sum()), state
+    return mod.best_host_failures(state[0]), state          # coev.hillis
+
+
+def lib_examples_phase(kernels, card_line) -> dict:
+    """Phase 48: the ten library examples at ``tests/test_examples.py``'s
+    arguments on the card, each with that table's check, and card = CPU
+    bit for bit on the final population or state of the same run."""
+    import importlib
+    import torch
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    out = {}
+    for name in LIB_EXAMPLES:
+        mod = importlib.import_module(f"deap_tpu_torch.examples.{name}")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result, card = _lib_example_run(mod, name, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        host_result, host = _lib_example_run(mod, name, cpu)
+        cpu_secs = time.perf_counter() - t
+        same = (_same_tensors(_flat_state(card), _flat_state(host))
+                and _same_tensors(_flat_state(result),
+                                  _flat_state(host_result)))
+        check = LIB_EXAMPLE_CHECKS.get(name, lambda r: True)(result)
+        phase(f"library example: {name}", card_line, card_seconds=secs,
+              cpu_seconds=cpu_secs, card_eq_cpu=same, smoke_check=check,
+              result=_jsonable(result), launches=launches)
+        if not (same and check):
+            fail(f"example {name}: card = CPU {same}, its check {check}")
+        out[name] = launches
+    return out
+
+
+def _flat_state(x):
+    """A run's final state as nested lists of tensors, for
+    ``_same_tensors``."""
+    import dataclasses
+    from deap_tpu_torch import base
+    if isinstance(x, base.Population):
+        return [x.genome, x.fitness.values, x.fitness.valid]
+    if dataclasses.is_dataclass(x):
+        return [getattr(x, f.name) for f in dataclasses.fields(x)]
+    if isinstance(x, dict):
+        return {k: _flat_state(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return [_flat_state(v) for v in x]
+    return x
+
+
+def _jsonable(r):
+    if isinstance(r, dict):
+        return {k: _jsonable(v) for k, v in r.items()}
+    if isinstance(r, (int, float)):
+        return r
+    if isinstance(r, list):
+        return {"last": r[-1], "count": len(r)}
+    return {"best": float(r.fitness.values.max())}
+
+
+def library_rest_phases(kernels, card_line) -> dict:
+    """Phases 43-48 with each one's seconds; returns K2's launches on
+    the checkpoint path and the examples' launch counts."""
+    import torch
+    torch.cuda.empty_cache()
+    seconds = {}
+    out = {}
+    for label, fn in (("creator_checkpoint", creator_checkpoint_phase),
+                      ("de", de_phase), ("pso", pso_phase),
+                      ("eda", eda_phase), ("migration", migration_phase),
+                      ("examples", lib_examples_phase)):
+        t = time.perf_counter()
+        out[label] = fn(kernels, card_line)
+        seconds[label] = time.perf_counter() - t
+    phase("the rest of the library: phase seconds", card_line,
+          seconds=seconds, total_s=sum(seconds.values()))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4739,7 +5297,10 @@ def main() -> int:
     # ---- 39.-42. the rest of the operators and benchmarks -------------------
     rest = rest_of_ops_phases(kernels, card_line, key)
 
-    # ---- 43. the kernels line and the result -------------------------------
+    # ---- 43.-48. the rest of the library ------------------------------------
+    lib = library_rest_phases(kernels, card_line)
+
+    # ---- 49. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -4770,7 +5331,10 @@ def main() -> int:
             "megakernel_gather_vary"],
         f"ea_simple, rbg keys, {RBG_NGEN} generations": launches_rbg["K2"],
         **{f"bench.py megakernel body, {fn}, {2 * FLAG_NGEN} generations": n
-           for fn, n in rest["k2"].items()}}
+           for fn, n in rest["k2"].items()},
+        f"creator + checkpoint / resume, "
+        f"{lib['creator_checkpoint']['generations']} generations":
+            lib["creator_checkpoint"]["checkpoint"]}
     # K1 at the NSGA-II head's shape beside the flagship's: host-paced
     # ms, device ms with the launches queued, and the bound
     rows[0]["ms_by_shape"] = {

@@ -158,6 +158,22 @@ def _accepts_skip(fn) -> bool:
         return False
 
 
+def evaluate_rows(evaluate, *operands) -> torch.Tensor:
+    """``(n, nobj)`` float32 values of a per-individual ``evaluate`` over
+    the rows of its operands (a genome; a host and a parasite genome):
+    its batched form in one call when it has one, else vmapped."""
+    batched = _batched_form(evaluate)
+    if batched is not None:
+        out = batched(*operands)
+        out = out if isinstance(out, (tuple, list)) else (out,)
+        return torch.stack([torch.as_tensor(o).to(torch.float32)
+                            for o in out], dim=1)
+    if len(operands) == 1:
+        return torch.func.vmap(_norm_eval(evaluate))(operands[0])
+    return torch.func.vmap(_norm_eval(lambda args: evaluate(*args)))(
+        operands)
+
+
 def evaluate_population(toolbox, population: Population):
     """Evaluate every row and assign the values where the fitness was
     invalid.  Returns ``(population, nevals)``.
@@ -183,13 +199,8 @@ def evaluate_population(toolbox, population: Population):
             values = tool(genome)
         if values.ndim == 1:
             values = values[:, None]
-    elif _batched_form(toolbox.evaluate) is not None:
-        out = _batched_form(toolbox.evaluate)(genome)
-        out = out if isinstance(out, (tuple, list)) else (out,)
-        values = torch.stack([torch.as_tensor(o).to(torch.float32)
-                              for o in out], dim=1)
     else:
-        values = torch.func.vmap(_norm_eval(toolbox.evaluate))(genome)
+        values = evaluate_rows(toolbox.evaluate, genome)
     nevals = invalid.sum()
     return population.evaluated(values, where=invalid), nevals
 
@@ -387,11 +398,15 @@ def _scalar(v):
     return v.item() if isinstance(v, torch.Tensor) and v.ndim == 0 else v
 
 
-def _logbook(stats, rec0, records, ngen: int, verbose: bool) -> Logbook:
+def _logbook(stats, rec0, records, ngen: int, verbose: bool,
+             nevals: bool = True) -> Logbook:
     """Generation 0's record (none when ``rec0`` is ``None``, as in
-    :func:`ea_generate_update`), then generations 1..ngen."""
+    :func:`ea_generate_update`), then generations 1..ngen; ``nevals``
+    puts that column in the header (the PSO and cooperative loops have
+    none)."""
     logbook = Logbook()
-    logbook.header = ["gen", "nevals"] + (stats.fields if stats else [])
+    logbook.header = (["gen"] + (["nevals"] if nevals else [])
+                      + (stats.fields if stats else []))
     if rec0 is not None:
         logbook.record(gen=0, **{k: _scalar(v) for k, v in rec0.items()})
     if ngen > 0:

@@ -94,17 +94,21 @@ class PeaksState:
     active: torch.Tensor          # (cap,) bool
 
 
-def _scaled_normal(key, shape, severity):
+def _scaled_normal(key, shape, severity, fused=True):
     """``normal * severity`` as XLA folds it: ``erf_inv(u)`` times the
-    float32 product of ``sqrt(2)`` and the severity."""
+    float32 product of ``sqrt(2)`` and the severity (``fused=False``: the
+    normal, then the product, op by op)."""
+    if not fused:
+        return random.normal(key, shape) * float(np.float32(severity))
     c = float(np.float32(random.SQRT2) * np.float32(severity))
     return random.normal_erf_inv(key, shape) * c
 
 
-def _normalized(shift, severity):
+def _normalized(shift, severity, fused=True):
     """``severity * shift / |shift|`` a row (0 where the norm is 0), the
-    squares fused into the norm's sum as XLA compiles the update."""
-    norm = sqrt(row_dot(shift, shift, fused=True))[:, None]
+    squares fused into the norm's sum as XLA compiles the update
+    (``fused=False``: rounded squares, op by op)."""
+    norm = sqrt(row_dot(shift, shift, fused=fused))[:, None]
     return torch.where(norm > 0, severity * shift / norm, 0.0)
 
 
@@ -242,12 +246,15 @@ class MovingPeaks:
 
     # -- dynamics -----------------------------------------------------------
 
-    def change_peaks_state(self, key, state: PeaksState) -> PeaksState:
+    def change_peaks_state(self, key, state: PeaksState,
+                           fused: bool = True) -> PeaksState:
         """Functional peak update: a correlated position shift with
         reflection at both bounds, Gaussian height and width changes with
         reflection, and in the fluctuating mode the birth or death of
         peaks (slots ranked by a double stable argsort of ``inf``-masked
-        priorities, the amount rounded half to even)."""
+        priorities, the amount rounded half to even).  ``fused`` takes
+        the jitted update's float forms, ``fused=False`` the op-by-op
+        ones (the JAX package's ``changePeaks``)."""
         k_num, k_shift, k_h, k_w, k_new = random.split(key, 5)
         cap, dim = state.position.shape
         active = state.active
@@ -295,10 +302,15 @@ class MovingPeaks:
 
         ms = float(self.move_severity)
         lam = float(np.float32(self.lambda_))
-        shift = _normalized(random.uniform(k_shift, (cap, dim)) - 0.5, ms)
-        shift = fma(shift, float(np.float32(1.0 - self.lambda_)),
-                    lam * state.last_change)
-        shift = _normalized(shift, ms)
+        shift = _normalized(random.uniform(k_shift, (cap, dim)) - 0.5, ms,
+                            fused)
+        if fused:
+            shift = fma(shift, float(np.float32(1.0 - self.lambda_)),
+                        lam * state.last_change)
+        else:
+            shift = (shift * float(np.float32(1.0 - self.lambda_))
+                     + lam * state.last_change)
+        shift = _normalized(shift, ms, fused)
         new_pos = state.position + shift
         low, high = float(self.min_coord), float(self.max_coord)
         reflect = (new_pos < low) | (new_pos > high)
@@ -313,8 +325,8 @@ class MovingPeaks:
                                torch.where(new > hi,
                                            (2.0 * hi - value) - change, new))
 
-        dh = _scaled_normal(k_h, (cap,), self.height_severity)
-        dw = _scaled_normal(k_w, (cap,), self.width_severity)
+        dh = _scaled_normal(k_h, (cap,), self.height_severity, fused)
+        dw = _scaled_normal(k_w, (cap,), self.width_severity, fused)
         return PeaksState(
             position=reflected,
             height=bounce(state.height, dh, float(self.min_height),
@@ -325,6 +337,8 @@ class MovingPeaks:
             active=active)
 
     def changePeaks(self):
+        """Move the peaks, in the op-by-op forms of the JAX package's
+        stateful ``changePeaks``."""
         key, self.key = random.split(self.key)
-        self.state = self.change_peaks_state(key, self.state)
+        self.state = self.change_peaks_state(key, self.state, fused=False)
         self._optimum = None

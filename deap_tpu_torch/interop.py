@@ -10,9 +10,10 @@ arrays (a GP genome: codes, consts, lengths) or a dict of them (a
 neuroevolution genome), fitness
 ``values``/``valid``/``weights``, a genome storage declaration given
 by its ``dtype`` and ``bound`` fields, and the state of a CMA strategy
-or an archive, read field by field from any object that has the JAX
-package's field names (``CMAState``, ``OnePlusLambdaState``,
-``_ArchiveState``), and the memory of ``SelNSGA3WithMemory`` (its
+or an archive and the states of PSO and the EDAs, read field by field
+from any object that has the JAX package's field names (``CMAState``,
+``OnePlusLambdaState``, ``_ArchiveState``, ``PSOState``,
+``MultiswarmState``, ``EMNAState``, ``PBILState``), and the memory of ``SelNSGA3WithMemory`` (its
 ``best_point`` and ``extreme_points``, host arrays in both packages).
 
 Like every entry point that creates tensors, the ``*_to_torch``
@@ -31,14 +32,18 @@ import torch
 from ._device import resolve_device
 from .base import Fitness, Population
 from .cma import CMAState, OnePlusLambdaState
+from .eda import EMNAState, PBILState
 from .ops.generation import GenomeStorage
+from .pso import MultiswarmState, PSOState
 from .utils.support import _ArchiveState
 
 __all__ = ["key_to_torch", "key_to_numpy", "genome_to_torch",
            "genome_to_numpy", "population_to_torch", "population_to_numpy",
            "storage_to_torch", "cma_state_to_torch",
            "one_plus_lambda_state_to_torch", "archive_state_to_torch",
-           "nsga3_memory_to_torch"]
+           "nsga3_memory_to_torch", "pso_state_to_torch",
+           "multiswarm_state_to_torch", "emna_state_to_torch",
+           "pbil_state_to_torch"]
 
 
 def key_to_torch(key, device=None) -> torch.Tensor:
@@ -164,3 +169,28 @@ def nsga3_memory_to_torch(ideal, extreme):
         raise ValueError(f"extreme_points of shape {extreme.shape}: "
                          f"expected {(ideal.shape[0],) * 2}")
     return ideal, extreme
+
+
+def pso_state_to_torch(state, device=None) -> PSOState:
+    """The JAX package's ``PSOState`` → the port's."""
+    return _fields_to_torch(PSOState, state, device)
+
+
+def multiswarm_state_to_torch(state, device=None) -> MultiswarmState:
+    """The JAX package's ``MultiswarmState`` → the port's."""
+    return _fields_to_torch(MultiswarmState, state, device)
+
+
+def emna_state_to_torch(state, device=None) -> EMNAState:
+    """The JAX package's ``EMNAState`` → the port's."""
+    return _fields_to_torch(EMNAState, state, device)
+
+
+def pbil_state_to_torch(state, device=None) -> PBILState:
+    """The JAX package's ``PBILState`` (its key as raw words, or a typed
+    key's ``key_data``) → the port's."""
+    device = resolve_device(device)
+    return PBILState(
+        prob_vector=torch.from_numpy(np.array(state.prob_vector, np.float32,
+                                              copy=True)).to(device),
+        key=key_to_torch(state.key, device))

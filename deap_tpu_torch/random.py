@@ -249,11 +249,22 @@ def bits(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
             minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """Uniform floats in ``[minval, maxval)`` from the top 23 bits."""
+    """Uniform floats in ``[minval, maxval)`` from the top 23 bits.  The
+    bounds are Python numbers or float32 tensors that broadcast against
+    the draws (device scalars stay on the device: ``span = maxval -
+    minval`` in float32, then the FMA and the clamp, as XLA computes
+    traced bounds)."""
     if dtype != torch.float32:
         raise TypeError("uniform is ported for float32 only")
     b = bits(key, shape)
     floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    if torch.is_tensor(minval) or torch.is_tensor(maxval):
+        lo, hi = (v.to(torch.float32) if torch.is_tensor(v)
+                  else float(np.float32(v)) for v in (minval, maxval))
+        span = hi - lo
+        if not torch.is_tensor(lo):
+            lo = torch.full_like(span, lo)
+        return torch.maximum(fma(floats, span, lo), lo)
     # bounds stay Python floats (float32 values): a scalar needs no
     # host-to-device copy; XLA fuses the scale-and-shift into one FMA
     lo = float(np.float32(minval))

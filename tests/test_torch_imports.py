@@ -17,6 +17,11 @@ GP_EXAMPLES = ("symbreg", "symbreg_epsilon_lexicase", "symbreg_harm",
 GA_EXAMPLES = ("ga/tsp", "ga/nqueens", "ga/knn", "ga/evoknn",
                "ga/evoknn_jmlr", "ga/kursawefct", "es/__init__", "es/fctmin",
                "bbob")
+LIB_EXAMPLES = ("ga.onemax_multidemic", "de.basic", "de.sphere", "de.dynamic",
+                "pso.basic", "pso.multiswarm", "eda.emna", "eda.pbil",
+                "coev.coop_evol", "coev.hillis")
+LIB_MODULES = ("creator", "tools", "ops.init", "ops.migration", "de", "pso",
+               "eda", "coev", "utils.checkpoint", "utils.compilecache")
 
 
 def _port_files():
@@ -63,7 +68,11 @@ def test_port_sources_exist():
                 "deap_tpu_torch/benchmarks/binary.py",
                 "deap_tpu_torch/benchmarks/movingpeaks.py",
                 *(f"deap_tpu_torch/examples/gp/{m}.py" for m in GP_EXAMPLES),
-                *(f"deap_tpu_torch/examples/{m}.py" for m in GA_EXAMPLES)):
+                *(f"deap_tpu_torch/examples/{m}.py" for m in GA_EXAMPLES),
+                *("deap_tpu_torch/" + m.replace(".", "/") + ".py"
+                  for m in LIB_MODULES),
+                *("deap_tpu_torch/examples/" + m.replace(".", "/") + ".py"
+                  for m in LIB_EXAMPLES)):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
                "hypervolume.cu", "probes.cu", "device_math.cuh"):
@@ -123,7 +132,8 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.ops.indicator, deap_tpu_torch.random, "
             "deap_tpu_torch.gp.harm, deap_tpu_torch.gp.adf, "
             "deap_tpu_torch.gp.routine, deap_tpu_torch.benchmarks.gp, "
-            "deap_tpu_torch.ops.selection; "
+            "deap_tpu_torch.ops.selection, "
+            + ", ".join(f"deap_tpu_torch.{m}" for m in LIB_MODULES) + "; "
             "deap_tpu_torch.base.Toolbox().hypervolume; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "
@@ -147,10 +157,31 @@ def test_port_examples_load_no_jax():
             "deap_tpu_torch.examples.ga.nsga2, "
             "deap_tpu_torch.examples.ga.nsga3, "
             + ", ".join(f"deap_tpu_torch.examples.gp.{m}"
-                        for m in GP_EXAMPLES) + "; "
+                        for m in GP_EXAMPLES) + ", "
+            + ", ".join(f"deap_tpu_torch.examples.{m}"
+                        for m in LIB_EXAMPLES) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu', 'examples')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_library_modules_define_the_jax_names():
+    """Each of the library modules ported last defines every name of its
+    JAX counterpart's ``__all__`` (read from the source: no JAX import)."""
+    for m in LIB_MODULES:
+        if m == "tools":
+            continue                      # no __all__: its own test
+        jsrc = (ROOT / "deap_tpu" / (m.replace(".", "/") + ".py")).read_text()
+        names = next(ast.literal_eval(node.value)
+                     for node in ast.parse(jsrc).body
+                     if isinstance(node, ast.Assign)
+                     and getattr(node.targets[0], "id", "") == "__all__")
+        tsrc = (ROOT / "deap_tpu_torch" / (m.replace(".", "/") + ".py")
+                ).read_text()
+        defined = {getattr(n, "name", None) for n in ast.parse(tsrc).body} | {
+            t.id for n in ast.parse(tsrc).body if isinstance(n, ast.Assign)
+            for t in n.targets if isinstance(t, ast.Name)}
+        assert set(names) <= defined, (m, set(names) - defined)
