@@ -339,7 +339,30 @@
              bit on the final population or state of the same run; then
              each of phases 43-48's seconds.  No kernel of the port runs
              on phases 44-48 (their launch counts are printed, zero);
-49. the ``kernels`` line, the card's name and power limit, and the result
+49. the last examples — the seventeen of ``deap_tpu_torch/examples/``
+             ported last, each at its published width and a cut depth
+             (``REST_EXAMPLE_ARGS``, ``REST_CMA_ARGS``): onemax,
+             onemax_short, knapsack, xkcd, evosn (with
+             ``sortingnetwork``'s model on 64 random networks), mo_rhv,
+             onefifth, cma_mo, speciation, coop_gen, coop_niche,
+             coop_adapt (``coop_base``'s rounds) and coev/symbreg on the
+             card and on the CPU from the same seed, bit for bit on the
+             final state and result; cma_minfct, cma_one_plus_lambda,
+             cma_plotting and cma_bipop (its first regime's first 20
+             generations and its stopping test on both devices) on the
+             card, then one generation from the card's state on both
+             devices within ``CMA_RTOL`` (``sqrt_C``: ``B diag(diagD)
+             Bᵀ``), and the CPU's run for its time; card and CPU
+             seconds and the launches of each; K4
+             must launch on evosn's 3-objective ``sel_nsga2`` (the count
+             peel).  Their ``tests/test_examples.py`` checks run in
+             tier-1 (``tests/test_torch_examples_rest_smoke.py``);
+50. streaming — ``ea_simple`` on OneMax (300 x 100, 7 generations) with
+             ``stream_every=3`` in both modes on the card: its lines and
+             logbook equal to the CPU run's, its population and logbook
+             to the card's run without streaming; then phases 49-50's
+             seconds;
+51. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12, 15, 35
@@ -360,6 +383,9 @@ round differently, so each state field must agree within relative
 Phases 43-48: the resumed flagship run equal to the undisturbed one, and
 init_population (every 1000th row), the DE / PSO / EDA / migration steps
 and the library examples card = CPU, all bit for bit.
+Phases 49-50: the thirteen examples above card = CPU bit for bit, the
+streamed lines byte for byte; the four CMA-ES examples a generation
+within ``CMA_RTOL``.
 Phases 39-42 (no kernel of their own): every new operator, selection,
 benchmark function and example card = CPU bit for bit, except
 ``rotate``'s matrix product (``ROTATE_RTOL``, 1e-5) and rastrigin's
@@ -4972,6 +4998,338 @@ def library_rest_phases(kernels, card_line) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 49-50: the last single-process examples and the streaming knobs
+# ---------------------------------------------------------------------------
+
+# the examples of phase 49 that equal the CPU bit for bit, each at its
+# published width and a cut depth on both devices (coop_adapt adds its
+# second species after 20 species-steps instead of 100, so that the cut
+# run adds one); every example's tests/test_examples.py check runs in
+# tier-1 (tests/test_torch_examples_rest_smoke.py)
+REST_EXAMPLE_ARGS = {
+    "ga.onemax": {"ngen": 10}, "ga.onemax_short": {"ngen": 10},
+    "ga.knapsack": {"ngen": 10}, "ga.xkcd": {"ngen": 10},
+    "ga.evosn": {"ngen": 5}, "ga.mo_rhv": {"ngen": 10},
+    "es.onefifth": {"ngen": 50}, "es.cma_mo": {"ngen": 30},
+    "pso.speciation": {"ngen": 20}, "coev.coop_gen": {"ngen": 20},
+    "coev.coop_niche": {"ngen": 20},
+    "coev.coop_adapt": {"ngen": 40, "adapt_length": 20},
+    "coev.symbreg": {"ngen": 5}}
+# the CMA-ES examples (eigh or a Cholesky factor a generation): the card's
+# run at a cut depth (cma_bipop: its first regime's first 20 generations),
+# one generation from its state on both devices within CMA_RTOL, and the
+# CPU's own run for its time
+REST_CMA_ARGS = {"es.cma_minfct": {"ngen": 20},
+                 "es.cma_one_plus_lambda": {"ngen": 20},
+                 "es.cma_plotting": {"ngen": 10}, "es.cma_bipop": {}}
+REST_BIPOP_GENS = 20
+SN_NETWORKS = 64
+STREAM_NGEN, STREAM_EVERY = 7, 3
+
+
+def _tensors(x):
+    """Numpy arrays in a nested result as tensors, for
+    ``_same_tensors``."""
+    import numpy as np
+    import torch
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    if isinstance(x, dict):
+        return {k: _tensors(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return [_tensors(v) for v in x]
+    return x
+
+
+def _plain(x):
+    """A result as JSON values."""
+    if hasattr(x, "tolist"):
+        return x.tolist()
+    if isinstance(x, (tuple, list)):
+        return [_plain(v) for v in x]
+    return x
+
+
+def _rest_example_run(mod, name, dev):
+    """``(result, final state)`` of one run of a phase-49 example at its
+    ``REST_EXAMPLE_ARGS``."""
+    kw = REST_EXAMPLE_ARGS[name]
+    if name == "ga.onemax":
+        pop, log, hof = mod.main(verbose=False, device=dev, **kw)
+        return log.select("max"), [pop, hof.state.genome, hof.state.values]
+    if name in ("ga.onemax_short", "ga.knapsack", "ga.xkcd"):
+        pop = mod.main(verbose=False, device=dev, **kw)
+        return float(pop.fitness.values[:, -1].max()), pop
+    if name in ("ga.evosn", "ga.mo_rhv"):
+        pop, result = mod.main(verbose=False, device=dev, **kw)
+        return result, pop
+    if name == "es.onefifth":
+        state = mod.run(device=dev, **kw)
+        return float(state[2]), state
+    if name == "es.cma_mo":
+        s = mod.run(device=dev, **kw)
+        return mod.hypervolume_of(s), [s.parents, s.parent_values,
+                                       s.sigmas, s.A, s.pc, s.psucc]
+    if name == "pso.speciation":
+        pos, spd, counts = mod.run(device=dev, **kw)
+        return mod.minima_found(pos), [pos, spd, counts]
+    if name == "coev.coop_niche":
+        species, reps = mod.run(device=dev, **kw)
+        return mod.coverage(reps), [species, reps]
+    if name in ("coev.coop_gen", "coev.coop_adapt"):
+        species, reps, targets = mod.run(device=dev, **kw)
+        return float(mod.cb.match_set_strength(reps, targets)[0]), \
+            [species, reps]
+    carry, ga_curve, gp_curve = mod.run(device=dev, **kw)     # coev.symbreg
+    return float(gp_curve[-1]), [carry, ga_curve, gp_curve]
+
+
+def sortingnetwork_same(dev) -> bool:
+    """``sortingnetwork``'s level assignment, network run and assessment
+    on ``SN_NETWORKS`` random 6-wire networks of random lengths, card =
+    CPU."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.examples.ga import evosn, sortingnetwork as sn
+    k_w, k_l = random.split(random.PRNGKey(17, device=dev))
+    wires = random.randint(k_w, (SN_NETWORKS, evosn.CAP, 2), 0,
+                           evosn.INPUTS)
+    length = random.randint(k_l, (SN_NETWORKS,), 0, evosn.CAP + 1)
+    cases = sn.all_binary_cases(evosn.INPUTS, dev)
+
+    def model(w, n, c):
+        levels, depth = sn.assign_levels(w, n, evosn.CAP, evosn.INPUTS)
+        return [levels, depth, sn.assess(w, n, c, levels)]
+
+    cpu = torch.device("cpu")
+    return _same_tensors(model(wires, length, cases),
+                         model(wires.to(cpu), length.to(cpu),
+                               cases.to(cpu)))
+
+
+def _root(state):
+    """``B diag(diagD) Bᵀ``: the square root of C, unique whatever the
+    eigenvectors' signs and rotations within an eigenspace."""
+    return (state.B.double() * state.diagD.double()) @ state.B.double().T
+
+
+def _cma_step_errs(strategy, state, nxt, nxt_cpu, genomes):
+    """Each field of one CMA-ES generation card vs CPU (relative to its
+    largest value); ``pc`` and ``C`` beyond ``hsig``'s margin."""
+    errs = {"genome": _rel(*genomes)}
+    fields = ["centroid", "sigma", "ps", "diagD"]
+    if _hsig_margin(strategy, nxt_cpu) > CMA_HSIG_MARGIN:
+        fields += ["pc", "C"]
+    errs.update({f: _rel(getattr(nxt, f), getattr(nxt_cpu, f))
+                 for f in fields})
+    errs["sqrt_C"] = _rel(_root(nxt), _root(nxt_cpu))
+    return errs
+
+
+def _cma_teacher_forced(name, mod, s_card, s_cpu, tb_card, tb_cpu, state,
+                        key):
+    """One generation of a CMA-ES example's strategy from the card's
+    ``state`` and ``key`` on both devices: the card's samples against
+    the CPU's, then each device's update of the card's evaluated
+    population."""
+    import torch
+    from deap_tpu_torch import base
+    from deap_tpu_torch.algorithms import evaluate_population
+    cpu = torch.device("cpu")
+    g_card = s_card.generate(state, key)
+    g_cpu = s_cpu.generate(_state_to(state, cpu), key.cpu())
+    pop = base.Population(g_card, base.Fitness.empty(
+        g_card.shape[0], (-1.0,), device=g_card.device))
+    pop, _ = evaluate_population(tb_card, pop)
+    nxt = s_card.update(state, pop)
+    nxt_cpu = s_cpu.update(_state_to(state, cpu), base.Population(
+        pop.genome.cpu(), base.Fitness(pop.fitness.values.cpu(),
+                                       pop.fitness.valid.cpu(), (-1.0,))))
+    if name == "es.cma_one_plus_lambda":
+        errs = {"genome": _rel(g_card, g_cpu)}
+        errs.update({f: _rel(getattr(nxt, f), getattr(nxt_cpu, f))
+                     for f in ("parent", "sigma", "psucc", "pc", "C", "A")})
+        return errs
+    return _cma_step_errs(s_cpu, state, nxt, nxt_cpu, (g_card, g_cpu))
+
+
+def _rest_cma_run(mod, name, dev):
+    """The card's run of a CMA-ES example: ``(result, strategy on the
+    card, on the CPU, their toolboxes, final state, a key)``."""
+    import numpy as np
+    import torch
+    from deap_tpu_torch import base, benchmarks, random
+    cpu = torch.device("cpu")
+    kw = REST_CMA_ARGS[name]
+    key = random.fold_in(random.PRNGKey(99, device=dev), 1)
+    if name == "es.cma_minfct":
+        pop, state = mod.run(device=dev, **kw)
+        s, sc = mod.strategy_of(dev), mod.strategy_of(cpu)
+        return (float(pop.fitness.values.min()), s, sc, mod.toolbox(s),
+                mod.toolbox(sc), state, key)
+    if name == "es.cma_one_plus_lambda":
+        pop, state = mod.run(device=dev, **kw)
+        s, sc = mod.strategy_of(device=dev), mod.strategy_of(device=cpu)
+        return (float(pop.fitness.values.min()), s, sc, mod.toolbox(s),
+                mod.toolbox(sc), state, key)
+    if name == "es.cma_plotting":
+        (state, fbest, _), tr = mod.run(device=dev, **kw)
+        if not all(np.isfinite(v).all() for v in tr.values()):
+            fail("cma_plotting: a trace is not finite")
+        (s, tb), (sc, tbc) = mod.setup(dev), mod.setup(cpu)
+        return float(fbest), s, sc, tb, tbc, state, key
+    # es.cma_bipop: the first regime's first generations (its restarts
+    # run thousands of generations)
+    import math
+    lam = 4 + int(3 * math.log(mod.N))
+    rng = np.random.RandomState(12)
+    k_run = random.split(random.PRNGKey(12, device=dev))[1]
+    _, _, sigma, _ = mod.schedule(0, 0, [], [], rng, lam)
+    centroid = rng.uniform(-4, 4, mod.N)
+    s = mod.cma.Strategy(centroid=centroid, sigma=sigma, lambda_=lam,
+                         device=dev)
+    sc = mod.cma.Strategy(centroid=centroid, sigma=sigma, lambda_=lam,
+                          device=cpu)
+    tb, tbc = base.Toolbox(), base.Toolbox()
+    tb.register("evaluate", benchmarks.rastrigin)
+    tbc.register("evaluate", benchmarks.rastrigin)
+    _, state, bests = mod.chunk(s, tb, k_run, s.init(), REST_BIPOP_GENS)
+    tolx, cond = mod.stop_statistics(state)
+    tolx_c, cond_c = mod.stop_statistics(_state_to(state, cpu))
+    hist = bests.cpu().tolist()
+    same_stop = (tolx == tolx_c and abs(cond - cond_c) <= CMA_RTOL * cond_c
+                 and mod.regime_stops(hist, lam, tolx, cond)
+                 == mod.regime_stops(hist, lam, tolx_c, cond_c))
+    if not same_stop:
+        fail(f"cma_bipop: the stopping test differs on the card: "
+             f"{(tolx, cond)} vs {(tolx_c, cond_c)}")
+    return float(bests.min()), s, sc, tb, tbc, state, key
+
+
+def rest_examples_phase(kernels, card_line) -> dict:
+    """Phase 49: the seventeen examples of this slice on the card and on
+    the CPU; returns their launch counts."""
+    import importlib
+    import math
+    import torch
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    out = {}
+    for name in REST_EXAMPLE_ARGS:
+        mod = importlib.import_module(f"deap_tpu_torch.examples.{name}")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result, card = _rest_example_run(mod, name, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        host_result, host = _rest_example_run(mod, name, cpu)
+        cpu_secs = time.perf_counter() - t
+        same = (_same_tensors(_tensors(_flat_state(card)),
+                              _tensors(_flat_state(host)))
+                and _same_tensors(_tensors(result), _tensors(host_result)))
+        extra = {}
+        if name == "ga.evosn":
+            extra["sortingnetwork_card_eq_cpu"] = sortingnetwork_same(dev)
+            same = same and extra["sortingnetwork_card_eq_cpu"]
+            if not launches["rows_dominate_counts"]:
+                fail("evosn: rows_dominate_counts did not launch on its "
+                     "3-objective sel_nsga2")
+        phase(f"slice example: {name}", card_line, card_seconds=secs,
+              cpu_seconds=cpu_secs, args=REST_EXAMPLE_ARGS[name],
+              card_eq_cpu=same, result=_plain(result), launches=launches,
+              **extra)
+        if not same:
+            fail(f"example {name}: the card's run differs from the CPU's")
+        out[name] = launches
+    for name in REST_CMA_ARGS:
+        mod = importlib.import_module(f"deap_tpu_torch.examples.{name}")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result, s, sc, tb, tbc, state, key = _rest_cma_run(mod, name, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        errs = _cma_teacher_forced(name, mod, s, sc, tb, tbc, state, key)
+        step_secs = time.perf_counter() - t
+        t = time.perf_counter()
+        host_result = _rest_cma_run(mod, name, cpu)[0]
+        cpu_secs = time.perf_counter() - t
+        bad = {f: e for f, e in errs.items() if not e <= CMA_RTOL}
+        phase(f"slice example: {name}", card_line, card_seconds=secs,
+              cpu_seconds=cpu_secs, teacher_forced_seconds=step_secs,
+              args=REST_CMA_ARGS[name] or {"ngen": REST_BIPOP_GENS},
+              teacher_forced_rel_err=errs, rtol=CMA_RTOL, result=result,
+              cpu_result=host_result, launches=launches)
+        if bad or not math.isfinite(result):
+            fail(f"example {name}: card vs CPU beyond tolerance {bad}, "
+                 f"result {result}")
+        out[name] = launches
+    return out
+
+
+def streaming_phase(card_line) -> None:
+    """Phase 50: ``ea_simple`` on the card with ``stream_every`` in both
+    modes on OneMax (examples/ga/onemax.py's toolbox and statistics):
+    the lines and logbook equal the CPU run's, the trajectory and logbook
+    equal the card's run without streaming."""
+    import contextlib
+    import io
+    import torch
+    from deap_tpu_torch.algorithms import ea_simple
+    from deap_tpu_torch.examples.ga import onemax
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def run(d, **kw):
+        key, pop = onemax.initial(42, device=d)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            pop, log = ea_simple(key, pop, onemax.toolbox(), 0.5, 0.2,
+                                 STREAM_NGEN, stats=onemax.statistics(),
+                                 **kw)
+        return pop, list(log), buf.getvalue().splitlines()
+
+    t0 = time.perf_counter()
+    plain = run(dev)
+    report = {}
+    for mode in ("callback", "segmented"):
+        card = run(dev, stream_every=STREAM_EVERY, stream_mode=mode)
+        host = run(cpu, stream_every=STREAM_EVERY, stream_mode=mode)
+        gens = [3, 6] + ([7] if mode == "segmented" else [])
+        ok = (card[2] == host[2] and card[1] == host[1]
+              and [ln.split("\t")[0] for ln in card[2]]
+              == [f"gen={g}" for g in gens]
+              and card[1] == plain[1] and not plain[2]
+              and _same_tensors(_flat_state(card[0]), _flat_state(plain[0])))
+        report[mode] = {"lines": card[2], "ok": ok}
+        if not ok:
+            fail(f"stream_mode={mode}: card {card[2]} vs CPU {host[2]}, "
+                 "or the trajectory moved")
+    phase("streaming: ea_simple stream_every=3, OneMax 300 x 100, 7 "
+          "generations", card_line, modes=report,
+          seconds=time.perf_counter() - t0)
+
+
+def slice_rest_phases(kernels, card_line) -> dict:
+    """Phases 49-50 with each one's seconds; returns the examples'
+    launch counts."""
+    import torch
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out = rest_examples_phase(kernels, card_line)
+    seconds = {"examples": time.perf_counter() - t}
+    t = time.perf_counter()
+    streaming_phase(card_line)
+    seconds["streaming"] = time.perf_counter() - t
+    phase("the last examples and streaming: phase seconds", card_line,
+          seconds=seconds, total_s=sum(seconds.values()))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5300,7 +5658,10 @@ def main() -> int:
     # ---- 43.-48. the rest of the library ------------------------------------
     lib = library_rest_phases(kernels, card_line)
 
-    # ---- 49. the kernels line and the result -------------------------------
+    # ---- 49.-50. the last examples and the streaming knobs -------------------
+    rest_ex = slice_rest_phases(kernels, card_line)
+
+    # ---- 51. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -5390,7 +5751,10 @@ def main() -> int:
                for p, v in rest["suite"].items()},
             **{f"examples/{ex.replace('.', '/')}.py":
                v["rows_dominate_counts"]
-               for ex, v in rest["examples"].items()}},
+               for ex, v in rest["examples"].items()},
+            **{f"examples/{ex.replace('.', '/')}.py (phase 49)":
+               v["rows_dominate_counts"]
+               for ex, v in rest_ex.items() if v["rows_dominate_counts"]}},
         "ms_by_input": {f"C = {FRONT_CHUNK} rows of the {p} pool": v["ms"]
                         for p, v in rest["k4"].items()},
         "plain_ms_by_input": {f"C = {FRONT_CHUNK} rows of the {p} pool":

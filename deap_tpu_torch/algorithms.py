@@ -25,9 +25,12 @@ The ``live`` contract of the serving layer is kept: a bool ``(pop,)``
 prefix mask whose pad rows never win selection (indices remap
 ``% live_n``), are never varied or evaluated, and are not counted.
 
-Not ported yet: telemetry, the streaming callbacks (``stream_every``),
-quarantine, and the sharded and streamed engines (they raise
-:class:`~deap_tpu_torch.engines.EngineNotPorted`).
+``stream_every=k`` prints one line a ``k`` generations while a loop
+runs (``gen=K`` and the sorted, flattened record, as the JAX package
+prints it); each line is one host read of that generation's record.
+
+Not ported yet: telemetry, quarantine, and the sharded and streamed
+engines (they raise :class:`~deap_tpu_torch.engines.EngineNotPorted`).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import dataclasses
 import inspect
 from functools import partial
 
+import numpy as np
 import torch
 
 from . import random
@@ -398,6 +402,55 @@ def _scalar(v):
     return v.item() if isinstance(v, torch.Tensor) and v.ndim == 0 else v
 
 
+def _host_array(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _emit_stream(gen: int, rec: dict) -> None:
+    """One streamed line: ``gen=K`` then the record's entries in sorted
+    key order (a chapter's as ``chapter.key``), tab-separated — the JAX
+    package's line for the same record, byte for byte."""
+    def flat(prefix, d, out):
+        for k in sorted(d):
+            v = d[k]
+            if isinstance(v, dict):
+                flat(f"{prefix}{k}.", v, out)
+            else:
+                a = _host_array(v)
+                out.append(f"{prefix}{k}={a.item():g}" if a.ndim == 0
+                           else f"{prefix}{k}={a}")
+    parts = [f"gen={int(gen)}"]
+    flat("", rec, parts)
+    print("\t".join(parts), flush=True)
+
+
+def _resolve_stream_mode(stream_every: int, stream_mode: str) -> str:
+    """``off`` without ``stream_every``; else ``callback`` (a line at
+    every generation that ``stream_every`` divides) or ``segmented``
+    (the same lines, as after each chunk of ``stream_every``
+    generations, and one after the last generation).  ``auto`` is
+    ``callback``: the loops run on the host on every device."""
+    if not stream_every:
+        return "off"
+    if stream_mode == "auto":
+        return "callback"
+    if stream_mode not in ("callback", "segmented"):
+        raise ValueError(f"stream_mode {stream_mode!r}: expected "
+                         "'auto', 'callback' or 'segmented'")
+    return stream_mode
+
+
+def _stream(mode: str, stream_every: int, gen: int, ngen: int,
+            rec: dict) -> None:
+    """Emit generation ``gen``'s record where ``mode`` puts a line."""
+    if mode == "off":
+        return
+    if gen % stream_every == 0 or (mode == "segmented" and gen == ngen):
+        _emit_stream(gen, rec)
+
+
 def _logbook(stats, rec0, records, ngen: int, verbose: bool,
              nevals: bool = True) -> Logbook:
     """Generation 0's record (none when ``rec0`` is ``None``, as in
@@ -461,30 +514,36 @@ def _start(key, population, toolbox, halloffame):
 
 def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
               ngen: int, stats=None, halloffame=None, verbose=False,
-              reevaluate_all: bool = False):
+              reevaluate_all: bool = False, stream_every: int = 0,
+              stream_mode: str = "auto"):
     """The simplest GA (reference eaSimple): per generation select, vary
     (:func:`var_and`) and evaluate — ``ngen`` calls of :func:`ea_step`,
     each with ``reevaluate_all`` — then update the hall of fame with the
     offspring.  Returns ``(population, logbook)``.  Records stay on the
-    device until the run ends."""
+    device until the run ends, but for the generations streamed
+    (``stream_every``, ``stream_mode``: see the module docstring)."""
+    smode = _resolve_stream_mode(stream_every, stream_mode)
     key, population, nevals0 = _start(key, population, toolbox, halloffame)
     rec0 = _record(stats, population, nevals0)
     records = []
-    for _ in range(ngen):
+    for gen in range(1, ngen + 1):
         key, population, nevals = ea_step(key, population, toolbox, cxpb,
                                           mutpb, reevaluate_all=reevaluate_all)
         if halloffame is not None:
             halloffame.update(population)
         records.append(_record(stats, population, nevals))
+        _stream(smode, stream_every, gen, ngen, records[-1])
     return population, _logbook(stats, rec0, records, ngen, verbose)
 
 
 def _ea_mu_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb, ngen,
-                  stats, halloffame, verbose, plus: bool):
+                  stats, halloffame, verbose, plus: bool,
+                  stream_every: int = 0, stream_mode: str = "auto"):
+    smode = _resolve_stream_mode(stream_every, stream_mode)
     key, population, nevals0 = _start(key, population, toolbox, halloffame)
     rec0 = _record(stats, population, nevals0)
     records = []
-    for _ in range(ngen):
+    for gen in range(1, ngen + 1):
         key, k_var, k_sel = random.split(key, 3)
         off = var_or(k_var, population, toolbox, lambda_, cxpb, mutpb)
         off, nevals = evaluate_population(toolbox, off)
@@ -493,29 +552,35 @@ def _ea_mu_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb, ngen,
         pool = population.concat(off) if plus else off
         population = pool.take(toolbox.select(k_sel, pool.fitness, mu))
         records.append(_record(stats, population, nevals))
+        _stream(smode, stream_every, gen, ngen, records[-1])
     return population, _logbook(stats, rec0, records, ngen, verbose)
 
 
 def ea_mu_plus_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb,
-                      ngen, stats=None, halloffame=None, verbose=False):
+                      ngen, stats=None, halloffame=None, verbose=False,
+                      stream_every: int = 0, stream_mode: str = "auto"):
     """(mu + lambda) strategy (reference eaMuPlusLambda): offspring by
     :func:`var_or`, the next generation selected from parents and
     offspring.  Returns ``(population, logbook)``."""
     return _ea_mu_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb,
-                         ngen, stats, halloffame, verbose, plus=True)
+                         ngen, stats, halloffame, verbose, plus=True,
+                         stream_every=stream_every, stream_mode=stream_mode)
 
 
 def ea_mu_comma_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb,
-                       ngen, stats=None, halloffame=None, verbose=False):
+                       ngen, stats=None, halloffame=None, verbose=False,
+                       stream_every: int = 0, stream_mode: str = "auto"):
     """(mu , lambda) strategy (reference eaMuCommaLambda): the next
     generation selected from the offspring only (``lambda_ >= mu``)."""
     assert lambda_ >= mu, ("lambda must be greater or equal to mu.")
     return _ea_mu_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb,
-                         ngen, stats, halloffame, verbose, plus=False)
+                         ngen, stats, halloffame, verbose, plus=False,
+                         stream_every=stream_every, stream_mode=stream_mode)
 
 
 def ea_generate_update(key, toolbox, state, ngen: int, weights=(-1.0,),
-                       stats=None, halloffame=None, verbose=False):
+                       stats=None, halloffame=None, verbose=False,
+                       stream_every: int = 0, stream_mode: str = "auto"):
     """Ask-tell loop (reference eaGenerateUpdate):
     ``toolbox.generate(state, key)`` gives a genome batch, evaluated, then
     ``toolbox.update(state, population)`` gives the next state — the
@@ -527,6 +592,7 @@ def ea_generate_update(key, toolbox, state, ngen: int, weights=(-1.0,),
     logbook holds generations 1..ngen.  Returns ``(population, state,
     logbook)``; with ``ngen`` 0 the population is the unevaluated shape
     sample."""
+    smode = _resolve_stream_mode(stream_every, stream_mode)
     weights = tuple(weights)
     sample = toolbox.generate(state, random.fold_in(key, 0))
     first = _leaves(sample)[0]
@@ -534,7 +600,7 @@ def ea_generate_update(key, toolbox, state, ngen: int, weights=(-1.0,),
     pop = Population(sample, Fitness.empty(n, weights, device=dev))
     _hof_setup(halloffame, pop)
     records = []
-    for _ in range(ngen):
+    for gen in range(1, ngen + 1):
         key, k_gen = random.split(key)
         genome = toolbox.generate(state, k_gen)
         pop = Population(genome, Fitness.empty(n, weights, device=dev))
@@ -543,6 +609,7 @@ def ea_generate_update(key, toolbox, state, ngen: int, weights=(-1.0,),
         if halloffame is not None:
             halloffame.update(pop)
         records.append(_record(stats, pop, nevals))
+        _stream(smode, stream_every, gen, ngen, records[-1])
     return pop, state, _logbook(stats, None, records, ngen, verbose)
 
 
