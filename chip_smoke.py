@@ -362,12 +362,51 @@
              logbook equal to the CPU run's, its population and logbook
              to the card's run without streaming; then phases 49-50's
              seconds;
-51. the ``kernels`` line, the card's name and power limit, and the result
+51. distribution, R = 1 over NCCL in this process — single-device
+             references first: the flagship ``ea_simple`` (megakernel, 1e6
+             x 100, DIST_GENS generations) and a live-mask step after it,
+             ``sel_nsga2(nd="peel")`` on a DTLZ2 pool of 2e5 points and
+             ``hypervolume_device`` in float64 on it; K2 and K1 at
+             ``row_base0 = 5e5`` against their plain versions and a launch
+             from row 0, bit for bit; K5 over prefixes (3000, 7000] of
+             8192 uniform points against the plain slabs (HV_RTOL); then on
+             a one-rank NCCL mesh: ``ea_simple`` on the
+             ``megakernel_sharded`` engine (K2), its live-mask step (K1),
+             ``sel_nsga2_sharded`` (``peel`` with both exchanges and
+             ``grid``: K4), ``hypervolume_sharded`` (K5), each equal to its
+             reference (the hypervolume within 1e-11), and the sharded
+             checkpoint of the flagship saved and loaded bit for bit;
+52. distribution, R = 2 on the one card over gloo (CUDA tensors staged
+             through host memory) — one pair of rank processes runs every
+             check of phase 51 on its half (rank 1's K2 and K1 at
+             ``row_base0 = 5e5``), compared by digests of each rank's
+             rows with the references; its checkpoint loaded at R = 1 bit
+             for bit; ``onemax_sharded`` at its published width and
+             ``onemax_multihost``'s run at R = 2, both at DIST_EX_GEN (20
+             of 40) generations, card = CPU (a second pair on the CPU,
+             beside the card pair), ``onemax_island`` as published card =
+             CPU; ``ea_simple_islands`` with ``mesh=`` on 4 islands (2 a
+             rank, the ring's cross-rank leg a staged ``batch_isend_irecv``)
+             equal to its ``mesh=None`` run; each rank's launch counts,
+             each sharded path's kernel launched at every R;
+53. distribution, R = min(4, cards) over NCCL — where the host has two
+             cards or more; on one card the phase says that it did not run
+             and why (NCCL refuses two ranks on one card);
+54. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12, 15, 35
 and 37, a per-stage and ``torch.profiler`` breakdown of a main-path
 generation of each path.
+
+Phases 30, 32, 33, 38, 42 and 48 run their CPU side in a second
+interpreter (:class:`CpuSide`, no card in sight, lower priority) beside
+the card's runs, and compare once both are done (phase 30's DCD check
+after phase 31's main paths; one CPU side at a time).  The card seconds
+of phases 31 (beside phase 30's CPU side), 32, 33, 38, 42 and 48 are
+measured with a CPU side running, and cannot be set beside those of the
+runs before it had one.  Phase 29 (evopole, launch-bound) runs its CPU
+reference in this process after its card runs.
 
 Tolerance: K1-K4, K6 and P1-P5 must equal their plain versions bit for
 bit (the stated ulp bound is 0; K6's NaNs compare equal whatever their
@@ -386,6 +425,10 @@ and the library examples card = CPU, all bit for bit.
 Phases 49-50: the thirteen examples above card = CPU bit for bit, the
 streamed lines byte for byte; the four CMA-ES examples a generation
 within ``CMA_RTOL``.
+Phases 51-53: every sharded genome, index and launch path bit for bit
+against the single-device run at every rank count; the sharded float64
+hypervolume within DIST_HV_RTOL (1e-11, relative) of
+``hypervolume_device`` (the per-rank partials add in another order).
 Phases 39-42 (no kernel of their own): every new operator, selection,
 benchmark function and example card = CPU bit for bit, except
 ``rotate``'s matrix product (``ROTATE_RTOL``, 1e-5) and rastrigin's
@@ -472,6 +515,71 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: seconds a CPU side may take (it runs beside its phase's card side)
+CPU_SIDE_TIMEOUT = 900.0
+_CPU_SIDES: list = []
+
+
+class CpuSide:
+    """``chip_smoke.<name>(**kwargs)`` (CPU tensors and plain values) in a
+    fresh interpreter that sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty), at a lower scheduling priority,
+    started now; :meth:`result` waits for it.  The card = CPU phases of
+    the examples start their CPU side so and run their card side
+    meanwhile: the two share nothing, and a CPU result does not depend on
+    the process that computes it.  Every side still running when the
+    script exits is killed."""
+
+    def __init__(self, name: str, **kwargs):
+        import torch
+        self.name = name
+        self.dir = os.path.join(ROOT, "chip_smoke_out", "cpu_side", name)
+        os.makedirs(self.dir, exist_ok=True)
+        self.out = os.path.join(self.dir, "out.pt")
+        self.log_path = os.path.join(self.dir, "log")
+        self.log = open(self.log_path, "w")
+        torch.save({"name": name, "out": self.out, "kwargs": kwargs},
+                   os.path.join(self.dir, "spec.pt"))
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-side",
+             os.path.join(self.dir, "spec.pt")], cwd=ROOT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=self.log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(10))
+        _CPU_SIDES.append(self.proc)
+
+    def result(self):
+        import torch
+        try:
+            rc = self.proc.wait(CPU_SIDE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = "killed at its time limit"
+        self.log.close()
+        if rc != 0:
+            with open(self.log_path) as f:
+                tail = f.read()[-3000:]
+            fail(f"CPU side {self.name}: exit {rc}\n{tail}")
+        return torch.load(self.out, weights_only=False)
+
+
+def _kill_cpu_sides() -> None:
+    for proc in _CPU_SIDES:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def _cpu_side_main(spec_path: str) -> int:
+    """The ``--cpu-side`` entry: run the named function, save its result."""
+    import torch
+    spec = torch.load(spec_path, weights_only=False)
+    result = globals()[spec["name"]](**spec["kwargs"])
+    tmp = spec["out"] + ".tmp"
+    torch.save(result, tmp)
+    os.replace(tmp, spec["out"])
+    return 0
 
 
 def ulp_gap(a, b) -> int:
@@ -2264,17 +2372,22 @@ def probe_gp_phase(card_line, key) -> dict:
                     None, PGP.probe_bound(mode, codes, npts),
                     shape=[pop, cap, npts])
     # P5's edges (probes.gp.probe_edges): groups with missing trees, ragged
-    # and single points, cap 256, codes outside the branches; every form
+    # and single points, cap 256, codes outside the branches; every form.
+    # The plain noswitch and dispatch forms never touch the stack, so
+    # their value does not depend on tb: computed once, at the first tb
     edge_err = 0.0
     for name, (c, k, ln, n_points, nb) in PGP.probe_edges(key.device).items():
-        gaps = {}
+        gaps, plain = {}, {}
         for mode in ("noswitch", "dispatch", "stackrw"):
             for tb in PROBE_GP_TB:
                 for unroll in PROBE_GP_UNROLL:
                     got = PGP.make_probe_kernel(mode, nb, tb, unroll,
                                                 n_points=n_points)(c, k, ln, x)
-                    want = PGP._probe_gp_plain(c, k, ln, n_points, mode, tb,
-                                               bool(unroll), nb)
+                    at = tb if mode == "stackrw" else PROBE_GP_TB[0]
+                    if (mode, at, unroll) not in plain:
+                        plain[(mode, at, unroll)] = PGP._probe_gp_plain(
+                            c, k, ln, n_points, mode, at, bool(unroll), nb)
+                    want = plain[(mode, at, unroll)]
                     gaps[f"{mode} tb {tb} unroll {unroll or 1}"] = ulp_gap(
                         got, want)
                     edge_err = max(edge_err, nan_gap(got, want)[1])
@@ -2870,6 +2983,18 @@ def evopole_run(dev, ngen: int):
     return pop, log, hof
 
 
+def cpu_evopole() -> dict:
+    """The CPU run of :func:`evopole_phase`'s card = CPU check."""
+    import torch
+    t = time.perf_counter()
+    pop, log, hof = evopole_run(torch.device("cpu"), EVO_REF_GENS)
+    return {"genome": pop.genome, "values": pop.fitness.values,
+            "log": {c: log.select(c) for c in ("gen", "nevals", "max",
+                                               "avg")},
+            "hof_genome": hof.state.genome, "hof_values": hof.state.values,
+            "seconds": time.perf_counter() - t}
+
+
 def evopole_phase(kernels, card_line) -> dict:
     """BASELINE config 5 at ``bench_evopole.py``'s defaults (pop 256, 4
     episodes of at most 500 steps, hidden 16, rbg keys): three
@@ -2879,27 +3004,17 @@ def evopole_phase(kernels, card_line) -> dict:
     maximum fitness must rise over 5 generations (or, where it starts
     at its ceiling of 500, stay there while the average rises).  No
     kernel of the port is on this path: its launch counts must stay
-    zero."""
+    zero.  The CPU run of the card = CPU check runs in this process after
+    the card's runs: nothing runs beside the timed ones, and as a second
+    interpreter beside the card's rise run it took two to three times as
+    long as in this process."""
     import torch
     from deap_tpu_torch.algorithms import ea_step, evaluate_population
     from deap_tpu_torch.examples.ga import evopole as EV
-    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    dev = torch.device("cuda")
     kernels.reset_launches()
     pop, log, hof = evopole_run(dev, EVO_REF_GENS)
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    cpop, clog, chof = evopole_run(cpu, EVO_REF_GENS)
-    cpu_s = time.perf_counter() - t
-    names = sorted(pop.genome)
-    same = {
-        "genome": all(_same_bits(pop.genome[k], cpop.genome[k])
-                      for k in names),
-        "values": _same_bits(pop.fitness.values, cpop.fitness.values),
-        "logbook": all(log.select(c) == clog.select(c)
-                       for c in ("gen", "nevals", "max", "avg")),
-        "archive": (all(_same_bits(hof.state.genome[k],
-                                   chof.state.genome[k]) for k in names)
-                    and _same_bits(hof.state.values, chof.state.values))}
 
     def run(ngen):
         torch.cuda.synchronize()
@@ -2948,6 +3063,17 @@ def evopole_phase(kernels, card_line) -> dict:
 
     _, rlog, _ = evopole_run(dev, EVO_RISE_GENS)
     launches = dict(kernels.LAUNCHES)
+    host = cpu_evopole()
+    cpu_s = host["seconds"]
+    names = sorted(pop.genome)
+    same = {
+        "genome": all(_same_bits(pop.genome[k], host["genome"][k])
+                      for k in names),
+        "values": _same_bits(pop.fitness.values, host["values"]),
+        "logbook": all(log.select(c) == v for c, v in host["log"].items()),
+        "archive": (all(_same_bits(hof.state.genome[k],
+                                   host["hof_genome"][k]) for k in names)
+                    and _same_bits(hof.state.values, host["hof_values"]))}
     best, avg = rlog.select("max"), rlog.select("avg")
     phase("evopole ea_simple + HallOfFame(1) (BASELINE config 5), rbg",
           card_line, key_impl="rbg", pop=EV.POP, episodes=EV.N_EPISODES,
@@ -3052,29 +3178,42 @@ def permutation_phase(card_line) -> None:
         fail(f"random.permutation on the card differs from the CPU: {same}")
 
 
-def dcd_phase(card_line, key, pop) -> None:
+def cpu_dcd(key, values, valid, weights) -> tuple:
+    """The CPU side of :func:`dcd_phase`: the winners and seconds."""
+    from deap_tpu_torch import base
+    from deap_tpu_torch.ops import emo
+    t = time.perf_counter()
+    b = emo.sel_tournament_dcd(key, base.Fitness(values, valid, weights),
+                               values.shape[0])
+    return b, time.perf_counter() - t
+
+
+def dcd_phase(card_line, key, pop):
     """``sel_tournament_dcd`` on a 1e5-point DTLZ2 population (NSGA-III's
-    at full width): card equal to CPU bit for bit."""
+    at full width): card equal to CPU bit for bit.  The CPU side runs
+    beside the phases that follow; the returned function waits for it
+    and checks."""
     import torch
     from deap_tpu_torch.ops import emo
     n = pop.size
-    kc = key.cpu()
     fc = pop.fitness
-    fh = type(fc)(fc.values.cpu(), fc.valid.cpu(), fc.weights)
+    cpu_side = CpuSide("cpu_dcd", key=key.cpu(), values=fc.values.cpu(),
+                       valid=fc.valid.cpu(), weights=fc.weights)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    a = emo.sel_tournament_dcd(key, fc, n)
-    torch.cuda.synchronize()
+    a = emo.sel_tournament_dcd(key, fc, n).cpu()
     card_s = time.perf_counter() - t
-    t = time.perf_counter()
-    b = emo.sel_tournament_dcd(kc, fh, n)
-    cpu_s = time.perf_counter() - t
-    same = torch.equal(a.cpu(), b)
-    phase("sel_tournament_dcd card vs CPU, DTLZ2 population", card_line,
-          pop=n, k=n, bitwise=same, card_seconds=card_s, cpu_seconds=cpu_s,
-          distinct_winners=int(torch.unique(a).numel()))
-    if not same:
-        fail("sel_tournament_dcd on the card differs from the CPU")
+
+    def finish() -> None:
+        b, cpu_s = cpu_side.result()
+        same = torch.equal(a, b)
+        phase("sel_tournament_dcd card vs CPU, DTLZ2 population", card_line,
+              pop=n, k=n, bitwise=same, card_seconds=card_s,
+              cpu_seconds=cpu_s, distinct_winners=int(torch.unique(a)
+                                                      .numel()))
+        if not same:
+            fail("sel_tournament_dcd on the card differs from the CPU")
+    return finish
 
 
 def mo_select_reference(card_line, key, problem: str, name: str) -> None:
@@ -3173,6 +3312,16 @@ def mo_select_main_path(kernels, card_line, key, problem: str, name: str):
     return launches, per_gen * 1e3, pop
 
 
+def cpu_spea2_trunc(values, valid, weights) -> tuple:
+    """The CPU side of :func:`spea2_checks_phase`'s truncation case."""
+    from deap_tpu_torch import base
+    from deap_tpu_torch.ops import emo
+    t = time.perf_counter()
+    b = emo.sel_spea2(None, base.Fitness(values, valid, weights), TRUNC_K,
+                      chunk=500)
+    return b, time.perf_counter() - t
+
+
 def spea2_checks_phase(card_line, key) -> dict:
     """SPEA2 beyond the generation: the single program against the two
     stage calls on the card (POP 4096 pool, both problems), and the
@@ -3183,6 +3332,12 @@ def spea2_checks_phase(card_line, key) -> dict:
     from deap_tpu_torch.ops import emo
     dev = torch.device("cuda")
     k_pool, k_trunc = random.split(key)
+    g = random.uniform(k_trunc, (TRUNC_N, 12))
+    g[:, 2:] = 0.5
+    fit = base.Fitness.empty(TRUNC_N, (-1.0,) * 3, device=dev).with_values(
+        dtlz2_values(g))
+    cpu_side = CpuSide("cpu_spea2_trunc", values=fit.values.cpu(),
+                       valid=fit.valid.cpu(), weights=fit.weights)
     staged_same = {}
     for problem in BN_PROBLEMS:
         nobj, ndim = BN_PROBLEMS[problem]
@@ -3193,11 +3348,6 @@ def spea2_checks_phase(card_line, key) -> dict:
         a = emo.sel_spea2(None, pool.fitness, MO_REF_POP, chunk=chunk)
         b = emo.sel_spea2_staged(None, pool.fitness, MO_REF_POP, chunk=chunk)
         staged_same[problem] = torch.equal(a, b)
-    g = random.uniform(k_trunc, (TRUNC_N, 12))
-    g[:, 2:] = 0.5
-    fit = base.Fitness.empty(TRUNC_N, (-1.0,) * 3, device=dev).with_values(
-        dtlz2_values(g))
-    fh = base.Fitness(fit.values.cpu(), fit.valid.cpu(), fit.weights)
     n_nondom = int((emo.nondominated_ranks(fit.masked_wvalues())[0] == 0)
                    .sum().item())
     torch.cuda.synchronize()
@@ -3205,9 +3355,7 @@ def spea2_checks_phase(card_line, key) -> dict:
     a = emo.sel_spea2(None, fit, TRUNC_K, chunk=500)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t
-    t = time.perf_counter()
-    b = emo.sel_spea2(None, fh, TRUNC_K, chunk=500)
-    cpu_s = time.perf_counter() - t
+    b, cpu_s = cpu_side.result()
     trunc_same = torch.equal(a.cpu(), b)
     phase("SPEA2: staged = single on the card; truncation card vs CPU",
           card_line, staged_equals_single=staged_same, pool=2 * MO_REF_POP,
@@ -3223,30 +3371,47 @@ def spea2_checks_phase(card_line, key) -> dict:
     return {"truncation_card_seconds": card_s}
 
 
+def cpu_mo_examples() -> dict:
+    """The CPU side of :func:`examples_phase`: each example's final
+    population and seconds."""
+    import torch
+    from deap_tpu_torch.examples.ga import nsga2, nsga3
+    out = {}
+    for name, mod in (("nsga2", nsga2), ("nsga3", nsga3)):
+        t = time.perf_counter()
+        pc, qc = mod.main(seed=1, verbose=False, device=torch.device("cpu"))
+        out[name] = (pc.genome, pc.fitness.values, qc,
+                     time.perf_counter() - t)
+    return out
+
+
 def examples_phase(kernels, card_line) -> dict:
     """``examples/ga/nsga2.py`` (ZDT1, mu 64, 100 generations) and
     ``examples/ga/nsga3.py`` (DTLZ2, 92, 100) at their defaults on the
-    card and on the CPU: populations bitwise, the NSGA-II hypervolume at
-    (11, 11) > 116, NSGA-III's front error reported."""
+    card and on the CPU (beside the card, :class:`CpuSide`): populations
+    bitwise, the NSGA-II hypervolume at (11, 11) > 116, NSGA-III's front
+    error reported."""
     import torch
     from deap_tpu_torch.examples.ga import nsga2, nsga3
-    dev, cpu = torch.device("cuda"), torch.device("cpu")
-    out, launches = {}, {}
+    dev = torch.device("cuda")
+    cpu_side = CpuSide("cpu_mo_examples")
+    out, launches, cards = {}, {}, {}
     for name, mod in (("nsga2", nsga2), ("nsga3", nsga3)):
         kernels.reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        pg, qg = mod.main(seed=1, verbose=False, device=dev)
+        cards[name] = mod.main(seed=1, verbose=False, device=dev)
         torch.cuda.synchronize()
-        card_s = time.perf_counter() - t
+        cards[name] += (time.perf_counter() - t,)
         launches[name] = dict(kernels.LAUNCHES)
-        t = time.perf_counter()
-        pc, qc = mod.main(seed=1, verbose=False, device=cpu)
-        cpu_s = time.perf_counter() - t
+    host = cpu_side.result()
+    for name in ("nsga2", "nsga3"):
+        pg, qg, card_s = cards[name]
+        pc_genome, pc_values, qc, cpu_s = host[name]
         same = (torch.equal(pg.genome.cpu().view(torch.int32),
-                            pc.genome.view(torch.int32))
+                            pc_genome.view(torch.int32))
                 and torch.equal(pg.fitness.values.cpu().view(torch.int32),
-                                pc.fitness.values.view(torch.int32)))
+                                pc_values.view(torch.int32)))
         out[name] = dict(bitwise=same, card_seconds=card_s,
                          cpu_seconds=cpu_s, card=qg, cpu=qc,
                          launches=launches[name])
@@ -3727,16 +3892,35 @@ def gp_example_run(mod, dev, ngen=None):
     return pop, float(v.sum(dim=1).min() if v.shape[1] > 1 else v.min())
 
 
+def cpu_gp_examples() -> dict:
+    """The CPU side of :func:`gp_examples_phase`: each example's final
+    trees and fitness (at ``GP_EXAMPLE_CPU_DEPTH`` where set) and
+    seconds."""
+    import importlib
+    import torch
+    out = {}
+    for name in GP_EXAMPLES:
+        mod = importlib.import_module(f"deap_tpu_torch.examples.gp.{name}")
+        t = time.perf_counter()
+        host = gp_example_run(mod, torch.device("cpu"),
+                              GP_EXAMPLE_CPU_DEPTH.get(name))[0]
+        out[name] = (host.genome, host.fitness.values, host.size,
+                     time.perf_counter() - t)
+    return out
+
+
 def gp_examples_phase(kernels, card_line) -> dict:
     """Phase 38: the eight GP examples at their defaults on the card, each
     against its check (tests/test_examples.py), and card = CPU bitwise on
     the final population, trees and every individual's fitness: at the
     defaults, or at the tests' depth where the CPU would take minutes
-    (the ant, whose fitness is each routine's food eaten)."""
+    (the ant, whose fitness is each routine's food eaten).  The CPU runs
+    beside the card's (:class:`CpuSide`)."""
     import importlib
     import torch
-    dev, cpu = torch.device("cuda"), torch.device("cpu")
-    out, launches = {}, {}
+    dev = torch.device("cuda")
+    cpu_side = CpuSide("cpu_gp_examples")
+    out, launches, cards = {}, {}, {}
     for name in GP_EXAMPLES:
         mod = importlib.import_module(f"deap_tpu_torch.examples.gp.{name}")
         kernels.reset_launches()
@@ -3749,12 +3933,13 @@ def gp_examples_phase(kernels, card_line) -> dict:
         depth = GP_EXAMPLE_CPU_DEPTH.get(name)
         card_at = card if depth is None else gp_example_run(mod, dev,
                                                             depth)[0]
-        t = time.perf_counter()
-        host = gp_example_run(mod, cpu, depth)[0]
-        cpu_s = time.perf_counter() - t
-        same = (_same_tensors(card_at.genome, host.genome)
-                and _same_tensors(card_at.fitness.values,
-                                  host.fitness.values))
+        cards[name] = (mod, card, quality, card_s, card_at, depth)
+    host = cpu_side.result()
+    for name in GP_EXAMPLES:
+        mod, card, quality, card_s, card_at, depth = cards[name]
+        h_genome, h_values, h_size, cpu_s = host[name]
+        same = (_same_tensors(card_at.genome, h_genome)
+                and _same_tensors(card_at.fitness.values, h_values))
         ok = bool(card.fitness.valid.all()) and bool(
             torch.isfinite(card.fitness.values).all())
         if name in GP_EXAMPLE_CHECKS:
@@ -3765,7 +3950,7 @@ def gp_examples_phase(kernels, card_line) -> dict:
             extra = {"mean_size": size}
             ok = ok and size < mod.CAP * 0.8
         out[name] = dict(card_cpu_bitwise=same, cpu_generations=depth or
-                         "default", rows_compared=host.size,
+                         "default", rows_compared=h_size,
                          card_seconds=card_s, cpu_seconds=cpu_s,
                          quality=quality, check=ok, **extra)
         if not same:
@@ -4404,17 +4589,40 @@ def ga_example_run(mod, dev, depth=None):
     return out[0] if isinstance(out, tuple) else out
 
 
+def cpu_ga_examples() -> dict:
+    """The CPU side of :func:`ga_examples_phase`: each example's final
+    population (bbob: its first generation's value of every problem) and
+    seconds."""
+    import importlib
+    import torch
+    from deap_tpu_torch import benchmarks
+    cpu = torch.device("cpu")
+    out = {}
+    for name in GA_EXAMPLES:
+        mod = importlib.import_module(f"deap_tpu_torch.examples.{name}")
+        t = time.perf_counter()
+        if name == "bbob":
+            host = {(f, d): mod.run_problem(getattr(benchmarks, f), d, 31,
+                                            cpu, 1)[1]
+                    for f in mod.SUITE for d in mod.DIMS}
+        else:
+            host = ga_example_run(mod, cpu, GA_EXAMPLE_DEPTH.get(name))
+        out[name] = (host, time.perf_counter() - t)
+    return out
+
+
 def ga_examples_phase(kernels, card_line) -> dict:
     """Phase 42: the eight GA / ES examples at ``GA_EXAMPLE_DEPTH`` on
     the card, each example's own check, card = CPU on the final
     population of the same run (bbob: its first generation, and the table
-    finite)."""
+    finite); the CPU runs beside the card's (:class:`CpuSide`)."""
     import importlib
     import math
     import torch
     from deap_tpu_torch import benchmarks
-    dev, cpu = torch.device("cuda"), torch.device("cpu")
-    out = {}
+    dev = torch.device("cuda")
+    cpu_side = CpuSide("cpu_ga_examples")
+    out, cards = {}, {}
     for name in GA_EXAMPLES:
         mod = importlib.import_module(f"deap_tpu_torch.examples.{name}")
         kernels.reset_launches()
@@ -4424,37 +4632,39 @@ def ga_examples_phase(kernels, card_line) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         launches = dict(kernels.LAUNCHES)
-        t = time.perf_counter()
+        first = None
         if name == "bbob":
-            same = all(
-                mod.run_problem(getattr(benchmarks, f), d, 31, dev, 1)[1]
-                == mod.run_problem(getattr(benchmarks, f), d, 31, cpu, 1)[1]
-                for f in mod.SUITE for d in mod.DIMS)
+            first = {(f, d): mod.run_problem(getattr(benchmarks, f), d, 31,
+                                             dev, 1)[1]
+                     for f in mod.SUITE for d in mod.DIMS}
+        cards[name] = (mod, card, secs, launches, first, depth)
+    hosts = cpu_side.result()
+    for name in GA_EXAMPLES:
+        mod, card, secs, launches, first, depth = cards[name]
+        host, cpu_secs = hosts[name]
+        if name == "bbob":
+            same = all(first[k] == host[k] for k in first)
             check = all(math.isfinite(v) for v in card.values())
             detail = {f"{f} d{d}": v for (f, d), v in card.items()}
+        elif name == "ga.knn":
+            same = _same_tensors(card, host)
+            check = float(card.max()) > 0.5
+            detail = {"best_accuracy": float(card.max())}
         else:
-            host = ga_example_run(mod, cpu, depth)
-            if name == "ga.knn":
-                same = _same_tensors(card, host)
-                check = float(card.max()) > 0.5
-                detail = {"best_accuracy": float(card.max())}
+            same = (_same_tensors(card.genome, host.genome)
+                    and _same_tensors(card.fitness.values,
+                                      host.fitness.values))
+            vals = card.fitness.values
+            detail = {"best": float(vals[:, 0].min()), "size": card.size}
+            if name in ("ga.tsp", "ga.nqueens"):
+                check = _is_perm(card.genome)
+            elif name == "ga.kursawefct":
+                check = bool((card.genome.abs() <= mod.BOUND).all())
+            elif name == "es.fctmin":
+                check = detail["best"] < 1.0
             else:
-                same = (_same_tensors(card.genome, host.genome)
-                        and _same_tensors(card.fitness.values,
-                                        host.fitness.values))
-                vals = card.fitness.values
-                detail = {"best": float(vals[:, 0].min()),
-                          "size": card.size}
-                if name in ("ga.tsp", "ga.nqueens"):
-                    check = _is_perm(card.genome)
-                elif name == "ga.kursawefct":
-                    check = bool((card.genome.abs() <= mod.BOUND).all())
-                elif name == "es.fctmin":
-                    check = detail["best"] < 1.0
-                else:
-                    detail = {"best_accuracy": float(vals[:, 0].max())}
-                    check = detail["best_accuracy"] > 0.5
-        cpu_secs = time.perf_counter() - t
+                detail = {"best_accuracy": float(vals[:, 0].max())}
+                check = detail["best_accuracy"] > 0.5
         phase(f"example: {name}", card_line, card_seconds=secs,
               generations=depth, cpu_seconds=cpu_secs, card_eq_cpu=same,
               quality_check=check,
@@ -4920,14 +5130,31 @@ def _lib_example_run(mod, name, dev):
     return mod.best_host_failures(state[0]), state          # coev.hillis
 
 
+def cpu_lib_examples() -> dict:
+    """The CPU side of :func:`lib_examples_phase`: each example's result,
+    final state and seconds."""
+    import importlib
+    import torch
+    out = {}
+    for name in LIB_EXAMPLES:
+        mod = importlib.import_module(f"deap_tpu_torch.examples.{name}")
+        t = time.perf_counter()
+        result, state = _lib_example_run(mod, name, torch.device("cpu"))
+        out[name] = (_flat_state(result), _flat_state(state),
+                     time.perf_counter() - t)
+    return out
+
+
 def lib_examples_phase(kernels, card_line) -> dict:
     """Phase 48: the ten library examples at ``tests/test_examples.py``'s
     arguments on the card, each with that table's check, and card = CPU
-    bit for bit on the final population or state of the same run."""
+    bit for bit on the final population or state of the same run (the
+    CPU runs beside the card's, :class:`CpuSide`)."""
     import importlib
     import torch
-    dev, cpu = torch.device("cuda"), torch.device("cpu")
-    out = {}
+    dev = torch.device("cuda")
+    cpu_side = CpuSide("cpu_lib_examples")
+    out, cards = {}, {}
     for name in LIB_EXAMPLES:
         mod = importlib.import_module(f"deap_tpu_torch.examples.{name}")
         kernels.reset_launches()
@@ -4935,14 +5162,14 @@ def lib_examples_phase(kernels, card_line) -> dict:
         t = time.perf_counter()
         result, card = _lib_example_run(mod, name, dev)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        launches = dict(kernels.LAUNCHES)
-        t = time.perf_counter()
-        host_result, host = _lib_example_run(mod, name, cpu)
-        cpu_secs = time.perf_counter() - t
-        same = (_same_tensors(_flat_state(card), _flat_state(host))
-                and _same_tensors(_flat_state(result),
-                                  _flat_state(host_result)))
+        cards[name] = (result, card, time.perf_counter() - t,
+                       dict(kernels.LAUNCHES))
+    hosts = cpu_side.result()
+    for name in LIB_EXAMPLES:
+        result, card, secs, launches = cards[name]
+        host_result, host, cpu_secs = hosts[name]
+        same = (_same_tensors(_flat_state(card), host)
+                and _same_tensors(_flat_state(result), host_result))
         check = LIB_EXAMPLE_CHECKS.get(name, lambda r: True)(result)
         phase(f"library example: {name}", card_line, card_seconds=secs,
               cpu_seconds=cpu_secs, card_eq_cpu=same, smoke_check=check,
@@ -5330,7 +5557,607 @@ def slice_rest_phases(kernels, card_line) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# distribution (phases 51-53)
+# ---------------------------------------------------------------------------
+
+DIST_GENS = 2                     # the sharded flagship's generations
+DIST_POOL = 2 * BN_POP            # bench_nsga2.py's pool at POP 1e5
+DIST_K = BN_POP                   # the selection keeps POP of the pool
+DIST_CHUNK = 256                  # sel_nsga2_sharded's default front_chunk
+DIST_HV_RTOL = 1e-11              # K5's float64 bound (HV_RTOL)
+DIST_SPLIT = POP // 2             # rank 1's row_base0 at R = 2
+DIST_LIVE = POP - 4096            # the live prefix of the sharded K1 step
+DIST_K5_RANGE = (3000, 4000)      # K5's prefix range (not 256-aligned)
+#: onemax_sharded's width as published (4096 x 100), its generations and
+#: onemax_multihost's cut from 40 to keep phases 51-53 within 90 s
+DIST_EX_POP, DIST_EX_GEN = 4096, 20
+#: ``ea_simple_islands`` with ``mesh=`` at R = 2: islands of
+#: onemax_island's width (60 x 100, migration every 5 generations), two
+#: migrations
+DIST_ISL, DIST_ISL_GEN = 4, 10
+DIST_TIMEOUT = 120.0              # every process group's collectives
+#: the kernels on the sharded paths: K1, K2, K4, K5
+DIST_KERNELS = ("megakernel_vary", "megakernel_gather_vary",
+                "rows_dominate_counts", "hv3d_sweep")
+DIST_DEADLINE = 300.0             # a rank launch, start to end
+
+
+def _digest(t) -> str:
+    """sha256 (16 hex digits) of a tensor's bytes: ranks compare shards by
+    digest, not by moving the genome between processes."""
+    import hashlib
+    import torch
+    t = t.detach().contiguous()
+    if t.dtype == torch.bool:
+        t = t.to(torch.uint8)
+    return hashlib.sha256(t.cpu().reshape(-1).view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def dist_flagship_toolbox():
+    """The main path's toolbox (rastrigin, cx_two_point, mut_gaussian,
+    rank-law tournament) on the megakernel engine."""
+    from deap_tpu_torch import base, benchmarks
+    from deap_tpu_torch.ops import crossover, mutation, selection
+    tb = base.Toolbox()
+    tb.register("evaluate", benchmarks.rastrigin)
+    tb.register("mate", crossover.cx_two_point)
+    tb.register("mutate", mutation.mut_gaussian, mu=MU, sigma=SIGMA,
+                indpb=INDPB)
+    tb.register("select", selection.sel_tournament, tournsize=3,
+                tie_break="rank")
+    tb.generation_engine = "megakernel"
+    return tb
+
+
+def _dist_rows(key, n: int, width: int, start: int, stop: int,
+               lo: float = 0.0, hi: float = 1.0):
+    """Rows ``[start, stop)`` of ``uniform(key, (n, width))``, drawn
+    without the rest (``random.row_range``)."""
+    from deap_tpu_torch import random
+    with random.row_range((n, start, stop)):
+        return random.uniform(key, (stop - start, width), minval=lo,
+                              maxval=hi)
+
+
+def dist_checks(mesh, ckpt_dir=None) -> dict:
+    """The sharded checks every rank count runs, on this rank's block:
+    the flagship ``ea_simple`` on the ``megakernel_sharded`` engine (1e6 x
+    100, DIST_GENS generations: K2 at ``row_base0 = rank * n_loc``), one
+    live-mask step (K1 at that ``row_base0``), the sharded checkpoint of
+    the flagship (``ckpt_dir``), ``sel_nsga2_sharded`` on a DTLZ2 pool of
+    2e5 points (``peel`` with both exchanges and ``grid``: K4) and
+    ``hypervolume_sharded`` in float64 on it (K5 over this rank's
+    slabs).  Returns digests, indices, the value, seconds and each
+    part's launch counts."""
+    import torch
+    from deap_tpu_torch import base, kernels, random
+    from deap_tpu_torch.algorithms import ea_simple, evaluate_population
+    from deap_tpu_torch.ops import generation_sharded as GS
+    from deap_tpu_torch.ops import hypervolume as H
+    from deap_tpu_torch.parallel import ShardedPopulation, population_sharding
+    from deap_tpu_torch.parallel import emo_sharded as E
+    from deap_tpu_torch.utils import checkpoint as ck
+    dev = mesh.device
+    out = {"rank": mesh.rank, "size": mesh.size, "transport": mesh.transport,
+           "seconds": {}, "launches": {}}
+
+    def part(name, t):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["seconds"][name] = time.perf_counter() - t
+        out["launches"][name] = {k: kernels.LAUNCHES[k]
+                                 for k in DIST_KERNELS}
+
+    t = time.perf_counter()
+    sh = population_sharding(mesh, POP, 32)
+    g = _dist_rows(random.PRNGKey(51, device=dev), POP, DIM, sh.start,
+                   sh.stop, -5.12, 5.12)
+    pop = ShardedPopulation(g, base.Fitness.empty(sh.rows, (-1.0,),
+                                                  device=dev), mesh, POP, 32)
+    tb = dist_flagship_toolbox()
+    tb.generation_mesh = mesh
+    kernels.reset_launches()
+    final, _ = ea_simple(random.PRNGKey(52, device=dev), pop, tb, CXPB,
+                         MUTPB, DIST_GENS)
+    part("ea_simple megakernel_sharded", t)
+    out["rows"] = (sh.start, sh.stop)
+    out["flagship"] = (_digest(final.genome), _digest(final.fitness.values))
+    out["flagship_finite"] = bool(torch.isfinite(final.genome).all()
+                                  and torch.isfinite(final.fitness.values)
+                                  .all())
+    t = time.perf_counter()
+    live = torch.arange(sh.start, sh.stop, device=dev) < DIST_LIVE
+    kernels.reset_launches()
+    _, stepped = GS.fused_ea_step_sharded(random.PRNGKey(53, device=dev),
+                                          final, tb, CXPB, MUTPB, live=live)
+    part("live-mask step", t)
+    out["live"] = _digest(stepped.genome)
+    del stepped, pop, g
+    if ckpt_dir is not None:
+        t = time.perf_counter()
+        ck.save_sharded_checkpoint(ckpt_dir, {
+            "key": random.PRNGKey(52, device=dev), "population": final})
+        out["seconds"]["checkpoint save"] = time.perf_counter() - t
+    del final
+    torch.cuda.empty_cache()
+
+    psh = population_sharding(mesh, DIST_POOL)
+    tbm = bench_nsga2_toolbox("dtlz2")
+    genome = _dist_rows(random.PRNGKey(54, device=dev), DIST_POOL,
+                        BN_PROBLEMS["dtlz2"][1], psh.start, psh.stop)
+    local = evaluate_population(tbm, base.Population(genome, base.Fitness.empty(
+        psh.rows, (-1.0,) * 3, device=dev)))[0]
+    out["sel"] = {}
+    for ranks, ex in (("peel", "indices"), ("peel", "rows"),
+                      ("grid", "indices")):
+        t = time.perf_counter()
+        kernels.reset_launches()
+        idx = E.sel_nsga2_sharded(None, local.fitness, DIST_K, mesh,
+                                  front_chunk=DIST_CHUNK, exchange=ex,
+                                  ranks=ranks, n=DIST_POOL)
+        part(f"sel_nsga2_sharded {ranks} {ex}", t)
+        out["sel"][f"{ranks} {ex}"] = idx.to(torch.int64).cpu()
+    t = time.perf_counter()
+    kernels.reset_launches()
+    hv = H.hypervolume_sharded(local.fitness.values.to(torch.float64),
+                               HV_REF["dtlz2"], mesh, n=DIST_POOL)
+    part("hypervolume_sharded float64", t)
+    out["hv"] = float(hv)
+    return out
+
+
+def dist_examples(mesh) -> dict:
+    """``onemax_sharded`` at its published width and ``onemax_multihost``'s
+    run on this mesh, DIST_EX_GEN generations each: digests of the
+    gathered final populations."""
+    from deap_tpu_torch.examples.ga import onemax_multihost, onemax_sharded
+    from deap_tpu_torch.parallel import fetch_global
+    t = time.perf_counter()
+    pop = fetch_global(onemax_sharded.main(
+        seed=0, pop_size=DIST_EX_POP, ngen=DIST_EX_GEN, mesh=mesh,
+        verbose=False))
+    t1 = time.perf_counter()
+    mh, log = onemax_multihost.run(ngen=DIST_EX_GEN,
+                                   device=str(mesh.device))
+    return {"onemax_sharded": (_digest(pop.genome),
+                               _digest(pop.fitness.values)),
+            "onemax_multihost": (_digest(mh.genome),
+                                 _digest(mh.fitness.values),
+                                 float(mh.fitness.values.max())),
+            "seconds": {"onemax_sharded": t1 - t,
+                        "onemax_multihost": time.perf_counter() - t1}}
+
+
+def dist_islands(mesh) -> dict:
+    """``ea_simple_islands`` on DIST_ISL islands of ``onemax_island``'s
+    width and toolbox, DIST_ISL_GEN generations: with ``mesh=`` (this rank
+    holds DIST_ISL / R islands; the ring's cross-rank leg is
+    ``batch_isend_irecv``) and on this rank's device alone (``mesh=None``).
+    Digests of the gathered islands and of the per-island evaluation
+    counts of each run, and its seconds."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.examples.ga import onemax_island as OI
+    from deap_tpu_torch.parallel import collectives, ea_simple_islands
+    dev = mesh.device
+    key, k_init = random.split(random.PRNGKey(57, device=dev))
+    g = random.bernoulli(k_init, 0.5, (DIST_ISL, OI.POP, OI.N_BITS)).to(
+        torch.float32)
+    pops = base.Population(g, base.Fitness(
+        torch.zeros((DIST_ISL, OI.POP, 1), device=dev),
+        torch.zeros((DIST_ISL, OI.POP), dtype=torch.bool, device=dev),
+        (1.0,)))
+    out = {"seconds": {}}
+    for name, m in (("mesh", mesh), ("one device", None)):
+        t = time.perf_counter()
+        res, recs = ea_simple_islands(key, pops, OI.toolbox(), 0.5, 0.2,
+                                      DIST_ISL_GEN, mig_freq=OI.MIG_FREQ,
+                                      mig_k=5, mesh=m)
+        genome, values = res.genome, res.fitness.values
+        if m is not None:
+            genome = collectives.all_gather(genome.contiguous(), mesh)
+            values = collectives.all_gather(values.contiguous(), mesh)
+        out[name] = (_digest(genome), _digest(values),
+                     _digest(torch.as_tensor(recs["nevals"])))
+        out["seconds"][name] = time.perf_counter() - t
+    out["best"] = float(values.max())
+    return out
+
+
+def dist_rank_main(mesh, ckpt_dir=None, examples: bool = True) -> dict:
+    """What one rank of a launched pair (or quartet) runs: the checks, the
+    examples and the mesh form of ``ea_simple_islands``, and the rank's
+    device."""
+    import torch
+    out = dist_checks(mesh, ckpt_dir)
+    if examples:
+        out["examples"] = dist_examples(mesh)
+        out["islands"] = dist_islands(mesh)
+    out["device"] = str(mesh.device)
+    out["device_name"] = torch.cuda.get_device_name(mesh.device)
+    return out
+
+
+def _dist_reference(kernels, card_line) -> dict:
+    """The single-device runs the sharded ones must equal: the flagship
+    on the megakernel engine, its live-mask step, ``sel_nsga2`` on the
+    pool and ``hypervolume_device`` on it; then K2 and K1 at
+    ``row_base0 = DIST_SPLIT`` and K5 over ``DIST_K5_RANGE`` against their
+    plain versions."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import ea_simple, evaluate_population
+    from deap_tpu_torch.ops import emo
+    from deap_tpu_torch.ops import generation as G
+    from deap_tpu_torch.ops import hypervolume as H
+    from deap_tpu_torch.ops import selection
+    dev = torch.device("cuda")
+    ref = {}
+    g = random.uniform(random.PRNGKey(51, device=dev), (POP, DIM),
+                       minval=-5.12, maxval=5.12)
+    tb = dist_flagship_toolbox()
+    final, _ = ea_simple(random.PRNGKey(52, device=dev), base.Population(
+        g, base.Fitness.empty(POP, (-1.0,), device=dev)), tb, CXPB, MUTPB,
+        DIST_GENS)
+    live = torch.arange(POP, device=dev) < DIST_LIVE
+    _, stepped = G.fused_ea_step(random.PRNGKey(53, device=dev), final, tb,
+                                 CXPB, MUTPB, live=live)
+    ref["genome"], ref["values"] = final.genome, final.fitness.values
+    ref["live"] = stepped.genome
+
+    # K2 / K1 at row_base0 = DIST_SPLIT against their plain versions and
+    # against the same rows of a launch from row 0
+    order = base.lex_sort_indices(final.fitness.masked_wvalues()).to(
+        torch.int32)
+    k_sel, k_var = random.split(random.PRNGKey(55, device=dev))
+    pos = selection.tournament_positions(k_sel, POP, POP, 3)
+    seed = G._seed_from_key(k_var)
+    knobs = torch.tensor([CXPB, MUTPB, MU, SIGMA, INDPB], device=dev)
+    st = G.GenomeStorage("float32")
+    lo = DIST_SPLIT
+    whole, widx = kernels.launch_gather_vary(
+        order, pos, final.genome, seed, knobs, dim=DIM, dtype="float32",
+        scale=1.0)
+    k2, w2 = kernels.launch_gather_vary(
+        order, pos[lo:].contiguous(), final.genome, seed, knobs, dim=DIM,
+        dtype="float32", scale=1.0, row_base0=lo)
+    p2, pw = G._gather_vary_plain(order, pos[lo:], final.genome, seed,
+                                  knobs, DIM, st, row_base0=lo)
+    parents = final.genome.index_select(0, widx[lo:].long()).contiguous()
+    k1 = kernels.launch_vary(parents, seed, knobs, dim=DIM, dtype="float32",
+                             scale=1.0, row_base0=lo)
+    p1 = G._vary_tile_plain(parents, seed, knobs, DIM, lo)
+    torch.cuda.synchronize()
+    k2_ok = (torch.equal(k2.view(torch.int32), p2.view(torch.int32))
+             and torch.equal(w2, pw.to(w2.dtype))
+             and torch.equal(k2.view(torch.int32),
+                             whole[lo:].view(torch.int32)))
+    k1_ok = (torch.equal(k1.view(torch.int32), p1.view(torch.int32))
+             and torch.equal(k1.view(torch.int32),
+                             whole[lo:].view(torch.int32)))
+    ms2 = cuda_ms(lambda: kernels.launch_gather_vary(
+        order, pos[lo:].contiguous(), final.genome, seed, knobs, dim=DIM,
+        dtype="float32", scale=1.0, row_base0=lo), reps=5)
+    ms1 = cuda_ms(lambda: kernels.launch_vary(
+        parents, seed, knobs, dim=DIM, dtype="float32", scale=1.0,
+        row_base0=lo), reps=5)
+    phase("K2 / K1 at row_base0 != 0 vs plain", card_line,
+          row_base0=lo, rows=POP - lo, dim=DIM, k2_bitwise=k2_ok,
+          k1_bitwise=k1_ok, k2_ms=ms2, k1_ms=ms1)
+    if not (k2_ok and k1_ok):
+        fail(f"K2 / K1 at row_base0 {lo} differ from their plain versions "
+             f"or from a launch at row 0 (K2 {k2_ok}, K1 {k1_ok})")
+    ref["k12"] = {"row_base0": lo, "k2_ms": ms2, "k1_ms": ms1}
+    del whole, k2, p2, k1, p1, parents, pos, order, g, stepped
+    torch.cuda.empty_cache()
+
+    # K5 over a prefix range that starts inside a group of 256
+    k_begin, count = DIST_K5_RANGE
+    pts = random.uniform(random.PRNGKey(56, device=dev), (HV_UNIFORM_N, 3))
+    k5 = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        p = pts.to(dtype)
+        clipped, r = H._as_points(p, (1.0, 1.0, 1.0))
+        part_k = H._hv3d_cuda_partials(clipped, r, 1.0, 128, k_begin, count)
+        part_p = H._slab_volumes(p, (1.0, 1.0, 1.0), 128, k_begin, count)
+        whole_k = H._hv3d_cuda_partials(clipped, r, 1.0, 128)
+        torch.cuda.synchronize()
+        scale = float(part_p.double().sum().abs())
+        rel = float((part_k.double() - part_p.double()).abs().max()) / scale
+        # the range's partials are the whole launch's when it starts on a
+        # partial's boundary: compare the sums of the overlap instead
+        rel_sum = abs(float(part_k.double().sum())
+                      - float(part_p.double().sum())) / scale
+        bound = HV_RTOL[name]
+        k5[name] = {"rel_parts": rel, "rel_sum": rel_sum, "bound": bound,
+                    "whole_partials": int(whole_k.numel())}
+        if not (rel <= bound and rel_sum <= bound):
+            fail(f"K5 {name} over prefixes ({k_begin}, {k_begin + count}]: "
+                 f"{rel:.3g} / {rel_sum:.3g} from the plain slabs "
+                 f"(bound {bound})")
+    phase("K5 hv3d_sweep at k_begin != 0 vs plain", card_line,
+          n=HV_UNIFORM_N, k_begin=k_begin, count=count, **k5)
+
+    # the pool: single-device selection and hypervolume
+    tbm = bench_nsga2_toolbox("dtlz2")
+    genome = random.uniform(random.PRNGKey(54, device=dev),
+                            (DIST_POOL, BN_PROBLEMS["dtlz2"][1]))
+    pool = evaluate_population(tbm, base.Population(genome, base.Fitness.empty(
+        DIST_POOL, (-1.0,) * 3, device=dev)))[0]
+    ref["sel"] = emo.sel_nsga2(None, pool.fitness, DIST_K, nd="peel",
+                               front_chunk=FRONT_CHUNK).to(torch.int64).cpu()
+    ref["hv"] = float(H.hypervolume_device(
+        pool.fitness.values.to(torch.float64), HV_REF["dtlz2"]))
+    return ref
+
+
+def _check_dist(label: str, res: dict, ref: dict) -> dict:
+    """One rank's results against the single-device references."""
+    import torch
+    lo, hi = res["rows"]
+    want = (_digest(ref["genome"][lo:hi]), _digest(ref["values"][lo:hi]))
+    checks = {
+        "flagship bitwise": res["flagship"] == want,
+        "flagship finite": res["flagship_finite"],
+        "live step bitwise": res["live"] == _digest(ref["live"][lo:hi]),
+        **{f"sel {k} = sel_nsga2": torch.equal(v, ref["sel"])
+           for k, v in res["sel"].items()},
+        "hv float64 within 1e-11 of hypervolume_device":
+            abs(res["hv"] - ref["hv"]) <= DIST_HV_RTOL * abs(ref["hv"])}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"{label}, rank {res['rank']}: {bad}")
+    return checks
+
+
+def _require_dist_launches(label: str, res: dict) -> None:
+    """Each sharded path of one rank's run launched its kernel: K2 on the
+    flagship, K1 on the live-mask step, K4 on every sharded selection
+    (both peel exchanges and the grid), K5 on the sharded hypervolume."""
+    need = [("megakernel_gather_vary", "ea_simple megakernel_sharded"),
+            ("megakernel_vary", "live-mask step"),
+            ("hv3d_sweep", "hypervolume_sharded float64")]
+    need += [("rows_dominate_counts", path) for path in res["launches"]
+             if path.startswith("sel_nsga2_sharded")]
+    if len(need) != 6:
+        fail(f"{label}: paths {sorted(res['launches'])}")
+    missing = [f"{kern} on {path}" for kern, path in need
+               if not res["launches"][path][kern]]
+    if missing:
+        fail(f"{label}, rank {res['rank']}: no launch of {missing}")
+
+
+def _launches_of(res: dict, kernel: str) -> dict:
+    return {k: v[kernel] for k, v in res["launches"].items() if v[kernel]}
+
+
+def distribution_phases(kernels, card_line) -> dict:
+    """Phases 51-53: the sharded paths at R = 1 over NCCL in this process,
+    R = 2 on the one card over gloo (a pair of rank processes, CUDA
+    tensors staged through host memory), and R = min(4, cards) over NCCL
+    where there are two cards or more.  Returns each run's launch counts
+    by path for the kernels line."""
+    import shutil
+    import socket
+    import torch
+    import torch.distributed as dist
+    from deap_tpu_torch.examples.ga import onemax_island
+    from deap_tpu_torch.parallel import (default_mesh, initialize_cluster,
+                                         launch)
+    from deap_tpu_torch.utils import checkpoint as ck
+    t_all = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chip_smoke_out", "dist")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir, exist_ok=True)
+
+    # ---- 51. R = 1 over NCCL ------------------------------------------------
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    ref = _dist_reference(kernels, card_line)
+    t_ref = time.perf_counter() - t
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t = time.perf_counter()
+    initialize_cluster(backend="nccl", init_method=f"tcp://127.0.0.1:{port}",
+                       num_processes=1, process_id=0, timeout=DIST_TIMEOUT)
+    mesh = default_mesh(device="cuda", timeout=DIST_TIMEOUT)
+    t_init = time.perf_counter() - t
+    r1_ckpt = os.path.join(out_dir, "ckpt_r1")
+    r1 = dist_checks(mesh, r1_ckpt)
+    checks1 = _check_dist("R = 1", r1, ref)
+    # the checkpoint saved at R = 1, loaded at R = 1
+    t = time.perf_counter()
+    like = {"key": torch.zeros(2, dtype=torch.int64, device="cuda"),
+            "population": _dist_like(mesh)}
+    back = ck.load_sharded_checkpoint(r1_ckpt, like)
+    ck1 = (_digest(back["population"].genome) == _digest(ref["genome"])
+           and _digest(back["population"].fitness.values)
+           == _digest(ref["values"]))
+    t_ck = time.perf_counter() - t
+    del back
+    if not ck1:
+        fail("the sharded checkpoint saved and loaded at R = 1 is not the "
+             "flagship population bit for bit")
+    phase("distribution R = 1", card_line, backend="nccl", R=1,
+          transport=r1["transport"], checks=checks1, checkpoint_bitwise=ck1,
+          seconds={**r1["seconds"], "references": t_ref,
+                   "process group": t_init, "checkpoint load": t_ck},
+          launches=r1["launches"], hv=r1["hv"], hv_device=ref["hv"])
+    _require_dist_launches("R = 1", r1)
+
+    # ---- 52. R = 2 on one card over gloo ----------------------------------
+    # the card pair, and the CPU side of the examples (a CPU pair, then
+    # onemax_island on the CPU), run in threads while this thread runs
+    # onemax_island on the card: the threads wait on processes
+    import threading
+    side: dict = {}
+
+    def card_pair():
+        t0 = time.perf_counter()
+        side["r2"] = launch.run_ranks(
+            "chip_smoke:dist_rank_main", 2, backend="gloo", device="cuda",
+            kwargs={"ckpt_dir": os.path.join(out_dir, "ckpt_r2")},
+            timeout=DIST_TIMEOUT, deadline=DIST_DEADLINE,
+            workdir=os.path.join(out_dir, "r2"))
+        side["r2_s"] = time.perf_counter() - t0
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        side["cpu2"] = launch.run_ranks(
+            "chip_smoke:dist_examples", 2, backend="gloo", device="cpu",
+            timeout=DIST_TIMEOUT, deadline=DIST_DEADLINE, threads=2,
+            workdir=os.path.join(out_dir, "cpu2"))
+        side["cpu2_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        side["island_cpu"] = onemax_island.main(seed=0, device="cpu",
+                                                verbose=False)
+        side["island_cpu_s"] = time.perf_counter() - t0
+
+    def guarded(fn, name):
+        def run():
+            try:
+                fn()
+            except BaseException as e:      # noqa: BLE001 — re-raised below
+                side[f"error {name}"] = e
+        return threading.Thread(target=run, daemon=True)
+
+    workers = [guarded(card_pair, "card pair"), guarded(cpu_side, "cpu side")]
+    for w in workers:
+        w.start()
+    t = time.perf_counter()
+    try:
+        isl_card = onemax_island.main(seed=0, device="cuda", verbose=False)
+        t_isl = time.perf_counter() - t
+    finally:                    # the threads' rank processes end first
+        for w in workers:
+            w.join(DIST_DEADLINE)
+    errors = {k: v for k, v in side.items() if k.startswith("error")}
+    if errors or any(w.is_alive() for w in workers):
+        fail(f"the R = 2 runs: {errors or 'still running'}")
+    r2, t_r2 = side["r2"], side["r2_s"]
+    r2_ckpt = os.path.join(out_dir, "ckpt_r2")
+    checks2 = [_check_dist("R = 2", r, ref) for r in r2]
+    if r2[1]["rows"][0] != DIST_SPLIT:
+        fail(f"R = 2: rank 1 starts at row {r2[1]['rows'][0]}, not "
+             f"{DIST_SPLIT}")
+    for r in r2:
+        _require_dist_launches("R = 2", r)
+    # the checkpoint saved at R = 2, loaded at R = 1
+    back = ck.load_sharded_checkpoint(r2_ckpt, like)
+    ck2 = _digest(back["population"].genome) == _digest(ref["genome"])
+    del back
+    if not ck2:
+        fail("the checkpoint saved at R = 2 does not load at R = 1 as the "
+             "flagship population bit for bit")
+    # the examples: card R = 2 against the CPU at R = 2, and onemax_island
+    # as published card against CPU
+    cpu2 = side["cpu2"]
+    isl = [isl_card, side["island_cpu"]]
+    ex = {name: all(r["examples"][name][:2] == c[name][:2]
+                    for r in r2 for c in cpu2)
+          for name in ("onemax_sharded", "onemax_multihost")}
+    ex["onemax_island"] = (torch.equal(isl[0].genome.cpu(), isl[1].genome)
+                           and torch.equal(isl[0].fitness.values.cpu(),
+                                           isl[1].fitness.values))
+    # ea_simple_islands with mesh= at R = 2 against mesh=None, on each rank
+    islands_mesh = all(r["islands"]["mesh"] == r["islands"]["one device"]
+                       == r2[0]["islands"]["one device"] for r in r2)
+    best = {"onemax_multihost": r2[0]["examples"]["onemax_multihost"][2],
+            "onemax_island": float(isl[1].fitness.values.max())}
+    phase("distribution R = 2 on one card", card_line, backend="gloo", R=2,
+          transport=r2[0]["transport"],
+          note="gloo's staged times say nothing of NCCL's",
+          devices=[r["device"] for r in r2], checks=checks2,
+          checkpoint_r2_to_r1_bitwise=ck2, examples_card_eq_cpu=ex,
+          islands_mesh_eq_one_device=islands_mesh,
+          islands={"islands": DIST_ISL, "generations": DIST_ISL_GEN,
+                   "best": r2[0]["islands"]["best"]},
+          best=best, rank_rows=[r["rows"] for r in r2],
+          seconds={"launch and run": t_r2,
+                   **{f"rank {r['rank']}": r["seconds"] for r in r2},
+                   "examples, rank 0": r2[0]["examples"]["seconds"],
+                   "ea_simple_islands, rank 0": r2[0]["islands"]["seconds"],
+                   "cpu pair (beside the card pair)": side["cpu2_s"],
+                   "onemax_island cpu (after the cpu pair)":
+                       side["island_cpu_s"],
+                   "onemax_island card (beside both)": t_isl},
+          launches={f"rank {r['rank']}": r["launches"] for r in r2})
+    if not all(ex.values()):
+        fail(f"distributed examples: card != CPU: {ex}")
+    if not islands_mesh:
+        fail("ea_simple_islands with mesh= at R = 2 differs from mesh=None: "
+             f"{[r['islands'] for r in r2]}")
+
+    # ---- 53. R = min(4, cards) over NCCL -------------------------------------
+    cards = torch.cuda.device_count()
+    r4 = []
+    if cards >= 2:
+        R = min(4, cards)
+        t = time.perf_counter()
+        r4 = launch.run_ranks("chip_smoke:dist_rank_main", R,
+                              backend="nccl", device="cuda",
+                              kwargs={"examples": False},
+                              timeout=DIST_TIMEOUT, deadline=DIST_DEADLINE,
+                              workdir=os.path.join(out_dir, f"r{R}"))
+        checks4 = [_check_dist(f"R = {R}", r, ref) for r in r4]
+        for r in r4:
+            _require_dist_launches(f"R = {R}", r)
+        phase(f"distribution R = {R} over NCCL", card_line, backend="nccl",
+              R=R, transport="nccl", checks=checks4,
+              devices=[r["device"] for r in r4],
+              seconds={"launch and run": time.perf_counter() - t},
+              launches={f"rank {r['rank']}": r["launches"] for r in r4})
+    else:
+        phase("distribution R = min(4, cards) over NCCL: not run",
+              card_line, cards=cards,
+              reason="this host has one card; NCCL refuses two ranks on one "
+                     "card (Duplicate GPU detected), so R = 2 ran over gloo "
+                     "above")
+
+    dist.destroy_process_group()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    phase("distribution: phase seconds", card_line,
+          total_s=time.perf_counter() - t_all)
+    return {"r1": r1, "r2": r2, "r4": r4}
+
+
+def dist_launches_by_path(dist_runs: dict, kernel: str) -> dict:
+    """``kernel``'s launches on each sharded path of phases 51-53, by
+    rank count, transport and rank."""
+    out = {}
+    runs = [("R = 1, nccl", [dist_runs["r1"]])]
+    runs.append(("R = 2, gloo staged", dist_runs["r2"]))
+    if dist_runs["r4"]:
+        runs.append((f"R = {len(dist_runs['r4'])}, nccl", dist_runs["r4"]))
+    for label, ranks in runs:
+        for r in ranks:
+            for path, n in _launches_of(r, kernel).items():
+                out[f"{path}, {label}, rank {r['rank']}"] = n
+    return out
+
+
+def _dist_like(mesh):
+    """A ShardedPopulation of the flagship's layout on ``mesh``, the
+    target of a sharded checkpoint load (its values are not read)."""
+    import torch
+    from deap_tpu_torch import base
+    from deap_tpu_torch.parallel import ShardedPopulation, population_sharding
+    sh = population_sharding(mesh, POP, 32)
+    return ShardedPopulation(
+        torch.empty((sh.rows, DIM), device=mesh.device),
+        base.Fitness.empty(sh.rows, (-1.0,), device=mesh.device), mesh, POP,
+        32)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--cpu-side"]:
+        return _cpu_side_main(sys.argv[2])
+    import atexit
+    atexit.register(_kill_cpu_sides)
     try:
         import torch
     except ImportError:
@@ -5643,9 +6470,10 @@ def main() -> int:
                 problem, name)
             mo_runs[f"{name} {problem}"] = launches_p
             if (name, problem) == ("nsga3", "dtlz2"):
-                dcd_phase(card_line, k_dcd, mo_pop)
+                dcd_finish = dcd_phase(card_line, k_dcd, mo_pop)
             del mo_pop
             torch.cuda.empty_cache()
+    dcd_finish()
     spea2_checks_phase(card_line, k_spea)
     launches_ex = examples_phase(kernels, card_line)
 
@@ -5661,7 +6489,10 @@ def main() -> int:
     # ---- 49.-50. the last examples and the streaming knobs -------------------
     rest_ex = slice_rest_phases(kernels, card_line)
 
-    # ---- 51. the kernels line and the result -------------------------------
+    # ---- 51.-53. distribution: R = 1 (nccl), R = 2 (gloo), R = 4 (nccl) -----
+    dist_runs = distribution_phases(kernels, card_line)
+
+    # ---- 54. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -5695,7 +6526,10 @@ def main() -> int:
            for fn, n in rest["k2"].items()},
         f"creator + checkpoint / resume, "
         f"{lib['creator_checkpoint']['generations']} generations":
-            lib["creator_checkpoint"]["checkpoint"]}
+            lib["creator_checkpoint"]["checkpoint"],
+        **dist_launches_by_path(dist_runs, "megakernel_gather_vary")}
+    rows[0]["launches_by_path"].update(
+        dist_launches_by_path(dist_runs, "megakernel_vary"))
     # K1 at the NSGA-II head's shape beside the flagship's: host-paced
     # ms, device ms with the launches queued, and the bound
     rows[0]["ms_by_shape"] = {
@@ -5754,7 +6588,8 @@ def main() -> int:
                for ex, v in rest["examples"].items()},
             **{f"examples/{ex.replace('.', '/')}.py (phase 49)":
                v["rows_dominate_counts"]
-               for ex, v in rest_ex.items() if v["rows_dominate_counts"]}},
+               for ex, v in rest_ex.items() if v["rows_dominate_counts"]},
+            **dist_launches_by_path(dist_runs, "rows_dominate_counts")},
         "ms_by_input": {f"C = {FRONT_CHUNK} rows of the {p} pool": v["ms"]
                         for p, v in rest["k4"].items()},
         "plain_ms_by_input": {f"C = {FRONT_CHUNK} rows of the {p} pool":
@@ -5777,7 +6612,8 @@ def main() -> int:
         "launches_by_path": {
             "bench_nsga2 A": launches_bn_a["hv3d_sweep"],
             **{f"suite {p}": v["hv3d_sweep"]
-               for p, v in rest["suite"].items() if v["hv3d_sweep"]}},
+               for p, v in rest["suite"].items() if v["hv3d_sweep"]},
+            **dist_launches_by_path(dist_runs, "hv3d_sweep")},
         "ms_by_input": {f"{c} {d}": v["ms"] for c, cs in (
             *k5.items(), *rest["k5"].items()) for d, v in cs.items()},
         "device_ms_by_input": {f"{c} {d}": v["device_ms"] for c, cs in (

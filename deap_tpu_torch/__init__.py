@@ -13,8 +13,8 @@ Module names follow the JAX package (``base``, ``random``,
 ``ops.crossover``, ``ops.mutation``, ``ops.emo``, ``ops.dominance`` for
 ``ops/dominance_pallas.py``, ``ops.generation`` for
 ``ops/generation_pallas.py``, ``gp`` with ``gp.interp_cuda`` for
-``gp/interp_pallas.py``, ``utils.support``), so each counterpart
-is easy to find.  Entry points that create tensors take ``device=`` and
+``gp/interp_pallas.py``, ``utils.support``, ``parallel``,
+``ops.generation_sharded``), so each counterpart is easy to find.  Entry points that create tensors take ``device=`` and
 default to ``"cuda"``; without a card they raise rather than run on the
 CPU (:mod:`deap_tpu_torch._device`).
 """

@@ -29,8 +29,21 @@ prefix mask whose pad rows never win selection (indices remap
 runs (``gen=K`` and the sorted, flattened record, as the JAX package
 prints it); each line is one host read of that generation's record.
 
-Not ported yet: telemetry, quarantine, and the sharded and streamed
-engines (they raise :class:`~deap_tpu_torch.engines.EngineNotPorted`).
+A population sharded over a mesh (:class:`~deap_tpu_torch.parallel.
+ShardedPopulation`, this rank's block of rows) runs the same loops
+SPMD: every rank calls them together.  Each rank evaluates and varies
+only its own rows, drawing its rows of every population-wide draw
+(:func:`deap_tpu_torch.random.row_range`); selection runs on every rank
+on one gathered fitness table, and the parents arrive through one
+genome all-gather a generation.  Records and the hall of fame see the
+gathered population, so they are equal on every rank, and the whole
+trajectory equals the single-card one whatever the rank count.  The
+``megakernel_sharded`` engine (or ``megakernel`` plus
+``toolbox.generation_mesh``) routes to
+:mod:`deap_tpu_torch.ops.generation_sharded`.
+
+Not ported yet: telemetry, quarantine, and the streamed engine (it
+raises :class:`~deap_tpu_torch.engines.EngineNotPorted`).
 """
 
 from __future__ import annotations
@@ -62,11 +75,63 @@ def _where_rows(mask, new, old):
 
 
 def _is_nsga2_select(toolbox) -> bool:
-    """Does the toolbox select with ``sel_nsga2``?  Picks the NSGA-II
-    head of the megakernel engine in :func:`ea_ask`."""
+    """Does the toolbox select with the NSGA-II law (``sel_nsga2`` or
+    ``sel_nsga2_sharded``)?  Picks the NSGA-II head of the megakernel
+    engines in :func:`ea_ask`."""
     sel = getattr(toolbox, "select", None)
+    base = getattr(sel, "func", sel)
     from .ops.emo import sel_nsga2
-    return getattr(sel, "func", sel) is sel_nsga2
+    from .parallel.emo_sharded import sel_nsga2_sharded
+    return base is sel_nsga2 or base is sel_nsga2_sharded
+
+
+def _sharded(population) -> bool:
+    from .parallel.mapper import ShardedPopulation
+    return isinstance(population, ShardedPopulation)
+
+
+def _as_sharded(population, toolbox):
+    """A toolbox that declares ``generation_mesh`` takes a sharded
+    population; a plain one (the same global population on every rank)
+    is sharded here with the megakernel's row quantum."""
+    mesh = getattr(toolbox, "generation_mesh", None)
+    if mesh is None or _sharded(population):
+        return population
+    from .parallel.mapper import shard_population
+    return shard_population(population, mesh, quantum=32)
+
+
+def _row_windows(sh):
+    """This rank's windows of the population-wide draws of
+    :func:`vary_genome` (rows and mating pairs), for
+    :func:`deap_tpu_torch.random.row_range`."""
+    if sh.start % 2:
+        raise ValueError("a sharded xla loop needs an even row layout "
+                         "(shard_population(..., quantum=2))")
+    if sh.rows // 2 < random.MIN_WINDOW:
+        raise ValueError(
+            f"rank {sh.rank} holds {sh.rows} rows: the sharded xla loop "
+            f"needs at least {2 * random.MIN_WINDOW} a rank")
+    half = sh.start // 2
+    return random.row_range((sh.n, sh.start, sh.stop),
+                            (sh.n // 2, half, half + sh.rows // 2))
+
+
+def _sharded_ask(key, spop, toolbox, cxpb, mutpb, full=None):
+    """The xla engine's ask half on a sharded population: selection on
+    the gathered population (``full``, gathered here when not given),
+    this rank's offspring rows taken from it and varied at their global
+    rows."""
+    from .parallel.multihost import fetch_global
+    if full is None:
+        full = fetch_global(spop)
+    sh = spop.sharding
+    key, k_sel, k_var = random.split(key, 3)
+    idx = toolbox.select(k_sel, full.fitness, full.size)
+    off = full.take(idx[sh.start:sh.stop])
+    with _row_windows(sh):
+        off = var_and(k_var, off, toolbox, cxpb, mutpb)
+    return key, spop.with_local(off)
 
 
 def _genome_storage(toolbox):
@@ -120,21 +185,38 @@ def _apply_op(tool, key, n: int, *operands):
 
     Under rbg keys the loop cannot follow that vmap, which draws every
     row's bits from the first row's key (:mod:`deap_tpu_torch.random`),
-    so an operator with neither form raises there."""
+    so an operator with neither form raises there.
+
+    Inside a :func:`deap_tpu_torch.random.row_range` window (a rank of a
+    sharded loop) the batched form runs in the window: its draws lead
+    with the row axis.  The per-row keys are this rank's rows of the
+    population-wide split, and the rowwise or per-row calls run outside
+    the window, so a row's own draws (a ``(dim,)`` mask) are never taken
+    for rows of the population.  A rowwise operator under rbg keys
+    raises there: jax's vmap draws its bits from the first key of the
+    whole population, which this rank does not hold."""
     batched = _batched_form(tool)
     if batched is not None:
         return batched(key, *operands)
     keys = random.split(key, n)
-    if getattr(tool, "rowwise", False):
-        return tool(keys, *operands)
+    name = getattr(tool, "__name__", tool)
     if random.impl_of(key) == "rbg":
-        raise NotImplementedError(
-            f"{getattr(tool, '__name__', tool)!r} has no batched or rowwise "
-            "form: under rbg keys jax's vmap over per-row keys draws every "
-            "row from the first key, which a per-row loop cannot follow")
-    return _stack_rows([tool(keys[i], *(_map(lambda x: x[i], o)
-                                        for o in operands))
-                        for i in range(n)])
+        if not getattr(tool, "rowwise", False):
+            raise NotImplementedError(
+                f"{name!r} has no batched or rowwise form: under rbg keys "
+                "jax's vmap over per-row keys draws every row from the "
+                "first key, which a per-row loop cannot follow")
+        if random.row_range_active():
+            raise NotImplementedError(
+                f"{name!r} is rowwise: under rbg keys on a sharded "
+                "population it would draw from the first key of the whole "
+                "population, which this rank does not hold")
+    with random.outside_row_range():
+        if getattr(tool, "rowwise", False):
+            return tool(keys, *operands)
+        return _stack_rows([tool(keys[i], *(_map(lambda x: x[i], o)
+                                            for o in operands))
+                            for i in range(n)])
 
 
 def _norm_eval(evaluate):
@@ -304,6 +386,19 @@ def ea_ask(key, population: Population, toolbox, cxpb: float, mutpb: float,
     megakernel toolbox whose ``select`` is ``sel_nsga2`` to the NSGA-II
     head (:func:`~deap_tpu_torch.ops.generation.fused_nsga2_step`)."""
     engine = require_ported(resolve_engine(toolbox))
+    population = _as_sharded(population, toolbox)
+    if engine == "megakernel_sharded":
+        from .ops import generation_sharded as GS
+        if _is_nsga2_select(toolbox):
+            return GS.fused_nsga2_step_sharded(key, population, toolbox,
+                                               cxpb, mutpb, live=live)
+        return GS.fused_ea_step_sharded(key, population, toolbox, cxpb,
+                                        mutpb, live=live)
+    if _sharded(population):
+        if live is not None:
+            raise NotImplementedError("the sharded xla loop takes no live "
+                                      "mask")
+        return _sharded_ask(key, population, toolbox, cxpb, mutpb)
     if engine == "megakernel" and _is_nsga2_select(toolbox):
         from .ops.generation import fused_nsga2_step
         return fused_nsga2_step(key, population, toolbox, cxpb, mutpb,
@@ -334,7 +429,16 @@ def ea_ask(key, population: Population, toolbox, cxpb: float, mutpb: float,
 def ea_tell(toolbox, population: Population, values=None, *, live=None):
     """Evaluation half: evaluate the invalid rows (``values=None``) or
     assign external ``values`` to them.  Returns ``(population, nevals)``;
-    with ``live``, pad rows are skipped and come back invalid."""
+    with ``live``, pad rows are skipped and come back invalid.  On a
+    sharded population each rank evaluates its own rows and ``nevals``
+    is the count over every rank."""
+    if _sharded(population):
+        from .parallel import collectives
+        local, nevals = ea_tell(toolbox, population.local(), values,
+                                live=live)
+        return (population.with_local(local),
+                collectives.gather_sum(torch.as_tensor(nevals),
+                                       population.mesh))
     if live is None:
         if values is None:
             return evaluate_population(toolbox, population)
@@ -361,7 +465,8 @@ def ea_step(key, population: Population, toolbox, cxpb: float, mutpb: float,
     ``nevals`` still counts the rows variation touched.  It refuses a
     ``live`` mask, and the megakernel engine is reevaluate-all already
     (the flag changes nothing there)."""
-    if reevaluate_all and resolve_engine(toolbox) == "xla":
+    if reevaluate_all and resolve_engine(toolbox) == "xla" and \
+            not _sharded(population):
         if live is not None:
             raise ValueError("reevaluate_all is incompatible with a live "
                              "mask: it recomputes every row, including pads")
@@ -512,6 +617,37 @@ def _start(key, population, toolbox, halloffame):
     return key, population, nevals0
 
 
+def _ea_simple_sharded(key, spop, toolbox, cxpb, mutpb, ngen, stats,
+                       halloffame, verbose, smode, stream_every):
+    """:func:`ea_simple` on this rank's block of a sharded population
+    (module docstring).  The gathered population feeds the next
+    generation's selection (xla engine), the records and the archive:
+    one genome all-gather a generation."""
+    from .parallel.multihost import fetch_global
+    engine = require_ported(resolve_engine(toolbox))
+    key, _ = random.split(key)
+    spop, nevals0 = ea_tell(toolbox, spop)
+    gathered = engine == "xla" or stats is not None or halloffame is not None
+    full = fetch_global(spop) if gathered else None
+    if halloffame is not None:
+        _hof_setup(halloffame, full)
+        halloffame.update(full)
+    rec0 = _record(stats, full, nevals0)
+    records = []
+    for gen in range(1, ngen + 1):
+        if engine == "xla":
+            key, spop = _sharded_ask(key, spop, toolbox, cxpb, mutpb, full)
+        else:
+            key, spop = ea_ask(key, spop, toolbox, cxpb, mutpb)
+        spop, nevals = ea_tell(toolbox, spop)
+        full = fetch_global(spop) if gathered else None
+        if halloffame is not None:
+            halloffame.update(full)
+        records.append(_record(stats, full, nevals))
+        _stream(smode, stream_every, gen, ngen, records[-1])
+    return spop, _logbook(stats, rec0, records, ngen, verbose)
+
+
 def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
               ngen: int, stats=None, halloffame=None, verbose=False,
               reevaluate_all: bool = False, stream_every: int = 0,
@@ -523,6 +659,11 @@ def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
     device until the run ends, but for the generations streamed
     (``stream_every``, ``stream_mode``: see the module docstring)."""
     smode = _resolve_stream_mode(stream_every, stream_mode)
+    population = _as_sharded(population, toolbox)
+    if _sharded(population):
+        return _ea_simple_sharded(key, population, toolbox, cxpb, mutpb,
+                                  ngen, stats, halloffame, verbose, smode,
+                                  stream_every)
     key, population, nevals0 = _start(key, population, toolbox, halloffame)
     rec0 = _record(stats, population, nevals0)
     records = []
@@ -536,10 +677,90 @@ def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
     return population, _logbook(stats, rec0, records, ngen, verbose)
 
 
+def _sharded_var_or(key, full, spop, toolbox, lambda_, cxpb, mutpb):
+    """:func:`var_or` for this rank's rows of the ``lambda_`` children of
+    the gathered parents ``full``: every per-child draw is this rank's
+    rows of the population-wide draw.  Returns the local children and
+    their layout."""
+    from .ops.generation import _var_or_law
+    from .parallel.mapper import population_sharding
+    if resolve_engine(toolbox) != "xla":
+        raise NotImplementedError("the sharded (mu +/, lambda) loops run "
+                                  "the xla engine")
+    sh = population_sharding(spop.mesh, lambda_)
+    if sh.rows < random.MIN_WINDOW:
+        raise ValueError(f"rank {sh.rank} makes {sh.rows} children: the "
+                         f"sharded loop needs at least {random.MIN_WINDOW}")
+    with random.row_range((lambda_, sh.start, sh.stop)):
+        use_cx, use_mut, i1, i2, im, ir, k_cx, k_mut = _var_or_law(
+            key, full.size, sh.rows, cxpb, mutpb)
+        g = full.genome
+
+        def take(idx):
+            return _map(lambda x: x[idx.long()], g)
+        n = sh.rows
+        child_cx, _ = _apply_op(toolbox.mate, k_cx, n, take(i1), take(i2))
+        child_mut = _apply_op(toolbox.mutate, k_mut, n, take(im))
+    child = _where_rows(use_cx, child_cx,
+                        _where_rows(use_mut, child_mut, take(ir)))
+    old = full.fitness
+    return Population(child, Fitness.empty(n, old.weights, old.values.dtype,
+                                           old.values.device)), sh
+
+
+def _ea_mu_lambda_sharded(key, spop, toolbox, mu, lambda_, cxpb, mutpb,
+                          ngen, stats, halloffame, verbose, plus, smode,
+                          stream_every):
+    """The (mu +/, lambda) loops on this rank's block of a sharded
+    population: each rank makes and evaluates its rows of the children,
+    and every rank selects the next parents from the gathered pool."""
+    from .parallel.mapper import ShardedPopulation, population_sharding
+    from .parallel.multihost import fetch_global
+    from .parallel import collectives
+    assert cxpb + mutpb <= 1.0, (
+        "The sum of the crossover and mutation probabilities must be smaller "
+        "or equal to 1.0.")
+    require_ported(resolve_engine(toolbox))
+    mesh = spop.mesh
+    key, _ = random.split(key)
+    spop, nevals0 = ea_tell(toolbox, spop)
+    full = fetch_global(spop)
+    if halloffame is not None:
+        _hof_setup(halloffame, full)
+        halloffame.update(full)
+    rec0 = _record(stats, full, nevals0)
+    records = []
+    for gen in range(1, ngen + 1):
+        key, k_var, k_sel = random.split(key, 3)
+        off, osh = _sharded_var_or(k_var, full, spop, toolbox, lambda_,
+                                   cxpb, mutpb)
+        off, nev = evaluate_population(toolbox, off)
+        nevals = collectives.gather_sum(torch.as_tensor(nev), mesh)
+        off_full = fetch_global(ShardedPopulation(
+            off.genome, off.fitness, mesh, lambda_, 1))
+        if halloffame is not None:
+            halloffame.update(off_full)
+        pool = full.concat(off_full) if plus else off_full
+        full = pool.take(toolbox.select(k_sel, pool.fitness, mu))
+        sh = population_sharding(mesh, mu, spop.quantum)
+        spop = ShardedPopulation(
+            _map(lambda x: x[sh.start:sh.stop], full.genome),
+            full.fitness.take(torch.arange(sh.start, sh.stop,
+                                           device=full.fitness.valid.device)),
+            mesh, mu, spop.quantum)
+        records.append(_record(stats, full, nevals))
+        _stream(smode, stream_every, gen, ngen, records[-1])
+    return spop, _logbook(stats, rec0, records, ngen, verbose)
+
+
 def _ea_mu_lambda(key, population, toolbox, mu, lambda_, cxpb, mutpb, ngen,
                   stats, halloffame, verbose, plus: bool,
                   stream_every: int = 0, stream_mode: str = "auto"):
     smode = _resolve_stream_mode(stream_every, stream_mode)
+    if _sharded(population):
+        return _ea_mu_lambda_sharded(key, population, toolbox, mu, lambda_,
+                                     cxpb, mutpb, ngen, stats, halloffame,
+                                     verbose, plus, smode, stream_every)
     key, population, nevals0 = _start(key, population, toolbox, halloffame)
     rec0 = _record(stats, population, nevals0)
     records = []

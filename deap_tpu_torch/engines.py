@@ -7,17 +7,17 @@
 * ``"megakernel"`` — the fused single-device generation
   (``deap_tpu_torch/ops/generation.py``, CUDA kernels on the card).
 * ``"megakernel_sharded"`` — the mesh-sharded fused generation
-  of the JAX package; requires the toolbox to declare
-  ``generation_mesh``.  Not ported yet.  A toolbox that declares
-  ``generation_engine="megakernel"`` *and* a ``generation_mesh``
-  resolves here automatically.
+  (``deap_tpu_torch/ops/generation_sharded.py``); requires the toolbox
+  to declare ``generation_mesh`` (a :class:`deap_tpu_torch.parallel.
+  Mesh`).  A toolbox that declares ``generation_engine="megakernel"``
+  *and* a ``generation_mesh`` resolves here automatically.
 * ``"streamed"`` — the host-driven out-of-core pipeline of the JAX
   package; incompatible with a declared mesh.  Not ported yet.
 
 Rejections are typed: :class:`EngineError` subclasses ``ValueError``
-and every message names ``toolbox.generation_engine``.  The two engines
-that resolve but have no port yet raise :class:`EngineNotPorted` from
-the loops (:func:`require_ported`).
+and every message names ``toolbox.generation_engine``.  The engine that
+resolves but has no port yet (``streamed``) raises
+:class:`EngineNotPorted` from the loops (:func:`require_ported`).
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ ENGINES = {
 }
 
 #: engines this port implements
-PORTED = ("xla", "megakernel")
+PORTED = ("xla", "megakernel", "megakernel_sharded")
 
 _ALIASES = {alias: spec.name
             for spec in ENGINES.values() for alias in spec.aliases}

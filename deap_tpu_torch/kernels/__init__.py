@@ -79,7 +79,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
                                       p]
             lib.gp_interp.restype = i
             lib.hv3d_sweep.argtypes = [p, p, p, p, ctypes.c_double, p, i, i,
-                                       i, p, p, p, p, i, p]
+                                       i, i, i, p, p, p, p, i, p]
             lib.hv3d_sweep.restype = i
             lib.probe_stream_copy.argtypes = [p, p, ll, i, p]
             lib.probe_chain24.argtypes = [p, p, ll, p]
@@ -265,24 +265,33 @@ def _sm_count(dev) -> int:
     return _SMS[idx]
 
 
-def hv3d_chunks(n: int, sms: int) -> int:
+def hv3d_chunks(n: int, sms: int, count: int | None = None) -> int:
     """How many pieces K5 splits the j range into: enough warps (one per
-    128 prefixes and chunk) for :data:`HV3D_WARPS_PER_SM` on each of
-    ``sms`` SMs, with chunks of at least :data:`HV3D_MIN_CHUNK` slots."""
-    groups = -(-n // HV3D_GROUP)
+    256 of the ``count`` prefixes swept, default ``n``, and chunk) for
+    :data:`HV3D_WARPS_PER_SM` on each of ``sms`` SMs, with chunks of at
+    least :data:`HV3D_MIN_CHUNK` of the ``n`` slots."""
+    groups = -(-(n if count is None else count) // HV3D_GROUP)
     want = -(-HV3D_WARPS_PER_SM * sms // groups)
     return max(1, min(want, n // HV3D_MIN_CHUNK, 65535))
 
 
 def launch_hv3d_sweep(ys, zr, width, dz, ref_y: float,
-                      threads: int = 128) -> torch.Tensor:
+                      threads: int = 128, k_begin: int = 0,
+                      count: int | None = None) -> torch.Tensor:
     """K5 on the card: the blocked staircase sweep over the x-sorted view
     ``ys``/``zr``/``width`` and the strip depths ``dz`` (all ``(n,)``;
-    float32 or float64, ``zr`` int32).  Returns one partial volume per
-    block of ``threads`` prefixes, ``(ceil(n / threads),)``; their sum
-    is the hypervolume.  The j range is split into
-    :func:`hv3d_chunks` pieces; the scratch is allocated here."""
+    float32 or float64, ``zr`` int32), over the prefixes ``k_begin < k
+    <= k_begin + count`` (default: all ``n``; prefixes past ``n`` add
+    nothing).  Returns one partial volume per block of ``threads`` of
+    those prefixes, ``(ceil(count / threads),)``; their sum is the
+    range's volume (the hypervolume for the whole range).  The j range
+    is split into :func:`hv3d_chunks` pieces; the scratch is allocated
+    here."""
     n = ys.shape[0]
+    count = n - int(k_begin) if count is None else int(count)
+    if not 0 <= k_begin < n or count < 1:
+        raise ValueError(f"prefix range [{k_begin}, {k_begin + count}) "
+                         f"of {n}")
     if ys.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"ys dtype {ys.dtype} is not float32 or float64")
     if not 0 < n < (1 << 31) - 1024:
@@ -295,14 +304,14 @@ def launch_hv3d_sweep(ys, zr, width, dz, ref_y: float,
     _check(width, "width", ys.dtype, (n,))
     _check(dz, "dz", ys.dtype, (n,))
     dev = ys.device
-    chunks = hv3d_chunks(n, _sm_count(dev))
-    out = torch.empty((-(-n // threads),), dtype=ys.dtype, device=dev)
-    # one scratch allocation, in elements of ys's dtype: area (chunks, n)
-    # and, when the j range is split, gm (chunks, groups), hz (n,) and the
-    # int32 cz (n,) (8-byte aligned: every part is a whole number of
-    # elements of at least 4 bytes, cz last)
+    chunks = hv3d_chunks(n, _sm_count(dev), count)
+    out = torch.empty((-(-count // threads),), dtype=ys.dtype, device=dev)
+    # one scratch allocation, in elements of ys's dtype: area (chunks,
+    # count) and, when the j range is split, gm (chunks, groups), hz (n,)
+    # and the int32 cz (n,) (8-byte aligned: every part is a whole number
+    # of elements of at least 4 bytes, cz last)
     elt = ys.element_size()
-    parts = [chunks * n]
+    parts = [chunks * count]
     if chunks > 1:
         parts += [chunks * -(-n // HV3D_GROUP), n, -(-n * 4 // elt)]
     scratch = torch.empty((sum(parts),), dtype=ys.dtype, device=dev)
@@ -316,7 +325,7 @@ def launch_hv3d_sweep(ys, zr, width, dz, ref_y: float,
     with torch.cuda.device(dev):
         rc = lib.hv3d_sweep(ys.data_ptr(), zr.data_ptr(), width.data_ptr(),
                             dz.data_ptr(), float(ref_y), out.data_ptr(), n,
-                            threads, chunks, *ptrs,
+                            int(k_begin), count, threads, chunks, *ptrs,
                             int(ys.dtype == torch.float64), stream)
     _raise_on(lib, rc, "hv3d_sweep")
     LAUNCHES["hv3d_sweep"] += 1

@@ -8,7 +8,10 @@
 //                      A_k = sum_j max(ref_y - min_{i<=j, zr[i]<k} ys[i], 0)
 //                                  * width[j],
 //                    and the kernel writes, per block of `threads` prefixes,
-//                      out[g] = sum_k A_k * dz[k-1].
+//                      out[g] = sum_k A_k * dz[k-1],
+//                    over the prefixes k_begin < k <= k_begin + count (a
+//                    rank's range of slabs in the sharded hypervolume; the
+//                    whole sweep is k_begin = 0, count = n).
 //                    The caller adds the block partials (torch.sum), as the
 //                    TPU form leaves jnp.sum(out) outside its kernel.
 //
@@ -172,18 +175,20 @@ __global__ void hv3d_groupmax_kernel(const T* __restrict__ hz,
   }
 }
 
-// area[c][k - 1]: the strip sum of prefix k over chunk c's slots
+// area[c][k - 1 - k_begin]: the strip sum of prefix k over chunk c's
+// slots, for the prefixes k_begin < k <= k_begin + count
 template <typename T>
 __global__ void __launch_bounds__(32)
 hv3d_sweep_kernel(const T* __restrict__ ys, const int* __restrict__ zr,
                   const T* __restrict__ width, T ref_y,
                   const T* __restrict__ gm, const T* __restrict__ hz,
                   const int* __restrict__ cz, T* __restrict__ area, int n,
-                  int chunk_len) {
+                  int chunk_len, int k_begin, int count, int gm_groups) {
   __shared__ Slot<T> tile[kTile];
   const int lane = threadIdx.x;
   const int g = blockIdx.x, c = blockIdx.y;
-  const int k1 = g * kGroup + lane * kR + 1;   // prefixes k1 + r
+  const int p0 = k_begin + g * kGroup;          // the warp's first z-rank
+  const int k1 = p0 + lane * kR + 1;           // prefixes k1 + r
   const int j0 = c * chunk_len;
   const int j1 = min(n, j0 + chunk_len);
   T h[kR], acc[kR];
@@ -194,11 +199,16 @@ hv3d_sweep_kernel(const T* __restrict__ ys, const int* __restrict__ zr,
   }
   if (c > 0) {
     // the heights when chunk c begins, over the z-ranks below k with an
-    // x-slot before the chunk: the groups before g (gm), then inside group
-    // g a running maximum over the lane's ranks and a warp scan over lanes
+    // x-slot before the chunk: the whole groups of 256 z-ranks before p0
+    // (gm), the z-ranks from the last of them up to p0 one by one (none
+    // when k_begin is a multiple of 256), then a running maximum over the
+    // lane's ranks and a warp scan over lanes
     T base = T(0);
-    for (int q = lane; q < g; q += 32)
-      base = max_(base, gm[(size_t)c * gridDim.x + q]);
+    const int whole = p0 / kGroup;
+    for (int q = lane; q < whole; q += 32)
+      base = max_(base, gm[(size_t)c * gm_groups + q]);
+    for (int q = whole * kGroup + lane; q < p0; q += 32)
+      if (cz[q] < c) base = max_(base, hz[q]);
     base = warp_max(base);
     T run = T(0);
 #pragma unroll
@@ -245,24 +255,28 @@ hv3d_sweep_kernel(const T* __restrict__ ys, const int* __restrict__ zr,
 #pragma unroll
     for (int r = 0; r < kR; ++r) acc[r] = add_rn(acc[r], part[r]);
   }
+  const int k_end = min(n, k_begin + count);
 #pragma unroll
   for (int r = 0; r < kR; ++r)
-    if (k1 + r <= n) area[(size_t)c * n + k1 + r - 1] = acc[r];
+    if (k1 + r <= k_end)
+      area[(size_t)c * count + k1 + r - 1 - k_begin] = acc[r];
 }
 
-// out[g] = sum over the block's prefixes k of (sum_c area[c][k - 1]) *
-// dz[k - 1], the products added by a fixed tree
+// out[g] = sum over the block's prefixes k of (sum_c area[c][k - 1 -
+// k_begin]) * dz[k - 1], the products added by a fixed tree
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 hv3d_finalize_kernel(const T* __restrict__ area, const T* __restrict__ dz,
-                     T* __restrict__ out, int n, int chunks) {
+                     T* __restrict__ out, int n, int chunks, int k_begin,
+                     int count) {
   __shared__ T partial[kMaxThreads];
-  const int k0 = blockIdx.x * blockDim.x + threadIdx.x;   // prefix k0 + 1
+  const int k0 = blockIdx.x * blockDim.x + threadIdx.x;   // k_begin + k0 + 1
   T p = T(0);
-  if (k0 < n) {
+  if (k0 < count && k_begin + k0 < n) {
     T a = area[k0];
-    for (int c = 1; c < chunks; ++c) a = add_rn(a, area[(size_t)c * n + k0]);
-    p = mul_rn(a, dz[k0]);
+    for (int c = 1; c < chunks; ++c)
+      a = add_rn(a, area[(size_t)c * count + k0]);
+    p = mul_rn(a, dz[k_begin + k0]);
   }
   partial[threadIdx.x] = p;
   __syncthreads();
@@ -279,44 +293,53 @@ hv3d_finalize_kernel(const T* __restrict__ area, const T* __restrict__ dz,
 
 template <typename T>
 int launch(const void* ys, const void* zr, const void* width, const void* dz,
-           double ref_y, void* out, int n, int threads, int chunks,
-           void* area, void* gm, void* hz, void* cz, cudaStream_t st) {
+           double ref_y, void* out, int n, int k_begin, int count,
+           int threads, int chunks, void* area, void* gm, void* hz, void* cz,
+           cudaStream_t st) {
   const int chunk_len = (n + chunks - 1) / chunks;
-  const int groups = (n + kGroup - 1) / kGroup;
+  const int gm_groups = (n + kGroup - 1) / kGroup;
+  const int groups = (count + kGroup - 1) / kGroup;
   if (chunks > 1) {
     hv3d_zview_kernel<T><<<(n + 255) / 256, 256, 0, st>>>(
         (const T*)ys, (const int*)zr, (T)ref_y, (T*)hz, (int*)cz, n,
         chunk_len);
-    hv3d_groupmax_kernel<T><<<(groups + 7) / 8, 256, 0, st>>>(
-        (const T*)hz, (const int*)cz, (T*)gm, n, groups, chunks);
+    hv3d_groupmax_kernel<T><<<(gm_groups + 7) / 8, 256, 0, st>>>(
+        (const T*)hz, (const int*)cz, (T*)gm, n, gm_groups, chunks);
   }
   hv3d_sweep_kernel<T><<<dim3(groups, chunks), 32, 0, st>>>(
       (const T*)ys, (const int*)zr, (const T*)width, (T)ref_y,
-      (const T*)gm, (const T*)hz, (const int*)cz, (T*)area, n, chunk_len);
-  hv3d_finalize_kernel<T><<<(n + threads - 1) / threads, threads, 0, st>>>(
-      (const T*)area, (const T*)dz, (T*)out, n, chunks);
+      (const T*)gm, (const T*)hz, (const int*)cz, (T*)area, n, chunk_len,
+      k_begin, count, gm_groups);
+  hv3d_finalize_kernel<T><<<(count + threads - 1) / threads, threads, 0,
+                            st>>>((const T*)area, (const T*)dz, (T*)out, n,
+                                  chunks, k_begin, count);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// ys, width, dz (n,) float32 (is_double = 0) or float64 (1); zr (n,) int32;
-// out (ceil(n / threads),) of the same type.  threads: a multiple of 32 in
-// [32, 1024], the prefixes of one partial.  chunks: the j range's split,
-// 1 <= chunks <= n.  Scratch of the same float type: area (chunks, n) and,
-// when chunks > 1, gm (chunks, ceil(n / 256)), hz (n,) and int32 cz (n,).
+// ys, width, dz (n,) float32 (is_double = 0) or float64 (1); zr (n,) int32.
+// The prefixes k_begin < k <= k_begin + count (0 <= k_begin < n, count >=
+// 1; prefixes past n add nothing): out (ceil(count / threads),) of the same
+// type, partial g over the prefixes k_begin + g * threads + 1 ... .
+// threads: a multiple of 32 in [32, 1024].  chunks: the j range's split,
+// 1 <= chunks <= n.  Scratch of the same float type: area (chunks, count)
+// and, when chunks > 1, gm (chunks, ceil(n / 256)), hz (n,) and int32 cz
+// (n,).  k_begin = 0 and count = n is the whole sweep.
 extern "C" int hv3d_sweep(const void* ys, const void* zr, const void* width,
                           const void* dz, double ref_y, void* out, int n,
-                          int threads, int chunks, void* area, void* gm,
-                          void* hz, void* cz, int is_double, void* stream) {
+                          int k_begin, int count, int threads, int chunks,
+                          void* area, void* gm, void* hz, void* cz,
+                          int is_double, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return 0;
   if (threads < 32 || threads > kMaxThreads || threads % 32 || chunks < 1 ||
-      chunks > n || chunks > 65535)
+      chunks > n || chunks > 65535 || k_begin < 0 || k_begin >= n ||
+      count < 1 || count > (1 << 30))
     return (int)cudaErrorInvalidValue;
   if (is_double)
-    return launch<double>(ys, zr, width, dz, ref_y, out, n, threads, chunks,
-                          area, gm, hz, cz, st);
-  return launch<float>(ys, zr, width, dz, ref_y, out, n, threads, chunks,
-                       area, gm, hz, cz, st);
+    return launch<double>(ys, zr, width, dz, ref_y, out, n, k_begin, count,
+                          threads, chunks, area, gm, hz, cz, st);
+  return launch<float>(ys, zr, width, dz, ref_y, out, n, k_begin, count,
+                       threads, chunks, area, gm, hz, cz, st);
 }

@@ -33,9 +33,11 @@ strip it touches.
 
 ``d == 2`` reuses the closed-form staircase
 (:func:`deap_tpu_torch.ops.hv.hypervolume_2d`); ``d >= 4`` stays on the
-host (:func:`deap_tpu_torch.ops.hv.hypervolume`).  The mesh-sharded
-form of the JAX package (``hypervolume_sharded``) comes with
-distribution and raises :class:`ShardedNotPorted` here.
+host (:func:`deap_tpu_torch.ops.hv.hypervolume`).
+:func:`hypervolume_sharded` is the mesh-sharded form: one gather of the
+points, each rank sweeping its own contiguous range of prefix slabs (K5
+at a first-prefix offset on the card), the partial volumes added in rank
+order.
 """
 
 from __future__ import annotations
@@ -47,13 +49,8 @@ from .._device import resolve_device
 from ..base import _sort_key
 from .hv import hypervolume as hypervolume_host, hypervolume_2d
 
-__all__ = ["ShardedNotPorted", "hypervolume_3d", "hypervolume_3d_cuda",
-           "hypervolume_device", "hypervolume_sharded", "hypervolume"]
-
-
-class ShardedNotPorted(NotImplementedError):
-    """``hypervolume_sharded`` needs a device mesh; it is not ported to
-    deap_tpu_torch yet and comes with distribution."""
+__all__ = ["hypervolume_3d", "hypervolume_3d_cuda", "hypervolume_device",
+           "hypervolume_sharded", "hypervolume"]
 
 
 def _as_points(points, ref):
@@ -97,19 +94,28 @@ def _prefix_areas(ys, zr, width, ref_y, k0: int, blk: int) -> torch.Tensor:
     return torch.sum(h * width[None, :], dim=1)       # (blk,)
 
 
-def _slab_volumes(points, ref, block: int = 128) -> torch.Tensor:
+def _slab_volumes(points, ref, block: int = 128, k_begin: int = 0,
+                  count=None) -> torch.Tensor:
     """The plain sweep's partial volume of every slab of ``block``
-    prefixes, ``sum_k A_k * dz_k`` over the slab: ``(ceil(n / block),)``.
-    K5 writes the same partials, one per thread block."""
+    prefixes, ``sum_k A_k * dz_k`` over the slab, for the prefixes
+    ``k_begin < k <= k_begin + count`` (default: all ``n``; prefixes past
+    ``n`` add nothing): ``(ceil(count / block),)``.  K5 writes the same
+    partials, one per thread block.  Ranges that start on slab
+    boundaries give the whole sweep's slabs, bit for bit."""
     pts, ref = _as_points(points, ref)
     n = pts.shape[0]
     _, ys, zr, dz, width = _hv3d_prep(pts, ref)
     blk = min(block, n)
-    nb = -(-n // blk)
-    dz_pad = torch.cat([dz, dz.new_zeros(nb * blk - n)])    # k > n: no depth
+    count = n - k_begin if count is None else int(count)
+    nb = -(-count // blk)
+    k_end = k_begin + nb * blk
+    dz_pad = torch.cat([dz, dz.new_zeros(max(0, k_end - n))])  # k > n
+    dz_rng = dz_pad[k_begin:k_end].clone()
+    dz_rng[count:] = 0                      # past the range: another's
     return torch.stack([
-        torch.sum(_prefix_areas(ys, zr, width, ref[1], b * blk, blk)
-                  * dz_pad[b * blk:(b + 1) * blk]) for b in range(nb)])
+        torch.sum(_prefix_areas(ys, zr, width, ref[1], k_begin + b * blk,
+                                blk) * dz_rng[b * blk:(b + 1) * blk])
+        for b in range(nb)])
 
 
 def hypervolume_3d(points, ref, block: int = 128) -> torch.Tensor:
@@ -145,15 +151,18 @@ def hypervolume_3d_cuda(points, ref, block: int = 128) -> torch.Tensor:
     return torch.sum(_hv3d_cuda_partials(pts, ref, ref_y, block))
 
 
-def _hv3d_cuda_partials(pts, ref, ref_y: float, block: int) -> torch.Tensor:
+def _hv3d_cuda_partials(pts, ref, ref_y: float, block: int,
+                        k_begin: int = 0, count=None) -> torch.Tensor:
     """K5's launch on clipped CUDA points: one partial volume per block
-    of ``block`` prefixes (rounded up to a warp multiple)."""
+    of ``block`` prefixes (rounded up to a warp multiple) of the
+    prefixes ``k_begin < k <= k_begin + count`` (default all)."""
     _, ys, zr, dz, width = _hv3d_prep(pts, ref)
     from .. import kernels
     threads = min(1024, max(32, -(-int(block) // 32) * 32))
     return kernels.launch_hv3d_sweep(
         ys.contiguous(), zr.contiguous(), width.contiguous(),
-        dz.contiguous(), ref_y, threads=threads)
+        dz.contiguous(), ref_y, threads=threads, k_begin=k_begin,
+        count=count)
 
 
 def hypervolume_device(points, ref, block: int = 128) -> torch.Tensor:
@@ -176,13 +185,57 @@ def hypervolume_device(points, ref, block: int = 128) -> torch.Tensor:
         "deap_tpu_torch.ops.hypervolume.hypervolume (host WFG) for d >= 4")
 
 
-def hypervolume_sharded(points, ref, mesh=None, axis: str = "pop",
-                        block: int = 128):
-    """The JAX package's mesh-sharded form; not ported."""
-    raise ShardedNotPorted(
-        "hypervolume_sharded is not ported to deap_tpu_torch yet: it "
-        "partitions the prefix slabs over a device mesh and comes with "
-        "distribution; use hypervolume or hypervolume_device on one card")
+def hypervolume_sharded(points, ref, mesh, axis: str | None = None,
+                        block: int = 128, *, n=None, quantum: int = 1):
+    """Mesh-sharded exact hypervolume.  ``points`` is this rank's block of
+    rows (the layout of :func:`deap_tpu_torch.parallel.
+    population_sharding` for ``n`` rows, default the block's rows times
+    the mesh size); the result comes back equal on every rank.
+
+    The blocks are padded with ``ref`` copies (they clip to zero
+    contribution) and gathered.  At ``d == 3`` rank ``r`` sweeps the
+    prefixes of its ``nb_loc`` slabs of ``blk = min(block, n_loc)``,
+    ``[r nb_loc blk, (r + 1) nb_loc blk)``: K5 at that first-prefix
+    offset on the card (its partials added by ``torch.sum``), the plain
+    slabs added in order on the CPU; the per-rank volumes are gathered
+    and added in rank order.  ``d == 2`` is the replicated staircase on
+    the gathered points."""
+    from ..parallel import collectives
+    from ..parallel.mapper import check_axis, population_sharding
+    check_axis(mesh, axis)
+    pts = torch.as_tensor(points)
+    if not pts.is_floating_point():
+        pts = pts.to(torch.float32)
+    d = pts.shape[-1]
+    if d not in (2, 3):
+        raise ValueError(
+            f"hypervolume_sharded supports 2 or 3 objectives, got {d}")
+    ref_t = torch.as_tensor(ref, dtype=pts.dtype, device=pts.device)
+    n = pts.shape[0] * mesh.size if n is None else int(n)
+    sh = population_sharding(mesh, n, quantum)
+    if pts.shape[0] != sh.rows:
+        raise ValueError(f"rank {mesh.rank} holds {pts.shape[0]} points; "
+                         f"the layout gives it {sh.rows}")
+    local = torch.cat([pts, ref_t.expand(sh.n_loc - sh.rows, d)], 0)
+    p_full = torch.minimum(collectives.all_gather(local.contiguous(), mesh),
+                           ref_t)
+    if d == 2:
+        return hypervolume_2d(p_full, ref_t)
+    blk = min(block, sh.n_loc)
+    nb_loc = -(-sh.n_loc // blk)
+    k_begin = mesh.rank * nb_loc * blk
+    count = min(nb_loc * blk, sh.n_pad - k_begin)
+    acc = p_full.new_zeros(())
+    if count > 0:
+        if p_full.is_cuda:
+            ref_y = float(torch.as_tensor(ref, dtype=pts.dtype).reshape(-1)[1])
+            acc = torch.sum(_hv3d_cuda_partials(p_full, ref_t, ref_y, blk,
+                                                k_begin, count))
+        else:
+            for part in _slab_volumes(p_full, ref_t, blk, k_begin,
+                                      count).unbind():
+                acc = acc + part
+    return collectives.gather_sum(acc, mesh)
 
 
 def hypervolume(pointset, ref, block: int = 128, device=None) -> float:

@@ -6,6 +6,11 @@
   the emigrants over the island axis, any other mapping a gather.
 * :func:`mig_ring` — the reference signature over a list of
   :class:`~deap_tpu_torch.base.Population`.
+* :func:`mig_ring_sharded` — :func:`mig_ring_stacked` when each rank of
+  a mesh holds a contiguous block of the islands: the same keys and
+  picks, each rank its own islands' emigrants, the cross-rank leg a
+  ring exchange (``batch_isend_irecv``) for a cyclic map and one gather
+  of the emigrants for any other.
 
 JAX vmaps the selections over the islands; here they run one island at
 a time with the same per-island keys, which draws the same numbers under
@@ -22,7 +27,7 @@ import torch
 from .. import random
 from ..base import Fitness, Population, _leaves, _map
 
-__all__ = ["mig_ring_stacked", "mig_ring"]
+__all__ = ["mig_ring_stacked", "mig_ring", "mig_ring_sharded"]
 
 
 def _set_rows(leaf: torch.Tensor, idx: torch.Tensor,
@@ -46,6 +51,19 @@ def _set_rows(leaf: torch.Tensor, idx: torch.Tensor,
                        src, leaf)
 
 
+def _ring_source(n_isl: int, migarray):
+    """``(source, shift)``: the island whose emigrants reach each island,
+    and the ring shift when the map is cyclic (else ``None``)."""
+    if migarray is None:
+        migarray = list(range(1, n_isl)) + [0]
+    source = [0] * n_isl
+    for frm, to in enumerate(migarray):
+        source[to] = frm
+    shift = (0 - source[0]) % n_isl
+    cyclic = all(source[j] == (j - shift) % n_isl for j in range(n_isl))
+    return source, (shift if cyclic else None)
+
+
 def mig_ring_stacked(key, genomes, fitness_w, k, selection: Callable,
                      replacement: Callable | None = None,
                      migarray: Sequence[int] | None = None):
@@ -61,15 +79,9 @@ def mig_ring_stacked(key, genomes, fitness_w, k, selection: Callable,
 
     Returns the new genome and the ``(n_islands, k)`` replaced slots."""
     n_isl = fitness_w.shape[0]
-    if migarray is None:
-        migarray = list(range(1, n_isl)) + [0]
-    migarray = list(migarray)
     # source[j] = the island whose emigrants arrive at island j
-    source = [0] * n_isl
-    for frm, to in enumerate(migarray):
-        source[to] = frm
-    shift = (0 - source[0]) % n_isl
-    cyclic = all(source[j] == (j - shift) % n_isl for j in range(n_isl))
+    source, shift = _ring_source(n_isl, migarray)
+    cyclic = shift is not None
 
     keys = random.split(key, 2 * n_isl).reshape(n_isl, 2, -1)
     emig_idx = torch.stack([selection(keys[i, 0], fitness_w[i], k)
@@ -124,3 +136,50 @@ def mig_ring(key, populations, k, selection, replacement=None,
                     valid=put(dst.fitness.valid, mig.fitness.valid),
                     weights=dst.fitness.weights))
     return out
+
+
+def _incoming(emigrants: torch.Tensor, mesh, i0: int, L: int, source,
+              shift) -> torch.Tensor:
+    """The emigrants arriving at this rank's ``L`` islands (from island
+    ``i0``), from every rank's ``(L, k, ...)`` emigrant block."""
+    from ..parallel import collectives
+    if shift is None:
+        full = collectives.all_gather(emigrants, mesh)
+        return full[torch.tensor(source[i0:i0 + L], device=full.device)]
+    q, rem = divmod(shift, L)
+    near = collectives.ring_shift(emigrants, mesh, q)
+    if rem == 0:
+        return near
+    far = collectives.ring_shift(emigrants, mesh, q + 1)
+    return torch.cat([far[L - rem:], near[:L - rem]], 0)
+
+
+def mig_ring_sharded(key, genomes, fitness_w, k, selection: Callable, mesh,
+                     n_islands: int, replacement: Callable | None = None,
+                     migarray: Sequence[int] | None = None):
+    """:func:`mig_ring_stacked` over islands spread across the ranks of
+    ``mesh``: ``genomes`` and ``fitness_w`` hold this rank's ``L =
+    n_islands / R`` islands, ``[rank L, (rank + 1) L)``.  Every rank calls
+    it together.  Each island draws its picks from the same keys as in
+    :func:`mig_ring_stacked`; a cyclic map (the default ring) moves the
+    emigrants by ring exchanges, any other by one gather.  Returns this
+    rank's new genome and its ``(L, k)`` replaced slots."""
+    L = fitness_w.shape[0]
+    i0 = mesh.rank * L
+    source, shift = _ring_source(n_islands, migarray)
+    keys = random.split(key, 2 * n_islands).reshape(n_islands, 2, -1)
+    emig_idx = torch.stack([selection(keys[i0 + i, 0], fitness_w[i], k)
+                            for i in range(L)])
+    if replacement is None:
+        repl_idx = emig_idx
+    else:
+        repl_idx = torch.stack([replacement(keys[i0 + i, 1], fitness_w[i], k)
+                                for i in range(L)])
+    isl = torch.arange(L, device=emig_idx.device)[:, None]
+
+    def exchange(leaf):
+        emigrants = leaf[isl, emig_idx.long()].contiguous()
+        incoming = _incoming(emigrants, mesh, i0, L, source, shift)
+        return _set_rows(leaf, repl_idx, incoming)
+
+    return _map(exchange, genomes), repl_idx

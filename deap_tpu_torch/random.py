@@ -47,7 +47,8 @@ from ._xla_math import erf_inv, fma
 
 __all__ = ["PRNGKey", "default_impl", "impl_of", "key_data", "split",
            "fold_in", "bits", "uniform", "bernoulli", "randint", "normal",
-           "permutation", "shuffle"]
+           "permutation", "shuffle", "row_range", "row_range_active",
+           "outside_row_range"]
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -87,12 +88,92 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
+#: the active :func:`row_range` windows: local leading size -> (global
+#: leading size, first row)
+_WINDOWS: list = [{}]
+#: the smallest window :func:`row_range` takes: key splits inside the
+#: samplers and operators draw 2 to 7 keys, never a window's size
+MIN_WINDOW = 8
+
+
+def _window(shape):
+    """``(global_rows, first_row)`` when an active :func:`row_range`
+    window claims a draw of ``shape``, else ``None``."""
+    if not shape or not _WINDOWS[0]:
+        return None
+    return _WINDOWS[0].get(int(shape[0]))
+
+
 def _iota_2x32(shape, device):
     """Row-major counter over ``shape`` as (hi, lo) uint32 words — the
-    partitionable layout's ``iota_2x32_shape``."""
+    partitionable layout's ``iota_2x32_shape``.  Inside a
+    :func:`row_range` window claiming ``shape[0]``, the counters of rows
+    ``[first, first + shape[0])`` of the global shape."""
     n = math.prod(shape)
-    counts = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    win = _window(shape)
+    start = 0 if win is None else win[1] * math.prod(shape[1:])
+    counts = torch.arange(start, start + n, dtype=torch.int64,
+                          device=device).reshape(shape)
     return counts >> 32, counts & M32
+
+
+@contextlib.contextmanager
+def row_range(*ranges):
+    """Draw rows of a global draw without drawing the rest.
+
+    Each range is ``(n_global, start, stop)``.  Within the block, a
+    threefry draw (:func:`bits` and every sampler over it) or split whose
+    shape leads with ``stop - start`` rows is rows ``[start, stop)`` of
+    the same draw at leading size ``n_global``: bit for bit the slice of
+    the whole draw, because the partitionable layout counts each element
+    by its row-major index.  An rbg draw of such a shape is the same
+    slice of the first key's stream.
+
+    This is how one rank of a sharded loop draws its own rows of a
+    population-wide draw.  A window matches draws by their leading size
+    alone, so only code whose draws all lead with the row (or pair) axis
+    may run inside one: the samplers, the splits of per-row keys, and the
+    operators' batched forms.  Per-row operator calls run under
+    :func:`outside_row_range`.  Local sizes below :data:`MIN_WINDOW` are
+    refused (the samplers split keys two to seven at a time), and two
+    ranges may not share a local size."""
+    windows = dict(_WINDOWS[0])
+    for n_global, start, stop in ranges:
+        n_global, start, stop = int(n_global), int(start), int(stop)
+        size = stop - start
+        if size < MIN_WINDOW:
+            raise ValueError(f"row_range window of {size} rows: needs at "
+                             f"least {MIN_WINDOW}")
+        if not 0 <= start < stop <= n_global:
+            raise ValueError(f"row range [{start}, {stop}) outside "
+                             f"{n_global} rows")
+        if size in windows:
+            raise ValueError(f"two row_range windows of {size} rows")
+        windows[size] = (n_global, start)
+    old, _WINDOWS[0] = _WINDOWS[0], windows
+    try:
+        yield
+    finally:
+        _WINDOWS[0] = old
+
+
+def row_range_active() -> bool:
+    """Is a :func:`row_range` window open?"""
+    return bool(_WINDOWS[0])
+
+
+@contextlib.contextmanager
+def outside_row_range():
+    """Close every :func:`row_range` window for the block: each draw there
+    is a whole draw, whatever its leading size.  A sharded loop runs an
+    operator's per-row calls so (a row's own draws, such as a ``(dim,)``
+    mask, are not rows of the population) after drawing the per-row keys
+    inside the window."""
+    old, _WINDOWS[0] = _WINDOWS[0], {}
+    try:
+        yield
+    finally:
+        _WINDOWS[0] = old
 
 
 IMPLS = {"threefry2x32": 2, "rbg": 4}
@@ -222,15 +303,19 @@ def _rbg_bits(key: torch.Tensor, shape) -> torch.Tensor:
     n = math.prod(shape)
     if n == 0:
         return torch.zeros(shape, dtype=torch.int64, device=key.device)
+    win = _window(shape)
+    first = 0 if win is None else win[1] * math.prod(shape[1:])
     w = key.reshape(-1, 4)[0]
     w0, w1, w2, w3 = w[0], w[1], w[2], w[3]
-    i = torch.arange((n + 3) // 4, dtype=torch.int64, device=key.device)
+    i = torch.arange(first // 4, (first + n + 3) // 4, dtype=torch.int64,
+                     device=key.device)
     c0 = w2 + (i & M32)
     c1 = w3 + (i >> 32) + (c0 >> 32)
     c2 = w0 + (c1 >> 32)
     c3 = (w1 + (c2 >> 32)) & M32
     x = philox4x32(w0, w1, (c0 & M32, c1 & M32, c2 & M32, c3))
-    return torch.stack(x, dim=-1).reshape(-1)[:n].reshape(shape)
+    skip = first % 4
+    return torch.stack(x, dim=-1).reshape(-1)[skip:skip + n].reshape(shape)
 
 
 def bits(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:

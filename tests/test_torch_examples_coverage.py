@@ -2,16 +2,16 @@
 ``__init__.py``) has its port at the same path under
 ``deap_tpu_torch/examples/``, as ``tests/test_examples.py``'s
 ``test_every_example_covered`` holds the JAX examples to their smoke
-table.  The only ones still missing are the three that wait on the
-port's distribution (ROADMAP queue 1 item 9).  File names only: nothing
+table.  Since the port's distribution slice none is missing: the three
+that waited on it (``ga/onemax_island.py``, ``ga/onemax_sharded.py``,
+``ga/onemax_multihost.py``) have their ports.  File names only: nothing
 of the JAX package is imported."""
 
 import pathlib
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-# examples that need deap_tpu.parallel (ROADMAP queue 1 item 9)
-AWAITING_DISTRIBUTION = {"ga/onemax_island.py", "ga/onemax_sharded.py",
-                         "ga/onemax_multihost.py"}
+# examples still waiting on a part of the port: none
+AWAITING_DISTRIBUTION = set()
 
 
 def _examples(root):

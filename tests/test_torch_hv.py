@@ -255,10 +255,24 @@ def test_device_entry_routes_by_dimension_and_device():
         thv.hypervolume_3d_cuda(p3, [1.1] * 3)          # no quiet fallback
 
 
-def test_hypervolume_sharded_is_a_typed_refusal():
-    with pytest.raises(thv.ShardedNotPorted, match="distribution"):
-        thv.hypervolume_sharded(torch.zeros((8, 3)), [1.0] * 3, mesh=None)
-    assert issubclass(thv.ShardedNotPorted, NotImplementedError)
+def test_hypervolume_sharded_is_a_typed_refusal(tmp_path):
+    """``hypervolume_sharded`` now runs (``tests/test_torch_parallel.py``
+    holds it over 1, 2 and 4 ranks): on a one-rank mesh it is the plain
+    sweep bit for bit at d == 3 and the staircase at d == 2, and it still
+    refuses other objective counts."""
+    import _torch_dist_cases
+    rng = np.random.default_rng(4)
+    p3 = torch.from_numpy(rng.random((200, 3)))
+    p2 = torch.from_numpy(rng.random((200, 2)))
+    with _torch_dist_cases.one_rank_mesh(tmp_path) as mesh:
+        got3 = thv.hypervolume_sharded(p3, [1.0] * 3, mesh)
+        assert torch.equal(got3, thv.hypervolume_3d(p3, [1.0] * 3))
+        got2 = thv.hypervolume_sharded(p2, [1.0] * 2, mesh)
+        assert got2.item() == pytest.approx(
+            jhost.hypervolume(p2.numpy(), [1.0, 1.0]), rel=1e-12)
+        with pytest.raises(ValueError, match="2 or 3 objectives"):
+            thv.hypervolume_sharded(torch.zeros((8, 4)), [1.0] * 4, mesh)
+    assert not hasattr(thv, "ShardedNotPorted")
 
 
 def test_launcher_refuses_cpu_tensors_and_bad_threads():

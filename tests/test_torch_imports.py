@@ -22,6 +22,11 @@ LIB_EXAMPLES = ("ga.onemax_multidemic", "de.basic", "de.sphere", "de.dynamic",
                 "coev.coop_evol", "coev.hillis")
 LIB_MODULES = ("creator", "tools", "ops.init", "ops.migration", "de", "pso",
                "eda", "coev", "utils.checkpoint", "utils.compilecache")
+DIST_MODULES = ("parallel", "parallel.mapper", "parallel.multihost",
+                "parallel.islands", "parallel.emo_sharded",
+                "parallel.collectives", "parallel.launch",
+                "ops.generation_sharded", "examples.ga.onemax_sharded",
+                "examples.ga.onemax_island", "examples.ga.onemax_multihost")
 
 
 def _port_files():
@@ -72,7 +77,10 @@ def test_port_sources_exist():
                 *("deap_tpu_torch/" + m.replace(".", "/") + ".py"
                   for m in LIB_MODULES),
                 *("deap_tpu_torch/examples/" + m.replace(".", "/") + ".py"
-                  for m in LIB_EXAMPLES)):
+                  for m in LIB_EXAMPLES),
+                *("deap_tpu_torch/" + m.replace(".", "/")
+                  + ("/__init__.py" if m == "parallel" else ".py")
+                  for m in DIST_MODULES)):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
                "hypervolume.cu", "probes.cu", "device_math.cuh"):
@@ -133,7 +141,8 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.gp.harm, deap_tpu_torch.gp.adf, "
             "deap_tpu_torch.gp.routine, deap_tpu_torch.benchmarks.gp, "
             "deap_tpu_torch.ops.selection, "
-            + ", ".join(f"deap_tpu_torch.{m}" for m in LIB_MODULES) + "; "
+            + ", ".join(f"deap_tpu_torch.{m}"
+                        for m in LIB_MODULES + DIST_MODULES) + "; "
             "deap_tpu_torch.base.Toolbox().hypervolume; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "

@@ -169,7 +169,7 @@ def test_ea_simple_converges(engine):
     assert "min" in log.stream
 
 
-def test_engine_registry_rejections():
+def test_engine_registry_rejections(tmp_path):
     tb = _torch_toolbox()
     assert resolve_engine(tb) == "megakernel"
     tb.generation_engine = "scan"
@@ -184,9 +184,20 @@ def test_engine_registry_rejections():
     pop = tbase.Population(torch.zeros(64, DIM),
                            tbase.Fitness.empty(64, (-1.0,), device="cpu"))
     tb.generation_engine = "megakernel"
-    tb.generation_mesh = object()
-    with pytest.raises(EngineNotPorted, match="megakernel_sharded"):
-        ea_ask(key, pop, tb, CXPB, MUTPB)
+    # megakernel + a mesh is the sharded engine, which now runs: on a
+    # one-rank mesh it equals the single-device generation
+    import _torch_dist_cases
+    with _torch_dist_cases.one_rank_mesh(tmp_path) as mesh:
+        tb.generation_mesh = mesh
+        assert resolve_engine(tb) == "megakernel_sharded"
+        g = tr.uniform(key, (64, DIM), minval=-5.12, maxval=5.12)
+        pop = tbase.Population(g, tbase.Fitness.empty(64, (-1.0,),
+                                                      device="cpu"))
+        _, got = ea_ask(key, pop, tb, CXPB, MUTPB)
+        del tb.generation_mesh
+        _, want = ea_ask(key, pop, tb, CXPB, MUTPB)
+        assert torch.equal(got.genome, want.genome)
+        tb.generation_mesh = mesh
     tb.generation_engine = "streamed"
     with pytest.raises(EngineError, match="generation_mesh"):
         resolve_engine(tb)
