@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. build   — compile the port's CUDA kernels from the checkout's source
-             and bind them;
+             and bind them (phase 54, which needs no kernel, runs
+             beside the compilers);
 2. K1      — ``megakernel_vary`` against its plain PyTorch version on the
              card, pop 1e6 x dim 100, float32 / bfloat16 / int8 storage;
 3. K2      — ``megakernel_gather_vary`` (one warp a mating pair) against
@@ -18,7 +19,7 @@
              and 0.5 as Python numbers, ``mu`` and ``sigma`` as tensors)
              and on a bfloat16 one;
 5. main path — ``ea_simple`` with the megakernel engine on rastrigin, pop
-             1e6 x dim 100 float32, NGEN and 2*NGEN generations, five
+             1e6 x dim 100 float32, NGEN and 2*NGEN generations, three
              pairs (median marginal time per generation), best fitness
              must fall; then
              the serving step (``ea_step`` with a live mask) for a few
@@ -43,8 +44,8 @@
 9. main path — NSGA-II ``ea_mu_plus_lambda`` (DTLZ2, 3 objectives, 12
              variables, mu = lambda = 1e5, ``sel_nsga2(nd="peel",
              front_chunk=1024)``, megakernel engine): N and 2N
-             generations, three pairs (median marginal time per
-             generation), K3 once and K4 at least once per generation,
+             generations, one pair (marginal time per generation), K3
+             once and K4 at least once per generation,
              and DTLZ2's distance to the front (mean of |f| - 1) must
              fall; an untimed replay of the N-generation run counts the
              fronts peeled per generation;
@@ -56,13 +57,13 @@
 11. reference — one GP bench generation (``bench_gp.py``: symbolic
              regression, pop 256 here) on the card against the CPU path:
              selection indices equal, trees bitwise after ``var_and``,
-             MSE within rtol 1e-5; then the same generation on the card
-             with the operators registered per tree, as the reference
-             examples register them (``lambda k, t: gp.mut_uniform(k, t,
-             expr, pset)``), against the CPU's;
+             MSE within rtol 1e-5; then a generation of its first 64
+             rows on the card with the operators registered per tree, as
+             the reference examples register them (``lambda k, t:
+             gp.mut_uniform(k, t, expr, pset)``), against the CPU's;
 12. main path — ``bench_gp.py``'s generation at full width (pop 4096,
              tree capacity 64, 1024 points): N = 10 and 2N generations,
-             three pairs (median marginal time per generation), K6 once
+             one pair (marginal time per generation), K6 once
              per generation, the best MSE must fall, mean tree length at
              the start and the end; then ``ea_simple`` on the same
              toolbox for a few generations with K6's launches counted;
@@ -83,7 +84,7 @@
              values, grid / staircase ranks equal to the count peel's;
 15. main path A — ``bench_nsga2.py`` with ``BENCH_PROBLEM=dtlz2`` at POP
              1e5 (pool 2e5, 3 objectives, 12 variables, grid ranks): N = 3
-             and 2N generations, three pairs (median marginal time per
+             and 2N generations, one pair (marginal time per
              generation), then ``toolbox.hypervolume`` of the final
              population at ref (1.1, 1.1, 1.1): K5 once, in float64, and
              K4 in the grid peel's thin fronts; the value against the
@@ -141,7 +142,7 @@
              statistics, 40 generations on the card and on the CPU from
              ``PRNGKey(0)``: population, logbook and archive bit for bit
              equal; the generation where the maximum reaches 100; the
-             marginal ms a generation (20 / 40, three pairs);
+             marginal ms a generation (10 / 20, one pair);
 23. CMA-ES  — BASELINE config 3 (``bench_cma.py``: N = 100, lambda =
              4096, centroid 5, sigma 5) on ``sphere`` and ``ackley``
              through ``ea_generate_update``: five generations, then one
@@ -153,8 +154,8 @@
              only where ``hsig``'s margin exceeds ``CMA_HSIG_MARGIN``);
              TF32 must be off; ``eigh`` must run on the card (device
              kernels under the profiler), its ms and share of a
-             generation; the marginal ms a generation (10 / 20, three
-             pairs) and one profiled window;
+             generation; the marginal ms a generation (5 / 10, one
+             pair) and one profiled window;
 24. anchors — verify flow 2 (sphere, N = 5, lambda = 20, 100
              generations, ``PRNGKey(0)``): best < 1e-8; (1+lambda)
              (N = 5, lambda = 8, 300 generations, ``PRNGKey(10)``): best
@@ -176,7 +177,7 @@
              for bit; the ms of 1e6 uniforms under rbg and threefry;
 27. flagship under rbg — phase 5's ``ea_simple`` (megakernel engine,
              rastrigin, 1e6 x 100 float32) from an rbg key: N = 10 and 2N
-             generations, three pairs, K2 once a generation, the best
+             generations, one pair, K2 once a generation, the best
              fitness must fall; three generations at 10240 x 100
              teacher-forced card against CPU (offspring bitwise, fitness
              within rtol 1e-5); the live-mask ``ea_step`` with K1's
@@ -188,15 +189,15 @@
              policy 4 -> tanh 16 -> 2 as a dict genome, blend crossover
              and Gaussian weight mutation, ``sel_tournament(3)``, cxpb 0.5,
              mutpb 0.8, rbg keys) through ``ea_simple`` with
-             ``HallOfFame(1)``: three generations on the card and on the
+             ``HallOfFame(1)``: one generation on the card and on the
              CPU, genomes, fitness, logbook and archive bit for bit; the
-             marginal ms a generation (2 / 4, two pairs); one
+             marginal ms a generation (1 / 2, one pair); one
              generation with the masked rollout (same fitness); 50 rollout
              steps under the profiler (kernel launches a step, device idle
-             share); the maximum fitness must rise over 5 generations
-             (from this key it starts at its ceiling, 500: then it must
-             stay there and the average rise); no kernel of the port
-             runs (launch counts printed, zero);
+             share); the maximum fitness must rise over the pair's 2
+             generations (from this key it starts at its ceiling, 500:
+             then it must stay there and the average rise); no kernel of
+             the port runs (launch counts printed, zero);
 30. permutation — ``random.permutation`` at 2^20 (two shuffle rounds)
              and 1000 (one) under both key implementations, card equal
              to CPU bit for bit; later, after phase 31's DTLZ2 run,
@@ -207,8 +208,8 @@
              objectives, 12 at three) on ZDT1 and DTLZ2: one generation
              at POP 4096 card against CPU (offspring, objective values
              and selected indices bitwise), then POP 1e5 (pool 2e5):
-             N = 2 and 2N generations, three pairs (median marginal
-             ms), launches counted (K4 in the grid peel's thin fronts at
+             N = 2 and 2N generations, one pair (marginal ms),
+             launches counted (K4 in the grid peel's thin fronts at
              three objectives), DTLZ2's mean ``|sum f^2 - 1|`` must fall
              and ZDT1's hypervolume at (11, 11) rise;
 32. SPEA2  — ``BENCH_SELECT=spea2`` (chunk 500 at POP 1e5) likewise on
@@ -217,11 +218,11 @@
              DTLZ2 (N = 1, one pair), the POP 4096 generation card
              against CPU for each; the single program against the two
              stage calls on the card; the truncation branch card against
-             CPU (8192 DTLZ2 points on the true front, k = 4096);
+             CPU (2048 DTLZ2 points on the true front, k = 1024);
 33. examples — ``examples/ga/nsga2.py`` (ZDT1, mu 64, 100
              generations; hypervolume > 116) and ``examples/ga/nsga3.py``
-             (DTLZ2, 92, 100; its front error) at their defaults, card
-             and CPU populations bitwise;
+             (DTLZ2, 92, 20 of its 100 generations; its front error),
+             card and CPU populations bitwise;
 34. GP operators — on a POP 4096 x CAP 64 population three bench
              generations old (the semantic operators on the bench set
              with ``lf``): ``mut_node_replacement``, ``mut_ephemeral``
@@ -235,11 +236,11 @@
              bench toolbox, each from the CPU's population before it, card
              against CPU (trees bitwise, fitness within rtol 1e-5), then
              POP 4096 with symbreg_harm.py's parameters: N = 2 and 2N,
-             three pairs (median marginal ms), K6 once a generation and
+             one pair (marginal ms), K6 once a generation and
              once before, the mean size;
 36. the bench generation with each new mutation in place of
              ``mut_uniform`` and with ``static_limit`` on both operators
-             (N = 2 and 2N, three pairs, K6 once a generation);
+             (N = 2 and 2N, one pair, K6 once a generation);
 37. lexicase — ``sel_lexicase``, ``sel_epsilon_lexicase``,
              ``sel_automatic_epsilon_lexicase`` and
              ``sel_double_tournament`` (both orders) card against CPU on
@@ -247,11 +248,11 @@
              epsilon-lexicase alone over the bench population's 4096 x
              1024 case errors (three calls, median) and two bench
              generations that select with it (K6 counted);
-38. GP examples — the eight of ``deap_tpu_torch/examples/gp/`` at their
-             defaults on the card, each against ``tests/test_examples.py``'s
-             check, and card = CPU bitwise on the final population (trees
-             and every individual's fitness; the ant at the tests' depth
-             of 3 generations: the CPU would take minutes);
+38. GP examples — the eight of ``deap_tpu_torch/examples/gp/`` at
+             ``tests/test_examples.py``'s depths (symbreg 10 and its
+             epsilon-lexicase form 5, unchecked) on the card, each against
+             that file's check, and card = CPU bitwise on the final
+             population (trees and every individual's fitness);
 39. reference — the rest of the operators on the card against the CPU
              from the same keys, bit for bit: one point, uniform and SBX
              (eta 20) crossovers on 4096 x 100 float32 genomes, the ES
@@ -291,10 +292,10 @@
              the plain float64 sweep and the host tier), K4's launches by
              problem, and K4 (C = 1024) and K5 against their plain
              versions on each DTLZ population;
-42. examples — ``deap_tpu_torch/examples/``'s tsp (40 of its 80
-             generations), nqueens (50 of 150), knn, evoknn (5 of 40),
-             evoknn_jmlr (10 of 50), kursawefct (5 of 50), es/fctmin (40
-             of 120) and bbob (20 of 60) on the card, each with its check
+42. examples — ``deap_tpu_torch/examples/``'s tsp (24 of its 80
+             generations), nqueens (25 of 150), knn, evoknn (5 of 40),
+             evoknn_jmlr (10 of 50), kursawefct (3 of 50), es/fctmin (40
+             of 120) and bbob (10 of 60) on the card, each with its check
              (tours stay permutations, the Kursawe front in bounds, the
              sphere below 1, accuracy above 0.5, bbob's table finite),
              card = CPU on the final population of the same run (knn on
@@ -331,12 +332,13 @@
              next, on the default ring (a roll) and a non-cyclic
              ``migarray`` (a gather): card = CPU bit for bit, ms a call;
 48. library examples — the ten of ``deap_tpu_torch/examples/``
-             (``ga/onemax_multidemic``, ``de/basic``, ``de/sphere``,
-             ``de/dynamic``, ``pso/basic``, ``pso/multiswarm`` at 20
-             generations, ``eda/emna``, ``eda/pbil``, ``coev/coop_evol``,
-             ``coev/hillis``) at ``tests/test_examples.py``'s arguments on
-             the card, each with that table's check, card = CPU bit for
-             bit on the final population or state of the same run; then
+             (``ga/onemax_multidemic``, ``de/basic``, ``de/sphere`` at 30
+             of its 150 generations, ``de/dynamic``, ``pso/basic``,
+             ``pso/multiswarm`` at 20 generations, ``eda/emna``,
+             ``eda/pbil``, ``coev/coop_evol``, ``coev/hillis``) at
+             ``tests/test_examples.py``'s arguments otherwise, on the
+             card, each with that table's check, card = CPU bit for bit
+             on the final population or state of the same run; then
              each of phases 43-48's seconds.  No kernel of the port runs
              on phases 44-48 (their launch counts are printed, zero);
 49. the last examples — the seventeen of ``deap_tpu_torch/examples/``
@@ -392,7 +394,30 @@
 53. distribution, R = min(4, cards) over NCCL — where the host has two
              cards or more; on one card the phase says that it did not run
              and why (NCCL refuses two ranks on one card);
-54. the ``kernels`` line, the card's name and power limit, and the result
+54. out-of-core — first, beside the build — the streamed engine
+             (``deap_tpu_torch.bigpop``) at
+             ``tools/bench_ooc.py``'s flagship (rastrigin, two-point,
+             Gaussian mutation, rank tournaments): (a) one generation at
+             2,097,152 x 100 float32 in slices of 8192 from a
+             ``HostPopulation``, bit for bit against the resident
+             ``ea_step`` from the same key, its peak device bytes under
+             ``ooc_peak_bound`` (the plan's O(pop) tensors and a few
+             slices: under half the 839 MB genome), each leg's seconds and
+             the host split (gather, copies waited on, dispatch, store);
+             (b) at 262,144 x 100 int8 (``cx_uniform`` +
+             ``mut_flip_bit``) and bfloat16 (``cx_one_point`` +
+             ``mut_gaussian``) storage, an odd population (a 1-row tail
+             slice), a 2-row tail slice and a live-mask ask / tell
+             generation, each bit for bit against the resident step; (c)
+             ``ea_simple`` on the streamed engine for 2 generations
+             against the xla engine's: population, logbook and hall of
+             fame; (d) ``run_streamed_resumable`` preempted at the first
+             slice boundary of generation 2 and resumed, against (c);
+             (e) the streamed step at 4096 x 100 on the card against the
+             CPU (the fitness the largest gene: exact on both).  No
+             kernel of the port runs on it (its launch counts are
+             printed, zero);
+55. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12, 15, 35
@@ -402,11 +427,14 @@ generation of each path.
 Phases 30, 32, 33, 38, 42 and 48 run their CPU side in a second
 interpreter (:class:`CpuSide`, no card in sight, lower priority) beside
 the card's runs, and compare once both are done (phase 30's DCD check
-after phase 31's main paths; one CPU side at a time).  The card seconds
-of phases 31 (beside phase 30's CPU side), 32, 33, 38, 42 and 48 are
-measured with a CPU side running, and cannot be set beside those of the
-runs before it had one.  Phase 29 (evopole, launch-bound) runs its CPU
-reference in this process after its card runs.
+after phase 32's).  The card seconds of phases 31 and 32 (beside phase
+30's CPU side), 33, 38, 42 and 48 are measured with a CPU side running,
+and cannot be set beside those of the runs before it had one.  Phase
+20's edge plains are computed on one thread in a CPU side started
+after the build; no other CPU side starts early: one that ran beside
+phases 4-12 slowed the in-line CPU references several times over.
+Phase 29 (evopole, launch-bound) runs its CPU reference in this process
+after its card runs.
 
 Tolerance: K1-K4, K6 and P1-P5 must equal their plain versions bit for
 bit (the stated ulp bound is 0; K6's NaNs compare equal whatever their
@@ -434,6 +462,8 @@ benchmark function and example card = CPU bit for bit, except
 ``rotate``'s matrix product (``ROTATE_RTOL``, 1e-5) and rastrigin's
 fitness in the xla body (``FLAG_RTOL``, 1e-5: ``torch.cos`` and the sum
 in each device's order); bbob's CMA-ES on its first generation only.
+Phase 54: every leg bit for bit (tolerance 0) against the resident step
+on the card, or (e) the CPU.
 Any failed phase exits non-zero without the result line.  No JAX, and
 nothing of the JAX package, is imported.
 """
@@ -451,19 +481,19 @@ sys.path.insert(0, ROOT)
 
 POP, DIM = 1_000_000, 100
 NGEN = 30
-TIMING_PAIRS = 5
+TIMING_PAIRS = 3
 LIVE_GENS = 3
 # the NSGA-II slice: bench_nsga2.py's DTLZ2 sub-config at BENCH_POP
 MO_POP, MO_NOBJ, MO_DIM = 100_000, 3, 12
 MO_NGEN = 3
-MO_PAIRS = 3
+MO_PAIRS = 1
 MO_HEAD_GENS = 3
 MO_CXPB, MO_MUTPB, MO_SIGMA, MO_INDPB = 0.6, 0.3, 0.1, 1.0 / 12
 FRONT_CHUNK = 1024
 ULP_BOUND = 0                      # kernels equal their plain versions
 # bench_nsga2.py as published: SBX and polynomial mutation (eta 20), cxpb
 # 0.9, mutpb 1.0, sel_nsga2(nd="auto", front_chunk=1024), POP 1e5
-BN_POP, BN_NGEN, BN_PAIRS = 100_000, 3, 3
+BN_POP, BN_NGEN, BN_PAIRS = 100_000, 3, 1
 BN_CXPB, BN_MUTPB, BN_ETA = 0.9, 1.0, 20.0
 BN_PROBLEMS = {"dtlz2": (3, 12), "zdt1": (2, 30)}     # nobj, variables
 BN_REF_POP = 1024
@@ -1216,9 +1246,10 @@ def profile_nsga2(key, pop, tb, card_line, gens=2) -> None:
 # bench_gp.py's configuration at full width
 GP_POP, GP_CAP, GP_NPOINTS = 4096, 64, 1024
 GP_CXPB, GP_MUTPB = 0.5, 0.1
-GP_NGEN, GP_PAIRS = 10, 3
+GP_NGEN, GP_PAIRS = 10, 1
 GP_EA_GENS = 3
 GP_REF_POP = 256
+GP_TREE_ROWS = 64          # the per-tree registration's rows (a call a row)
 GP_FITNESS_RTOL = 1e-5     # the user's MSE mean reduces in another order
 # Instructions each executed token needs per point, as (integer and
 # compare, float32, float64), counted from gp_interp.cu's algorithm and
@@ -1390,17 +1421,22 @@ def gp_reference_phase(card_line, key, dev) -> None:
     if ev_dev.last_backend != ev_dev.resolve(pop_dev.genome[1]):
         fail("the card's evaluator did not take its device's route")
     # the reference examples' per-tree registration on the card: one
-    # operator call a row, the same generation as the CPU's rowwise one
+    # operator call a row (launch-bound: on GP_TREE_ROWS of the rows),
+    # the same generation as the CPU's on those rows
+    rows = torch.arange(GP_TREE_ROWS)
+    _, off_cpu, idx_cpu = gp_generation(tb_cpu, k_gen, pop.take(rows))
     _, tb_tree, ev_tree, _, _ = gp_toolbox(dev, per_tree=True)
-    _, off_tree, idx_tree = gp_generation(tb_tree, k_gen.to(dev), pop_dev)
+    _, off_tree, idx_tree = gp_generation(tb_tree, k_gen.to(dev),
+                                          pop_dev.take(rows.to(dev)))
     same_idx = torch.equal(idx_cpu, idx_tree.cpu())
     same_off = all(torch.equal(a, b.cpu())
                    for a, b in zip(off_cpu.genome, off_tree.genome))
+    fc = off_cpu.fitness.values
     fd = off_tree.fitness.values.cpu()
     rel = float(((fc - fd).abs() / fc.abs().clamp(min=1e-30)).max().item())
     ok_fit = bool(torch.allclose(fd, fc, rtol=GP_FITNESS_RTOL, atol=0.0))
     phase("reference: GP generation, per-tree registration, card vs CPU",
-          card_line, pop=GP_REF_POP, selection_equal=same_idx,
+          card_line, pop=GP_TREE_ROWS, selection_equal=same_idx,
           offspring_trees_bitwise=same_off, fitness_max_rel_err=rel,
           fitness_rtol=GP_FITNESS_RTOL, backend=ev_tree.last_backend)
     if not (same_idx and same_off and ok_fit):
@@ -1785,6 +1821,22 @@ def _timed_pairs(run, n: int, pairs: int):
         out.append((a, b))
     marginals = sorted((b - a) / n for a, b in out)
     return marginals[len(marginals) // 2], marginals, out
+
+
+def _counted_pairs(kernels, run, n: int, pairs: int):
+    """:func:`_timed_pairs` and the port's launch counts of its last
+    2N-generation run (the counters are zeroed outside the timed span)."""
+    counts = {}
+
+    def counted(ngen):
+        if ngen == 2 * n:
+            kernels.reset_launches()
+        t = run(ngen)
+        if ngen == 2 * n:
+            counts.update(kernels.LAUNCHES)
+        return t
+
+    return (*_timed_pairs(counted, n, pairs), counts)
 
 
 def front_widths(fitness, n_select: int):
@@ -2345,11 +2397,46 @@ def probe_ga_tool_phase(kernels, card_line) -> dict:
     return launches
 
 
-def probe_gp_phase(card_line, key) -> dict:
+def _edge_plain_forms():
+    """``(mode, tb, unroll)`` of the plain P5 forms an edge needs: the
+    plain noswitch and dispatch forms never touch the stack, so their
+    value does not depend on tb and is computed once, at the first tb."""
+    return [(mode, tb, unroll) for mode in ("noswitch", "dispatch", "stackrw")
+            for tb in (PROBE_GP_TB if mode == "stackrw" else PROBE_GP_TB[:1])
+            for unroll in PROBE_GP_UNROLL]
+
+
+def cpu_probe_gp_edges() -> dict:
+    """The CPU side of :func:`probe_gp_phase`'s edges: every plain form
+    of every edge (``probes.gp.probe_edges`` on the CPU, the same inputs
+    from the same numpy seeds).  The plain loop is a few float32 and exact
+    float64 operations a token and tree, the same bits on either device,
+    and on the card its many small launches took most of a minute.  A
+    tree's plain value is the same at every point: one column is kept.
+    Its operations are elementwise on a few hundred blocks: one thread,
+    so that it takes no core from the card's process."""
+    import torch
+    from deap_tpu_torch.probes import gp as PGP
+    torch.set_num_threads(1)
+    out = {}
+    for name, (c, k, ln, n_points, nb) in PGP.probe_edges("cpu").items():
+        out[name] = {}
+        for f in _edge_plain_forms():
+            v = PGP._probe_gp_plain(c, k, ln, n_points, f[0], f[1],
+                                    bool(f[2]), nb)
+            if not torch.equal(v, v[:, :1].expand_as(v)):
+                raise AssertionError(f"plain P5 {name} {f}: not one value "
+                                     "a tree")
+            out[name][f] = v[:, 0].clone()
+    return out
+
+
+def probe_gp_phase(card_line, key, edges_cpu) -> dict:
     """P5 against its plain version, bitwise, on the GP tool's 4096 x 64
     full binary trees at 1024 points: every mode, tb 8 and 32, unroll 1
-    and 63; then on its edges, every form.  Returns the forms' results
-    and the edges' largest error."""
+    and 63; then on its edges, every form, against the plain forms that
+    ``edges_cpu`` (a :class:`CpuSide` of :func:`cpu_probe_gp_edges`)
+    computed.  Returns the forms' results and the edges' largest error."""
     import numpy as np
     import torch
     from deap_tpu_torch.probes import gp as PGP
@@ -2372,28 +2459,25 @@ def probe_gp_phase(card_line, key) -> dict:
                     None, PGP.probe_bound(mode, codes, npts),
                     shape=[pop, cap, npts])
     # P5's edges (probes.gp.probe_edges): groups with missing trees, ragged
-    # and single points, cap 256, codes outside the branches; every form.
-    # The plain noswitch and dispatch forms never touch the stack, so
-    # their value does not depend on tb: computed once, at the first tb
+    # and single points, cap 256, codes outside the branches; every form
     edge_err = 0.0
+    plains = edges_cpu.result()
     for name, (c, k, ln, n_points, nb) in PGP.probe_edges(key.device).items():
-        gaps, plain = {}, {}
+        gaps, plain = {}, plains[name]
         for mode in ("noswitch", "dispatch", "stackrw"):
             for tb in PROBE_GP_TB:
                 for unroll in PROBE_GP_UNROLL:
                     got = PGP.make_probe_kernel(mode, nb, tb, unroll,
                                                 n_points=n_points)(c, k, ln, x)
                     at = tb if mode == "stackrw" else PROBE_GP_TB[0]
-                    if (mode, at, unroll) not in plain:
-                        plain[(mode, at, unroll)] = PGP._probe_gp_plain(
-                            c, k, ln, n_points, mode, at, bool(unroll), nb)
-                    want = plain[(mode, at, unroll)]
+                    got = got.cpu()
+                    want = plain[(mode, at, unroll)][:, None].expand_as(got)
                     gaps[f"{mode} tb {tb} unroll {unroll or 1}"] = ulp_gap(
                         got, want)
                     edge_err = max(edge_err, nan_gap(got, want)[1])
         phase(f"P5 probe_gp edge vs plain: {name}", card_line,
               shape=[*c.shape, n_points], n_branches=nb, ulp_gap=gaps,
-              ulp_bound=ULP_BOUND)
+              ulp_bound=ULP_BOUND, plain_on="cpu")
         if max(gaps.values()) > ULP_BOUND:
             fail(f"P5 probe_gp, {name}: {gaps} (bound {ULP_BOUND})")
     return res, edge_err
@@ -2435,9 +2519,9 @@ def probe_gp_tool_phase(kernels, card_line) -> tuple:
 # BASELINE config 1 (bench_onemax.py): pop 300 x 100 bits, cx_two_point,
 # mut_flip_bit(0.05), sel_tournament(3), cxpb 0.5, mutpb 0.2
 OM_POP, OM_BITS, OM_NGEN, OM_CXPB, OM_MUTPB = 300, 100, 40, 0.5, 0.2
-OM_TIMING_NGEN, OM_PAIRS = 20, 3
+OM_TIMING_NGEN, OM_PAIRS = 10, 1
 # BASELINE config 3 (bench_cma.py): N = 100, lambda = 4096, centroid 5, sigma 5
-CMA_DIM, CMA_LAMBDA, CMA_WARM, CMA_TIMING_NGEN, CMA_PAIRS = 100, 4096, 5, 10, 3
+CMA_DIM, CMA_LAMBDA, CMA_WARM, CMA_TIMING_NGEN, CMA_PAIRS = 100, 4096, 5, 5, 1
 CMA_RTOL = 1e-4          # card vs CPU, relative to a field's largest value
 CMA_B_ATOL = 1e-2        # |B_cardᵀ B_cpu| = I up to column signs
 CMA_HSIG_MARGIN = 1e-4   # pc and C are compared only beyond this margin
@@ -2773,12 +2857,11 @@ RBG_GOLDEN = (
     ((1, 2, 3, 4), (512747620, 1298009047, 1267190206)),
     ((0xDEADBEEF, 0x12345678, 0xFFFFFFFF, 0xFFFFFFFE),
      (65559129, 1930409553, 648285888)))
-RBG_NGEN, RBG_PAIRS = 10, 3
+RBG_NGEN, RBG_PAIRS = 10, 1
 RBG_REF_POP, RBG_REF_GENS = 10_240, 3      # a multiple of the rows a tile
 # evopole: bench_evopole.py's defaults (examples/ga/evopole.py's constants)
-EVO_REF_GENS = 3
-EVO_TIMING_NGEN, EVO_PAIRS = 2, 2
-EVO_RISE_GENS = 5
+EVO_REF_GENS = 1
+EVO_TIMING_NGEN, EVO_PAIRS = 1, 1       # the rise is read on the 2N run
 EVO_PROFILE_STEPS = 50
 
 
@@ -2852,7 +2935,7 @@ def rbg_phase(card_line) -> dict:
 def flagship_rbg_phase(kernels, card_line) -> dict:
     """The flagship under rbg keys (``bench.py``'s default): ``ea_simple``
     with the megakernel engine on rastrigin at 1e6 x 100 float32 from
-    ``PRNGKey(0, impl="rbg")``, N and 2N generations, three pairs; K2
+    ``PRNGKey(0, impl="rbg")``, N and 2N generations, one pair; K2
     once a generation; the best fitness must fall.  Then three
     generations at 10240 x 100, teacher-forced card against CPU (offspring
     bitwise, fitness within rtol 1e-5: rastrigin's sum runs in each
@@ -2997,17 +3080,18 @@ def cpu_evopole() -> dict:
 
 def evopole_phase(kernels, card_line) -> dict:
     """BASELINE config 5 at ``bench_evopole.py``'s defaults (pop 256, 4
-    episodes of at most 500 steps, hidden 16, rbg keys): three
-    generations card against CPU, bitwise; the marginal ms a generation
-    (N and 2N, two pairs); one generation of the masked rollout; the
+    episodes of at most 500 steps, hidden 16, rbg keys): one
+    generation card against CPU, bitwise; the marginal ms a generation
+    (N and 2N, one pair); one generation of the masked rollout; the
     device's share of a window of rollout steps under the profiler; the
-    maximum fitness must rise over 5 generations (or, where it starts
-    at its ceiling of 500, stay there while the average rises).  No
-    kernel of the port is on this path: its launch counts must stay
-    zero.  The CPU run of the card = CPU check runs in this process after
-    the card's runs: nothing runs beside the timed ones, and as a second
-    interpreter beside the card's rise run it took two to three times as
-    long as in this process."""
+    maximum fitness must rise over the 2N generations of the timed pair
+    (or, where it starts at its ceiling of 500, stay there while the
+    average rises).  No kernel of the port is on this path: its launch
+    counts must stay zero.  The CPU run of the card = CPU check runs in
+    this process after the card's runs: nothing runs beside the timed
+    ones, and as a second interpreter beside the card's runs (or beside
+    the phases before this one) it took two to ten times as long as in
+    this process."""
     import torch
     from deap_tpu_torch.algorithms import ea_step, evaluate_population
     from deap_tpu_torch.examples.ga import evopole as EV
@@ -3016,14 +3100,17 @@ def evopole_phase(kernels, card_line) -> dict:
     pop, log, hof = evopole_run(dev, EVO_REF_GENS)
     torch.cuda.synchronize()
 
+    logs = {}
+
     def run(ngen):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        evopole_run(dev, ngen)
+        logs[ngen] = evopole_run(dev, ngen)[1]
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
     per_gen, marginals, pairs = _timed_pairs(run, EVO_TIMING_NGEN, EVO_PAIRS)
+    rlog = logs[2 * EVO_TIMING_NGEN]
 
     # one generation with the masked rollout, from the same state as the
     # fixed-length one: the same fitness, in fewer steps
@@ -3061,7 +3148,6 @@ def evopole_phase(kernels, card_line) -> dict:
     steps()
     prof = _profile_window(steps, EVO_PROFILE_STEPS)
 
-    _, rlog, _ = evopole_run(dev, EVO_RISE_GENS)
     launches = dict(kernels.LAUNCHES)
     host = cpu_evopole()
     cpu_s = host["seconds"]
@@ -3120,10 +3206,10 @@ def evopole_phase(kernels, card_line) -> dict:
 BN_P = {2: 99, 3: 12}
 MO_REF_POP = 4096
 # (N, pairs) of the (N, 2N) timing at POP 1e5, and the problems run there
-MO_SEL_PATHS = {"nsga3": ((2, 3), ("zdt1", "dtlz2")),
+MO_SEL_PATHS = {"nsga3": ((2, 1), ("zdt1", "dtlz2")),
                 "spea2": ((1, 1), ("zdt1", "dtlz2")),
                 "spea2-staged": ((1, 1), ("dtlz2",))}
-TRUNC_N, TRUNC_K = 8192, 4096
+TRUNC_N, TRUNC_K = 2048, 1024
 PERM_SIZES = (1000, 1 << 20)
 
 
@@ -3254,7 +3340,7 @@ def mo_select_reference(card_line, key, problem: str, name: str) -> None:
 def mo_select_main_path(kernels, card_line, key, problem: str, name: str):
     """``bench_nsga2.py`` with ``BENCH_SELECT=name`` at POP 1e5 (depth
     cut): N and 2N generations in pairs (median marginal ms), launches
-    counted on a 2N-generation run zeroed before it, the quality metric
+    counted on the last 2N-generation run, the quality metric
     from generation 0 to the end.  Returns (launches, marginal ms, final
     population)."""
     import torch
@@ -3279,10 +3365,8 @@ def mo_select_main_path(kernels, card_line, key, problem: str, name: str):
         return time.perf_counter() - t
 
     run(1)                                     # warm the allocator
-    kernels.reset_launches()
-    t2n = run(2 * ngen)
-    launches = dict(kernels.LAUNCHES)
-    per_gen, marginals, pairs = _timed_pairs(run, ngen, pairs_n)
+    per_gen, marginals, pairs, launches = _counted_pairs(kernels, run, ngen,
+                                                         pairs_n)
     pop = state[2 * ngen]
     q1 = mo_quality(problem, pop.fitness)
     ok = (tuple(pop.genome.shape) == (BN_POP, ndim)
@@ -3294,7 +3378,7 @@ def mo_select_main_path(kernels, card_line, key, problem: str, name: str):
           dim=ndim, nobj=nobj, chunk=bench_chunk(BN_POP),
           divisions=BN_P[nobj] if name == "nsga3" else None,
           ngen=[ngen, 2 * ngen], seconds=[list(p) for p in pairs],
-          counted_run_seconds=t2n, marginal_ms_per_gen=per_gen * 1e3,
+          marginal_ms_per_gen=per_gen * 1e3,
           marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
           linearity=[b / a for a, b in pairs], launches=launches,
           launches_per_gen={k: v / (2 * ngen) for k, v in launches.items()},
@@ -3325,8 +3409,8 @@ def cpu_spea2_trunc(values, valid, weights) -> tuple:
 def spea2_checks_phase(card_line, key) -> dict:
     """SPEA2 beyond the generation: the single program against the two
     stage calls on the card (POP 4096 pool, both problems), and the
-    truncation branch card against CPU: 8192 DTLZ2 points on the true
-    front (distance genes 0.5), k = 4096."""
+    truncation branch card against CPU: 2048 DTLZ2 points on the true
+    front (distance genes 0.5), k = 1024."""
     import torch
     from deap_tpu_torch import base, random
     from deap_tpu_torch.ops import emo
@@ -3371,6 +3455,11 @@ def spea2_checks_phase(card_line, key) -> dict:
     return {"truncation_card_seconds": card_s}
 
 
+# nsga2.py at tests/test_examples.py's depth (its check needs it); nsga3.py,
+# whose front error is only reported, cut
+MO_EXAMPLE_ARGS = {"nsga2": {"ngen": 100}, "nsga3": {"ngen": 20}}
+
+
 def cpu_mo_examples() -> dict:
     """The CPU side of :func:`examples_phase`: each example's final
     population and seconds."""
@@ -3379,7 +3468,8 @@ def cpu_mo_examples() -> dict:
     out = {}
     for name, mod in (("nsga2", nsga2), ("nsga3", nsga3)):
         t = time.perf_counter()
-        pc, qc = mod.main(seed=1, verbose=False, device=torch.device("cpu"))
+        pc, qc = mod.main(seed=1, verbose=False, device=torch.device("cpu"),
+                          **MO_EXAMPLE_ARGS[name])
         out[name] = (pc.genome, pc.fitness.values, qc,
                      time.perf_counter() - t)
     return out
@@ -3387,10 +3477,10 @@ def cpu_mo_examples() -> dict:
 
 def examples_phase(kernels, card_line) -> dict:
     """``examples/ga/nsga2.py`` (ZDT1, mu 64, 100 generations) and
-    ``examples/ga/nsga3.py`` (DTLZ2, 92, 100) at their defaults on the
-    card and on the CPU (beside the card, :class:`CpuSide`): populations
-    bitwise, the NSGA-II hypervolume at (11, 11) > 116, NSGA-III's front
-    error reported."""
+    ``examples/ga/nsga3.py`` (DTLZ2, 92, 20 of its 100) at
+    ``MO_EXAMPLE_ARGS`` on the card and on the CPU (beside the card,
+    :class:`CpuSide`): populations bitwise, the NSGA-II hypervolume at
+    (11, 11) > 116, NSGA-III's front error reported."""
     import torch
     from deap_tpu_torch.examples.ga import nsga2, nsga3
     dev = torch.device("cuda")
@@ -3400,7 +3490,8 @@ def examples_phase(kernels, card_line) -> dict:
         kernels.reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        cards[name] = mod.main(seed=1, verbose=False, device=dev)
+        cards[name] = mod.main(seed=1, verbose=False, device=dev,
+                               **MO_EXAMPLE_ARGS[name])
         torch.cuda.synchronize()
         cards[name] += (time.perf_counter() - t,)
         launches[name] = dict(kernels.LAUNCHES)
@@ -3415,7 +3506,7 @@ def examples_phase(kernels, card_line) -> dict:
         out[name] = dict(bitwise=same, card_seconds=card_s,
                          cpu_seconds=cpu_s, card=qg, cpu=qc,
                          launches=launches[name])
-    phase("examples: nsga2.py and nsga3.py at their defaults", card_line,
+    phase("examples: nsga2.py and nsga3.py at cut depths", card_line,
           nsga2_hypervolume=out["nsga2"]["card"],
           nsga3_front_error=out["nsga3"]["card"], runs=out)
     for name, r in out.items():
@@ -3446,9 +3537,9 @@ GP_OPS_WARM_GENS = 3               # bench generations before the operators
 # symbreg_harm.py's HARM parameters
 HARM_KW = dict(alpha=0.05, beta=10.0, gamma=0.25, rho=0.9, mincutoff=10)
 HARM_REF_POP, HARM_REF_GENS = 512, 2
-HARM_NGEN, HARM_PAIRS = 2, 3
+HARM_NGEN, HARM_PAIRS = 2, 1
 # the bench generation with each new mutation and with static_limit
-GP_VARIANT_NGEN, GP_VARIANT_PAIRS = 2, 3
+GP_VARIANT_NGEN, GP_VARIANT_PAIRS = 2, 1
 LEX_REF_N, LEX_REF_CASES = 512, 128
 LEX_EPS = 0.1
 LEX_REPS = 3
@@ -3456,7 +3547,11 @@ LEX_REPS = 3
 # defaults where that takes seconds, else at tests/test_examples.py's depth
 GP_EXAMPLES = ("symbreg", "symbreg_epsilon_lexicase", "symbreg_harm",
                "adf_symbreg", "multiplexer", "parity", "spambase", "ant")
-GP_EXAMPLE_CPU_DEPTH = {"ant": 3}
+# tests/test_examples.py's depths, on the card and the CPU alike, but the
+# two symbreg examples that no check reads, cut further
+GP_EXAMPLE_DEPTH = {"symbreg": 10, "symbreg_epsilon_lexicase": 5,
+                    "symbreg_harm": 3, "adf_symbreg": 5, "multiplexer": 25,
+                    "parity": 10, "spambase": 8, "ant": 3}
 GP_EXAMPLE_CHECKS = {"multiplexer": 56, "parity": 8, "spambase": 0.6,
                      "ant": 20}
 
@@ -3628,10 +3723,8 @@ def harm_phase(kernels, card_line, key, dev) -> tuple:
         return time.perf_counter() - t
 
     run(1)
-    kernels.reset_launches()
-    t2n = run(2 * HARM_NGEN)
-    launches = dict(kernels.LAUNCHES)
-    per_gen, marginals, pairs = _timed_pairs(run, HARM_NGEN, HARM_PAIRS)
+    per_gen, marginals, pairs, launches = _counted_pairs(
+        kernels, run, HARM_NGEN, HARM_PAIRS)
     pop = state[2 * HARM_NGEN]
     size0 = float(pop0.genome[2].float().mean())
     size1 = float(pop.genome[2].float().mean())
@@ -3645,7 +3738,7 @@ def harm_phase(kernels, card_line, key, dev) -> tuple:
                          cpu_chain_s=cpu_s),
           pop=GP_POP, cap=GP_CAP, points=GP_NPOINTS,
           natural=max(2000, GP_POP), ngen=[HARM_NGEN, 2 * HARM_NGEN],
-          seconds=[list(p) for p in pairs], counted_run_seconds=t2n,
+          seconds=[list(p) for p in pairs],
           marginal_ms_per_gen=per_gen * 1e3,
           marginal_ms_range=[marginals[0] * 1e3, marginals[-1] * 1e3],
           launches=launches, mean_size_start=size0, mean_size_end=size1,
@@ -3737,11 +3830,8 @@ def gp_variants_phase(kernels, card_line, key, dev) -> dict:
             return time.perf_counter() - t
 
         run(1)
-        kernels.reset_launches()
-        run(2 * GP_VARIANT_NGEN)
-        launches = dict(kernels.LAUNCHES)
-        per_gen, marginals, pairs = _timed_pairs(run, GP_VARIANT_NGEN,
-                                                 GP_VARIANT_PAIRS)
+        per_gen, marginals, pairs, launches = _counted_pairs(
+            kernels, run, GP_VARIANT_NGEN, GP_VARIANT_PAIRS)
         pop = state[2 * GP_VARIANT_NGEN]
         out[name] = dict(marginal_ms_per_gen=per_gen * 1e3,
                          marginal_ms_range=[marginals[0] * 1e3,
@@ -3894,8 +3984,7 @@ def gp_example_run(mod, dev, ngen=None):
 
 def cpu_gp_examples() -> dict:
     """The CPU side of :func:`gp_examples_phase`: each example's final
-    trees and fitness (at ``GP_EXAMPLE_CPU_DEPTH`` where set) and
-    seconds."""
+    trees and fitness at ``GP_EXAMPLE_DEPTH`` and seconds."""
     import importlib
     import torch
     out = {}
@@ -3903,18 +3992,17 @@ def cpu_gp_examples() -> dict:
         mod = importlib.import_module(f"deap_tpu_torch.examples.gp.{name}")
         t = time.perf_counter()
         host = gp_example_run(mod, torch.device("cpu"),
-                              GP_EXAMPLE_CPU_DEPTH.get(name))[0]
+                              GP_EXAMPLE_DEPTH[name])[0]
         out[name] = (host.genome, host.fitness.values, host.size,
                      time.perf_counter() - t)
     return out
 
 
 def gp_examples_phase(kernels, card_line) -> dict:
-    """Phase 38: the eight GP examples at their defaults on the card, each
-    against its check (tests/test_examples.py), and card = CPU bitwise on
-    the final population, trees and every individual's fitness: at the
-    defaults, or at the tests' depth where the CPU would take minutes
-    (the ant, whose fitness is each routine's food eaten).  The CPU runs
+    """Phase 38: the eight GP examples at ``GP_EXAMPLE_DEPTH`` (that of
+    tests/test_examples.py where a check reads the result) on the card,
+    each against that file's check, and card = CPU bitwise on the final
+    population, trees and every individual's fitness.  The CPU runs
     beside the card's (:class:`CpuSide`)."""
     import importlib
     import torch
@@ -3926,20 +4014,17 @@ def gp_examples_phase(kernels, card_line) -> dict:
         kernels.reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        card, quality = gp_example_run(mod, dev)
+        card, quality = gp_example_run(mod, dev, GP_EXAMPLE_DEPTH[name])
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t
         launches[name] = dict(kernels.LAUNCHES)
-        depth = GP_EXAMPLE_CPU_DEPTH.get(name)
-        card_at = card if depth is None else gp_example_run(mod, dev,
-                                                            depth)[0]
-        cards[name] = (mod, card, quality, card_s, card_at, depth)
+        cards[name] = (mod, card, quality, card_s)
     host = cpu_side.result()
     for name in GP_EXAMPLES:
-        mod, card, quality, card_s, card_at, depth = cards[name]
+        mod, card, quality, card_s = cards[name]
         h_genome, h_values, h_size, cpu_s = host[name]
-        same = (_same_tensors(card_at.genome, h_genome)
-                and _same_tensors(card_at.fitness.values, h_values))
+        same = (_same_tensors(card.genome, h_genome)
+                and _same_tensors(card.fitness.values, h_values))
         ok = bool(card.fitness.valid.all()) and bool(
             torch.isfinite(card.fitness.values).all())
         if name in GP_EXAMPLE_CHECKS:
@@ -3949,15 +4034,16 @@ def gp_examples_phase(kernels, card_line) -> dict:
             size = float(card.genome[2].float().mean())
             extra = {"mean_size": size}
             ok = ok and size < mod.CAP * 0.8
-        out[name] = dict(card_cpu_bitwise=same, cpu_generations=depth or
-                         "default", rows_compared=h_size,
+        out[name] = dict(card_cpu_bitwise=same,
+                         generations=GP_EXAMPLE_DEPTH[name],
+                         rows_compared=h_size,
                          card_seconds=card_s, cpu_seconds=cpu_s,
                          quality=quality, check=ok, **extra)
         if not same:
             fail(f"examples/gp/{name}.py: card and CPU differ")
         if not ok:
             fail(f"examples/gp/{name}.py: {quality} fails its check")
-    phase("GP examples at their defaults", card_line, runs=out,
+    phase("GP examples at cut depths", card_line, runs=out,
           cpu_threads=torch.get_num_threads())
     return launches
 
@@ -4058,9 +4144,9 @@ HV_REF.update({
 # 120, bbob 60); knn (no loop) on every 16th of the 8192 feature masks
 GA_EXAMPLES = ("ga.tsp", "ga.nqueens", "ga.knn", "ga.evoknn",
                "ga.evoknn_jmlr", "ga.kursawefct", "es.fctmin", "bbob")
-GA_EXAMPLE_DEPTH = {"ga.tsp": 40, "ga.nqueens": 50, "ga.evoknn": 5,
-                    "ga.evoknn_jmlr": 10, "ga.kursawefct": 5,
-                    "es.fctmin": 40, "bbob": 20}
+GA_EXAMPLE_DEPTH = {"ga.tsp": 24, "ga.nqueens": 25, "ga.evoknn": 5,
+                    "ga.evoknn_jmlr": 10, "ga.kursawefct": 3,
+                    "es.fctmin": 40, "bbob": 10}
 KNN_MASK_STRIDE = 16
 
 
@@ -4708,7 +4794,8 @@ LIB_EXAMPLES = ("ga.onemax_multidemic", "de.basic", "de.sphere",
                 "de.dynamic", "pso.basic", "pso.multiswarm", "eda.emna",
                 "eda.pbil", "coev.coop_evol", "coev.hillis")
 # tests/test_examples.py's SMOKE arguments and checks (None: it runs)
-LIB_EXAMPLE_ARGS = {"pso.multiswarm": {"ngen": 20}}
+LIB_EXAMPLE_ARGS = {"pso.multiswarm": {"ngen": 20},
+                    "de.sphere": {"ngen": 30}}
 LIB_EXAMPLE_CHECKS = {
     "ga.onemax_multidemic": lambda r: float(r.fitness.values.max()) >= 85,
     "de.basic": lambda r: r < 1e-1, "pso.basic": lambda r: r < 1.0,
@@ -5111,7 +5198,8 @@ def _lib_example_run(mod, name, dev):
         pops = mod.main(verbose=False, device=dev)
         return pops, pops
     if name == "de.sphere":
-        pops = {v: mod.run(variant=v, device=dev) for v in mod.VARIANTS}
+        pops = {v: mod.run(variant=v, device=dev, **kw)
+                for v in mod.VARIANTS}
         return {v: float(p.fitness.values.min())
                 for v, p in pops.items()}, pops
     state = mod.run(device=dev, **kw)
@@ -6153,6 +6241,318 @@ def _dist_like(mesh):
         32)
 
 
+# ---------------------------------------------------------------------------
+# 54. out-of-core: the streamed engine (deap_tpu_torch.bigpop)
+# ---------------------------------------------------------------------------
+
+# tools/bench_ooc.py's largest population and its slice, and the largest
+# population it compares with the resident step
+OOC_POP, OOC_SLICE = 2_097_152, 8192
+OOC_MID = 262_144
+OOC_NGEN = 2
+OOC_CPU_POP, OOC_CPU_SLICE = 4096, 1024
+#: device bytes a population row and a gene of one slice program may
+#: hold at once: 16 int64 words each (ooc_peak_bound)
+OOC_ROW_BYTES = OOC_GENE_BYTES = 16 * 8
+
+
+def ooc_toolbox(mate: str = "two_point", mutate: str = "gauss",
+                storage=None, evaluate=None):
+    """``tools/bench_ooc.py``'s flagship toolbox (rastrigin,
+    ``cx_two_point``, ``mut_gaussian(0, 0.3, 0.05)``, rank tournaments of
+    3), or its operators swapped for the storage legs."""
+    from deap_tpu_torch import base, benchmarks
+    from deap_tpu_torch.ops import crossover, mutation, selection
+    tb = base.Toolbox()
+    tb.register("evaluate", evaluate or benchmarks.rastrigin)
+    if mate == "two_point":
+        tb.register("mate", crossover.cx_two_point)
+    elif mate == "one_point":
+        tb.register("mate", crossover.cx_one_point)
+    else:
+        tb.register("mate", crossover.cx_uniform, indpb=0.4)
+    if mutate == "gauss":
+        tb.register("mutate", mutation.mut_gaussian, mu=0.0, sigma=0.3,
+                    indpb=0.05)
+    else:
+        tb.register("mutate", mutation.mut_flip_bit, indpb=0.05)
+    tb.register("select", selection.sel_tournament, tournsize=3,
+                tie_break="rank")
+    if storage is not None:
+        tb.genome_storage = storage
+    return tb
+
+
+def ooc_population(key, n: int, tb, dev):
+    """An evaluated population of ``n`` rows in the toolbox's storage,
+    genes uniform in [-5.12, 5.12)."""
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import evaluate_population
+    from deap_tpu_torch.ops.generation import storage_of
+    g = random.uniform(key.to(dev), (n, DIM), minval=-5.12, maxval=5.12)
+    st = storage_of(tb)
+    if st is not None:
+        g = st.to_storage(g)
+    pop, _ = evaluate_population(tb, base.Population(
+        g, base.Fitness.empty(n, (-1.0,), device=dev)))
+    return pop
+
+
+def same_population(a, b) -> bool:
+    """Genome, values and validity equal bit for bit (on the host)."""
+    import torch
+    a_g, b_g = a.genome.cpu(), b.genome.cpu()
+    return (a_g.dtype == b_g.dtype and a_g.shape == b_g.shape
+            and torch.equal(a_g.view(torch.uint8), b_g.view(torch.uint8))
+            and torch.equal(a.fitness.values.cpu().view(torch.int32),
+                            b.fitness.values.cpu().view(torch.int32))
+            and torch.equal(a.fitness.valid.cpu(), b.fitness.valid.cpu()))
+
+
+def ooc_peak_bound(n: int, dim: int, slice_rows: int, elt: int,
+                   nobj: int = 1) -> int:
+    """The most device bytes a streamed generation may hold, from its
+    shapes alone: the plan's O(pop) tensors at 16 int64 words a row (the
+    fitness table, the winners, the threefry words and temporaries of a
+    population-wide draw, the sort's keys, indices and buffers, the row
+    masks), one slice program's temporaries at 16 int64 words a gene (a
+    sliced draw's counters, words and temporaries, the float64 FMA), and
+    the staging ring: three parent slices on the way up, three child
+    slices and their values on the way down."""
+    return (OOC_ROW_BYTES * n + OOC_GENE_BYTES * slice_rows * dim
+            + 6 * slice_rows * dim * elt + 3 * slice_rows * nobj * 4)
+
+
+def _ooc_step_pair(tb, pop, key, live=None):
+    """One generation resident and streamed from the same population and
+    key: ``(equal, nevals, resident s, streamed s)``."""
+    import torch
+    from deap_tpu_torch.algorithms import ea_step
+    from deap_tpu_torch.bigpop import streamed_ea_step
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    kr, ref, nr = ea_step(key, pop, tb, CXPB, MUTPB, live=live)
+    torch.cuda.synchronize()
+    t_res = time.perf_counter() - t
+    t = time.perf_counter()
+    ks, got, ns = streamed_ea_step(key, pop, tb, CXPB, MUTPB, live=live,
+                                   slice_rows=OOC_SLICE)
+    torch.cuda.synchronize()
+    t_str = time.perf_counter() - t
+    same = (same_population(ref, got) and torch.equal(kr, ks)
+            and int(nr) == ns)
+    return same, ns, t_res, t_str
+
+
+def out_of_core_phases(kernels, card_line, dev) -> dict:
+    """Phase 54: the streamed engine at bench_ooc.py's widths on ``dev``
+    (the card), each leg bit for bit against the resident step (module
+    docstring).  Returns its seconds by leg."""
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import ea_simple, ea_step
+    from deap_tpu_torch.bigpop import (HostPopulation, StreamedEngine,
+                                       run_streamed_resumable,
+                                       streamed_ea_step)
+    from deap_tpu_torch.ops.generation import GenomeStorage
+    from deap_tpu_torch.resilience import FaultInjector, FaultPlan, Preempted
+    from deap_tpu_torch.utils.support import HallOfFame, Statistics
+    t_all = time.perf_counter()
+    seconds = {}
+    keys = random.split(random.fold_in(random.PRNGKey(0, device=dev), 54), 8)
+    kernels.reset_launches()
+
+    # ---- (a) 2,097,152 x 100 float32, slices of 8192 ------------------------
+    t_leg = t = time.perf_counter()
+    tb = ooc_toolbox()
+    pop = ooc_population(keys[0], OOC_POP, tb, dev)
+    host = HostPopulation.from_population(pop, tb)
+    t_setup = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    k_ref, ref, n_ref = ea_step(keys[1], pop, tb, CXPB, MUTPB)
+    torch.cuda.synchronize()
+    t_res = time.perf_counter() - t
+    ref = (k_ref.cpu(), ref.genome.cpu(), ref.fitness.values.cpu(),
+           ref.fitness.valid.cpu(), int(n_ref))
+    del pop, k_ref, n_ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = StreamedEngine(tb, host, slice_rows=OOC_SLICE, device=dev)
+    t = time.perf_counter()
+    k_got, n_got = eng.step(keys[1], CXPB, MUTPB)
+    torch.cuda.synchronize()
+    t_str = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    got = host.to_population("cpu")
+    same = (torch.equal(k_got.cpu(), ref[0])
+            and torch.equal(got.genome.view(torch.int32),
+                            ref[1].view(torch.int32))
+            and torch.equal(got.fitness.values.view(torch.int32),
+                            ref[2].view(torch.int32))
+            and torch.equal(got.fitness.valid, ref[3]) and n_got == ref[4])
+    bound = ooc_peak_bound(OOC_POP, DIM, OOC_SLICE, 4)
+    genome_bytes = host.genome_nbytes
+    phase("out-of-core (a): one generation streamed vs resident", card_line,
+          pop=OOC_POP, dim=DIM, slice_rows=OOC_SLICE, slices=eng.n_slices,
+          nevals=n_got, bitwise_equal=same, resident_s=t_res,
+          streamed_s=t_str, setup_s=t_setup,
+          split_s={k: v for k, v in eng.timings.items()
+                   if k != "compute_span_ms"},
+          compute_span_ms=eng.timings["compute_span_ms"],
+          peak_device_bytes=peak, peak_bound_bytes=bound,
+          genome_bytes=genome_bytes, peak_share_of_genome=peak / genome_bytes,
+          bound_by="16 int64 words a row (plan) + 16 a gene of one slice "
+                   "+ 6 staged slices")
+    if not same:
+        fail("out-of-core (a): the streamed generation differs from the "
+             "resident one")
+    if not peak <= bound < genome_bytes:
+        fail(f"out-of-core (a): peak device bytes {peak} over the bound "
+             f"{bound} (genome {genome_bytes})")
+    seconds["a"] = time.perf_counter() - t_leg
+    del host, eng, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- (b) storage dtypes, live mask, tails at 262,144 x 100 --------------
+    t = time.perf_counter()
+    legs = {
+        "int8 cx_uniform + mut_flip_bit": ooc_toolbox(
+            "uniform", "flip", GenomeStorage("int8", 1.0)),
+        "bfloat16 cx_one_point + mut_gaussian": ooc_toolbox(
+            "one_point", "gauss", GenomeStorage("bfloat16")),
+        "odd pop, a 1-row tail slice": ooc_toolbox(),
+        "a 2-row tail slice": ooc_toolbox(),
+    }
+    sizes = {"odd pop, a 1-row tail slice": OOC_MID + 1,
+             "a 2-row tail slice": OOC_MID + 2}
+    results = {}
+    for i, (name, tbl) in enumerate(legs.items()):
+        n = sizes.get(name, OOC_MID)
+        pop = ooc_population(keys[2], n, tbl, dev)
+        same, nev, t_r, t_s = _ooc_step_pair(tbl, pop, random.fold_in(
+            keys[3], i))
+        results[name] = same
+        phase("out-of-core (b): one generation streamed vs resident",
+              card_line, leg=name, pop=n, dim=DIM, slice_rows=OOC_SLICE,
+              tail_rows=n % OOC_SLICE, nevals=nev, bitwise_equal=same,
+              resident_s=t_r, streamed_s=t_s)
+        del pop
+    # the live mask through the engine's ask and tell halves
+    tbl = ooc_toolbox()
+    pop = ooc_population(keys[2], OOC_MID, tbl, dev)
+    live_n = OOC_MID - 1000
+    live = torch.arange(OOC_MID, device=dev) < live_n
+    k_r, ref, n_r = ea_step(keys[4], pop, tbl, CXPB, MUTPB, live=live)
+    host = HostPopulation.from_population(pop, tbl)
+    eng = StreamedEngine(tbl, host, slice_rows=OOC_SLICE, device=dev)
+    k_s, pending = eng.ask(keys[4], CXPB, MUTPB, live_n=live_n)
+    n_s = eng.tell(pending)
+    same = (same_population(ref, host.to_population(dev))
+            and torch.equal(k_r, k_s) and int(n_r) == n_s)
+    results["live mask, ask + tell"] = same
+    phase("out-of-core (b): live-mask ask / tell vs resident ea_step",
+          card_line, pop=OOC_MID, live=live_n, nevals=n_s,
+          bitwise_equal=same)
+    del pop, ref, host, eng, pending
+    seconds["b"] = time.perf_counter() - t
+    if not all(results.values()):
+        fail(f"out-of-core (b): streamed differs from resident: {results}")
+
+    # ---- (c) ea_simple on the streamed engine, OOC_NGEN generations ---------
+    t = time.perf_counter()
+    runs = {}
+    for engine in ("xla", "streamed"):
+        tbl = ooc_toolbox()
+        tbl.generation_engine = engine
+        stats = Statistics(lambda p: p.fitness.values[:, 0])
+        stats.register("min", torch.min)
+        stats.register("max", torch.max)
+        hof = HallOfFame(3)
+        pop = ooc_population(keys[5], OOC_MID, tbl, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, log = ea_simple(keys[6], pop, tbl, CXPB, MUTPB, OOC_NGEN,
+                             stats=stats, halloffame=hof)
+        torch.cuda.synchronize()
+        runs[engine] = (out, log, hof, time.perf_counter() - t1)
+    (r_pop, r_log, r_hof, r_s), (s_pop, s_log, s_hof, s_s) = runs.values()
+    same_c = (same_population(r_pop, s_pop)
+              and all(r_log.select(c) == s_log.select(c)
+                      for c in ("gen", "nevals", "min", "max"))
+              and torch.equal(r_hof.state.genome, s_hof.state.genome)
+              and torch.equal(r_hof.state.values, s_hof.state.values))
+    phase("out-of-core (c): ea_simple streamed vs xla engine", card_line,
+          pop=OOC_MID, ngen=OOC_NGEN, bitwise_equal=same_c,
+          resident_s=r_s, streamed_s=s_s, min=s_log.select("min"))
+    seconds["c"] = time.perf_counter() - t
+    if not same_c:
+        fail("out-of-core (c): streamed ea_simple differs from the xla "
+             "engine's (population, logbook or hall of fame)")
+
+    # ---- (d) preempted between slices of generation 2, resumed --------------
+    t = time.perf_counter()
+    tbl = ooc_toolbox()
+    pop = ooc_population(keys[5], OOC_MID, tbl, dev)
+    os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
+    ck = os.path.join(ROOT, "chip_smoke_out", "ooc.ckpt")
+    if os.path.exists(ck):
+        os.remove(ck)
+    inj = FaultInjector(FaultPlan(preempt_at_gen=2))
+    kw = dict(ckpt_path=ck, cxpb=CXPB, mutpb=MUTPB, checkpoint_every=OOC_NGEN,
+              slice_rows=OOC_SLICE)
+    try:
+        run_streamed_resumable(keys[6], pop, tbl, OOC_NGEN, faults=inj, **kw)
+        preempted_at = None
+    except Preempted as e:
+        preempted_at = e.gen
+    host, log = run_streamed_resumable(keys[6], pop, tbl, OOC_NGEN, **kw)
+    same_d = (inj.preempts_delivered == 1 and preempted_at == 1
+              and same_population(host.to_population(dev), r_pop)
+              and log.select("nevals") == r_log.select("nevals"))
+    os.remove(ck)
+    phase("out-of-core (d): preempted in generation 2, resumed, vs "
+          "undisturbed", card_line, pop=OOC_MID, ngen=OOC_NGEN,
+          preempted_after_gen=preempted_at, bitwise_equal=same_d,
+          seconds=time.perf_counter() - t)
+    seconds["d"] = time.perf_counter() - t
+    if not same_d:
+        fail("out-of-core (d): the preempted and resumed run differs from "
+             "the undisturbed one")
+    del pop, host, r_pop, s_pop, runs
+
+    # ---- (e) card against CPU ----------------------------------------------
+    t = time.perf_counter()
+    tbl = ooc_toolbox(evaluate=lambda g: (torch.max(g),))   # exact on both
+    pop = ooc_population(keys[7].cpu(), OOC_CPU_POP, tbl,
+                         torch.device("cpu"))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        moved = base.Population(pop.genome.to(d), base.Fitness(
+            pop.fitness.values.to(d), pop.fitness.valid.to(d),
+            pop.fitness.weights))
+        k_o, out, nev = streamed_ea_step(keys[7].to(d), moved, tbl, CXPB,
+                                         MUTPB, slice_rows=OOC_CPU_SLICE)
+        outs.append((k_o.cpu(), out, nev))
+    same_e = (torch.equal(outs[0][0], outs[1][0])
+              and same_population(outs[0][1], outs[1][1])
+              and outs[0][2] == outs[1][2])
+    phase("out-of-core (e): streamed step card vs CPU", card_line,
+          pop=OOC_CPU_POP, dim=DIM, slice_rows=OOC_CPU_SLICE,
+          bitwise_equal=same_e)
+    seconds["e"] = time.perf_counter() - t
+    if not same_e:
+        fail("out-of-core (e): the streamed step on the card differs from "
+             "the CPU's")
+    launches = dict(kernels.LAUNCHES)
+    seconds["total"] = time.perf_counter() - t_all
+    phase("out-of-core: seconds", card_line, seconds=seconds,
+          launches=launches)
+    return seconds
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-side"]:
         return _cpu_side_main(sys.argv[2])
@@ -6173,14 +6573,28 @@ def main() -> int:
     print(f"# python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} on {card_line}", flush=True)
 
-    # ---- 1. build --------------------------------------------------------
+    # ---- 1. build, and beside it 54. out-of-core (no kernel on its path) --
     t0 = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
     from deap_tpu_torch import kernels
     from deap_tpu_torch.kernels.build import build
-    lib = build()
+
+    def timed_build():
+        t = time.perf_counter()
+        return build(), time.perf_counter() - t
+
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(timed_build)
+        out_of_core_phases(kernels, card_line, torch.device("cuda"))
+        lib, build_s = building.result()
+    torch.cuda.empty_cache()
+    # the P5 edges' plain forms (phase 20) need nothing of this run: a
+    # second interpreter on one thread computes them from here on
+    p5_edges_cpu = CpuSide("cpu_probe_gp_edges")
     kernels.load()
-    phase("build", card_line, seconds=time.perf_counter() - t0,
-          library=os.path.relpath(lib, ROOT))
+    phase("build", card_line, seconds=build_s,
+          library=os.path.relpath(lib, ROOT),
+          beside="phase 54, out-of-core")
 
     from deap_tpu_torch import base, benchmarks, random
     from deap_tpu_torch.algorithms import ea_simple, ea_step
@@ -6437,7 +6851,7 @@ def main() -> int:
     p14 = probe_kernels_phase(card_line, k_pr)
     launches_pga = probe_ga_tool_phase(kernels, card_line)
     torch.cuda.empty_cache()
-    p5, p5_edge_err = probe_gp_phase(card_line, k_pr5)
+    p5, p5_edge_err = probe_gp_phase(card_line, k_pr5, p5_edges_cpu)
     launches_pgp, gp_probes = probe_gp_tool_phase(kernels, card_line)
 
     # ---- 22.-25. OneMax and CMA-ES: no kernel on their paths ---------------
@@ -6473,8 +6887,8 @@ def main() -> int:
                 dcd_finish = dcd_phase(card_line, k_dcd, mo_pop)
             del mo_pop
             torch.cuda.empty_cache()
-    dcd_finish()
     spea2_checks_phase(card_line, k_spea)
+    dcd_finish()
     launches_ex = examples_phase(kernels, card_line)
 
     # ---- 34.-38. the rest of GP ---------------------------------------------
@@ -6492,7 +6906,7 @@ def main() -> int:
     # ---- 51.-53. distribution: R = 1 (nccl), R = 2 (gloo), R = 4 (nccl) -----
     dist_runs = distribution_phases(kernels, card_line)
 
-    # ---- 54. the kernels line and the result -------------------------------
+    # ---- 55. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"

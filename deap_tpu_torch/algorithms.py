@@ -42,8 +42,13 @@ trajectory equals the single-card one whatever the rank count.  The
 ``toolbox.generation_mesh``) routes to
 :mod:`deap_tpu_torch.ops.generation_sharded`.
 
-Not ported yet: telemetry, quarantine, and the streamed engine (it
-raises :class:`~deap_tpu_torch.engines.EngineNotPorted`).
+``generation_engine = "streamed"`` routes :func:`ea_ask` and
+:func:`ea_step` to :mod:`deap_tpu_torch.bigpop`'s streamed generation
+(the genome in host RAM, a slice at a time on the card) and
+:func:`ea_simple` to its host loop, :func:`~deap_tpu_torch.bigpop.
+streamed_ea_simple`; the trajectory is the resident one, bit for bit.
+
+Not ported yet: telemetry and quarantine.
 """
 
 from __future__ import annotations
@@ -386,6 +391,10 @@ def ea_ask(key, population: Population, toolbox, cxpb: float, mutpb: float,
     megakernel toolbox whose ``select`` is ``sel_nsga2`` to the NSGA-II
     head (:func:`~deap_tpu_torch.ops.generation.fused_nsga2_step`)."""
     engine = require_ported(resolve_engine(toolbox))
+    if engine == "streamed":
+        from .bigpop.engine import streamed_ea_ask
+        return streamed_ea_ask(key, population, toolbox, cxpb, mutpb,
+                               live=live)
     population = _as_sharded(population, toolbox)
     if engine == "megakernel_sharded":
         from .ops import generation_sharded as GS
@@ -464,7 +473,15 @@ def ea_step(key, population: Population, toolbox, cxpb: float, mutpb: float,
     for a deterministic evaluate, without the two fitness gathers);
     ``nevals`` still counts the rows variation touched.  It refuses a
     ``live`` mask, and the megakernel engine is reevaluate-all already
-    (the flag changes nothing there)."""
+    (the flag changes nothing there).
+
+    ``generation_engine = "streamed"`` runs the generation as the sliced
+    pipeline of :mod:`deap_tpu_torch.bigpop`, evaluation fused into each
+    slice, so the offspring are never on the device whole."""
+    if resolve_engine(toolbox) == "streamed":
+        from .bigpop.engine import streamed_ea_step
+        return streamed_ea_step(key, population, toolbox, cxpb, mutpb,
+                                live=live)
     if reevaluate_all and resolve_engine(toolbox) == "xla" and \
             not _sharded(population):
         if live is not None:
@@ -657,7 +674,19 @@ def ea_simple(key, population: Population, toolbox, cxpb: float, mutpb: float,
     each with ``reevaluate_all`` — then update the hall of fame with the
     offspring.  Returns ``(population, logbook)``.  Records stay on the
     device until the run ends, but for the generations streamed
-    (``stream_every``, ``stream_mode``: see the module docstring)."""
+    (``stream_every``, ``stream_mode``: see the module docstring).
+
+    ``generation_engine = "streamed"`` runs the whole loop as
+    :func:`deap_tpu_torch.bigpop.streamed_ea_simple` (the same
+    trajectory), which refuses ``reevaluate_all`` and ``stream_every``."""
+    if resolve_engine(toolbox) == "streamed":
+        from .bigpop.engine import streamed_ea_simple
+        if reevaluate_all or stream_every:
+            raise ValueError("the streamed engine does not support "
+                             "reevaluate_all/stream_every (host loop)")
+        return streamed_ea_simple(key, population, toolbox, cxpb, mutpb,
+                                  ngen, stats=stats, halloffame=halloffame,
+                                  verbose=verbose)
     smode = _resolve_stream_mode(stream_every, stream_mode)
     population = _as_sharded(population, toolbox)
     if _sharded(population):

@@ -11,13 +11,15 @@
   to declare ``generation_mesh`` (a :class:`deap_tpu_torch.parallel.
   Mesh`).  A toolbox that declares ``generation_engine="megakernel"``
   *and* a ``generation_mesh`` resolves here automatically.
-* ``"streamed"`` — the host-driven out-of-core pipeline of the JAX
-  package; incompatible with a declared mesh.  Not ported yet.
+* ``"streamed"`` — the host-driven out-of-core pipeline
+  (:mod:`deap_tpu_torch.bigpop`: the genome in host RAM, slices through
+  pinned staging buffers and CUDA copy streams); incompatible with a
+  declared mesh.
 
 Rejections are typed: :class:`EngineError` subclasses ``ValueError``
-and every message names ``toolbox.generation_engine``.  The engine that
-resolves but has no port yet (``streamed``) raises
-:class:`EngineNotPorted` from the loops (:func:`require_ported`).
+and every message names ``toolbox.generation_engine``.  An engine that
+resolves but has no port raises :class:`EngineNotPorted` from the loops
+(:func:`require_ported`); every engine of the registry is ported.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ ENGINES = {
 }
 
 #: engines this port implements
-PORTED = ("xla", "megakernel", "megakernel_sharded")
+PORTED = ("xla", "megakernel", "megakernel_sharded", "streamed")
 
 _ALIASES = {alias: spec.name
             for spec in ENGINES.values() for alias in spec.aliases}

@@ -60,19 +60,42 @@ def _swap_where(mask, ind1, ind2):
     return torch.where(mask, ind2, ind1), torch.where(mask, ind1, ind2)
 
 
+def one_point_mask(point, size: int):
+    """The genes a one-point crossover swaps: those at or past ``point``
+    (a scalar, or ``(n, 1)`` points: one row of the mask each)."""
+    return torch.arange(size, device=point.device) >= point
+
+
+def two_point_mask(lo, hi, size: int):
+    """The genes a two-point crossover swaps: ``[lo, hi)`` (scalars, or
+    ``(n, 1)`` cut points)."""
+    idx = torch.arange(size, device=lo.device)
+    return (idx >= lo) & (idx < hi)
+
+
+def one_point_cuts(key, n: int, size: int):
+    """The ``(n, 1)`` points of :func:`cx_one_point`'s batched form."""
+    return random.randint(key, (n, 1), 1, size)
+
+
+def two_point_cuts(key, n: int, size: int):
+    """The ``(n, 1)`` cut points ``(lo, hi)`` of :func:`cx_two_point`'s
+    batched form.  The streamed engine draws them for the whole
+    population and applies :func:`two_point_mask` a slice at a time."""
+    return _two_cut_points(key, size, shape=(n, 1))
+
+
 def cx_one_point(key, ind1, ind2):
     """Swap the tails after one random point in ``[1, size - 1]``."""
     size = ind1.shape[-1]
     point = random.randint(key, (), 1, size)
-    return _swap_where(torch.arange(size, device=ind1.device) >= point,
-                       ind1, ind2)
+    return _swap_where(one_point_mask(point, size), ind1, ind2)
 
 
 def _cx_one_point_batched(key, A, B):
-    n, size = A.shape[0], A.shape[-1]
-    point = random.randint(key, (n, 1), 1, size)
-    idx = torch.arange(size, device=A.device)[None, :]
-    return _swap_where(idx >= point, A, B)
+    size = A.shape[-1]
+    return _swap_where(one_point_mask(one_point_cuts(key, A.shape[0], size),
+                                     size), A, B)
 
 
 batched_op(cx_one_point, _cx_one_point_batched)
@@ -81,16 +104,14 @@ batched_op(cx_one_point, _cx_one_point_batched)
 def cx_two_point(key, ind1, ind2):
     """Swap the slice between two random points."""
     size = ind1.shape[-1]
-    lo, hi = _two_cut_points(key, size)
-    idx = torch.arange(size, device=ind1.device)
-    return _swap_where((idx >= lo) & (idx < hi), ind1, ind2)
+    return _swap_where(two_point_mask(*_two_cut_points(key, size), size),
+                       ind1, ind2)
 
 
 def _cx_two_point_batched(key, A, B):
-    n, size = A.shape[0], A.shape[-1]
-    lo, hi = _two_cut_points(key, size, shape=(n, 1))
-    idx = torch.arange(size, device=A.device)[None, :]
-    return _swap_where((idx >= lo) & (idx < hi), A, B)
+    size = A.shape[-1]
+    return _swap_where(two_point_mask(*two_point_cuts(key, A.shape[0], size),
+                                      size), A, B)
 
 
 batched_op(cx_two_point, _cx_two_point_batched)

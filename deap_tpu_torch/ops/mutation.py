@@ -44,7 +44,15 @@ def mut_gaussian(key, ind, mu, sigma, indpb):
     if ind.dtype != torch.float32:
         raise TypeError("mut_gaussian is ported for float32 and bfloat16 "
                         "genomes only")
-    e = random.normal_erf_inv(k_noise, ind.shape)
+    return gaussian_from_draws(ind, mask,
+                               random.normal_erf_inv(k_noise, ind.shape),
+                               mu, sigma)
+
+
+def gaussian_from_draws(ind, mask, e, mu, sigma):
+    """:func:`mut_gaussian`'s float32 arithmetic on given draws: the
+    Bernoulli ``mask`` and ``e = erf_inv(u)``, the normal before its
+    ``sqrt(2)`` (the streamed engine draws them a slice at a time)."""
     if torch.is_tensor(sigma):
         c = sigma.to(device=ind.device, dtype=torch.float32) * random.SQRT2
     else:
@@ -105,7 +113,12 @@ def mut_flip_bit(key, ind, indpb):
     """Flip each bit with probability ``indpb``: ``1 - ind`` where the
     draw hits.  A bool genome comes back as int32, as jax's promotion of
     ``1 - bool`` makes it."""
-    mask = random.bernoulli(key, indpb, ind.shape)
+    return flip_where(ind, random.bernoulli(key, indpb, ind.shape))
+
+
+def flip_where(ind, mask):
+    """:func:`mut_flip_bit` on a given mask: ``1 - ind`` where it is
+    set (a bool genome as int32)."""
     if ind.dtype == torch.bool:
         ind = ind.to(torch.int32)
     return torch.where(mask, 1 - ind, ind)

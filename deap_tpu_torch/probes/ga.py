@@ -72,7 +72,7 @@ POP = 1 << 20          # 1,048,576 -- the flagship population
 DIM = 100
 LANE = 128
 K_ITERS = 48
-VARVEVAL_K = 4         # a step draws 1e8 normals: fewer steps, same rule
+VARVEVAL_K = 1         # a step draws 1e8 normals: fewer steps, same rule
 _PLAIN_CHUNK = 1 << 15     # rows a plain version takes at once
 _F32_2PI = float(np.float32(2.0 * np.pi))
 _F32_1E7 = float(np.float32(1e-7))

@@ -341,7 +341,14 @@ def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
     traced bounds)."""
     if dtype != torch.float32:
         raise TypeError("uniform is ported for float32 only")
-    b = bits(key, shape)
+    return uniform_from_bits(bits(key, shape), minval, maxval)
+
+
+def uniform_from_bits(b: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """:func:`uniform`'s float32 law on given raw words ``b`` (the
+    streamed engine's slices draw their words at explicit counters:
+    :mod:`deap_tpu_torch.bigpop.slicedprng`)."""
     floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     if torch.is_tensor(minval) or torch.is_tensor(maxval):
         lo, hi = (v.to(torch.float32) if torch.is_tensor(v)
@@ -360,7 +367,12 @@ def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
 def bernoulli(key: torch.Tensor, p: float = 0.5,
               shape: Shape = ()) -> torch.Tensor:
     """Bool draws, true with probability ``p``."""
-    return uniform(key, shape) < float(np.float32(p))
+    return uniform(key, shape) < prob32(p)
+
+
+def prob32(p: float) -> float:
+    """The float32 threshold a uniform is compared with (``u < p``)."""
+    return float(np.float32(p))
 
 
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
@@ -488,8 +500,11 @@ def normal_erf_inv(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """The float32 ``erf_inv(u)`` of :func:`normal`, before its scale by
     :data:`SQRT2`: under ``jit`` XLA folds that scale into the constants
     that multiply the normal (``mut_gaussian``'s ``sigma``)."""
-    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    return erf_inv(uniform(key, shape, torch.float32, lo, 1.0))
+    return erf_inv(uniform(key, shape, torch.float32, NORMAL_LO, 1.0))
+
+
+# nextafter(-1, 0) in float32: the lower bound of the normal's uniform
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
 def _shuffle_rounds(n: int) -> int:

@@ -27,6 +27,10 @@ DIST_MODULES = ("parallel", "parallel.mapper", "parallel.multihost",
                 "parallel.collectives", "parallel.launch",
                 "ops.generation_sharded", "examples.ga.onemax_sharded",
                 "examples.ga.onemax_island", "examples.ga.onemax_multihost")
+OOC_MODULES = ("bigpop", "bigpop.slicedprng", "bigpop.host", "bigpop.engine",
+               "bigpop.runner", "resilience", "resilience.retry",
+               "resilience.faultinject", "resilience.runner")
+PACKAGES = ("parallel", "bigpop", "resilience")
 
 
 def _port_files():
@@ -79,8 +83,8 @@ def test_port_sources_exist():
                 *("deap_tpu_torch/examples/" + m.replace(".", "/") + ".py"
                   for m in LIB_EXAMPLES),
                 *("deap_tpu_torch/" + m.replace(".", "/")
-                  + ("/__init__.py" if m == "parallel" else ".py")
-                  for m in DIST_MODULES)):
+                  + ("/__init__.py" if m in PACKAGES else ".py")
+                  for m in DIST_MODULES + OOC_MODULES)):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
                "hypervolume.cu", "probes.cu", "device_math.cuh"):
@@ -142,7 +146,8 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.gp.routine, deap_tpu_torch.benchmarks.gp, "
             "deap_tpu_torch.ops.selection, "
             + ", ".join(f"deap_tpu_torch.{m}"
-                        for m in LIB_MODULES + DIST_MODULES) + "; "
+                        for m in LIB_MODULES + DIST_MODULES + OOC_MODULES)
+            + "; "
             "deap_tpu_torch.base.Toolbox().hypervolume; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deap_tpu')]; print(bad); "
@@ -194,3 +199,22 @@ def test_library_modules_define_the_jax_names():
             t.id for n in ast.parse(tsrc).body if isinstance(n, ast.Assign)
             for t in n.targets if isinstance(t, ast.Name)}
         assert set(names) <= defined, (m, set(names) - defined)
+
+
+def _all_of(path: Path) -> list:
+    """The literal ``__all__`` of a source file (read, not imported)."""
+    return next(ast.literal_eval(node.value)
+                for node in ast.parse(path.read_text()).body
+                if isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", "") == "__all__")
+
+
+def test_out_of_core_packages_export_the_jax_names():
+    """``bigpop`` exports its JAX counterpart's names, and ``resilience``
+    (the part the streamed driver needs) only names of the JAX
+    package's."""
+    assert _all_of(ROOT / "deap_tpu_torch" / "bigpop" / "__init__.py") == \
+        _all_of(ROOT / "deap_tpu" / "bigpop" / "__init__.py")
+    assert set(_all_of(ROOT / "deap_tpu_torch" / "resilience"
+                       / "__init__.py")) <= set(
+        _all_of(ROOT / "deap_tpu" / "resilience" / "__init__.py"))

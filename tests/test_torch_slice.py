@@ -202,8 +202,14 @@ def test_engine_registry_rejections(tmp_path):
     with pytest.raises(EngineError, match="generation_mesh"):
         resolve_engine(tb)
     del tb.generation_mesh
-    with pytest.raises(EngineNotPorted, match="streamed"):
-        ea_simple(key, pop, tb, CXPB, MUTPB, 2)
+    # the streamed engine (deap_tpu_torch.bigpop) runs ea_simple's
+    # trajectory: equal to the xla engine's
+    got, got_log = ea_simple(key, pop, tb, CXPB, MUTPB, 2)
+    tb.generation_engine = "xla"
+    want, want_log = ea_simple(key, pop, tb, CXPB, MUTPB, 2)
+    assert torch.equal(got.genome, want.genome)
+    assert torch.equal(got.fitness.values, want.fitness.values)
+    assert got_log.select("nevals") == want_log.select("nevals")
     assert issubclass(EngineNotPorted, ValueError)
     assert issubclass(EngineNotPorted, NotImplementedError)
 
