@@ -417,7 +417,34 @@
              CPU (the fitness the largest gene: exact on both).  No
              kernel of the port runs on it (its launch counts are
              printed, zero);
-55. the ``kernels`` line, the card's name and power limit, and the result
+55. serving (``deap_tpu_torch.serve``) on the card: (a) one megakernel
+             session at the flagship's 10^6 x 100 float32 (bucket
+             1,048,576 rows) through ``EvolutionService``: 3 steps and one
+             ask / tell, bit for bit against ``ea_step`` / ``ea_ask`` /
+             ``ea_tell`` called on the same padded state, K1's launches
+             counted (3, then 1 for the ask), K1 held to its plain
+             version on the parents ``fused_generation(live_n=...)``
+             gathers at the bucket's 1,048,576 rows, seconds per step
+             served and direct with the service's execute wall beside
+             them, the ask's offspring copy timed alone, the p50 latency
+             gauges; (b) the same session over
+             the wire (``NetServer`` + ``RemoteService`` on loopback, the
+             400 MB frames uncompressed): 3 steps and ``population()``,
+             bit for bit against (a), MB/s each way; (c) four sessions of
+             40,000-65,536 x 100 in one bucket at ``max_batch=4``,
+             stepped together twice, each bit for bit against itself
+             served alone, one step program, K1 held to its plain version
+             at the bucket's 65,536 rows; (d) the CLI's demo toolbox
+             (``Quarantine("penalize")``) with a NaN-emitting rastrigin,
+             a mixed fleet over the wire, card = CPU bit for bit, the
+             sentinel on quarantined rows, cache hits and no non-finite
+             cache entry; (e) a streamed session at 262,144 x 100 against
+             a resident one, both checkpointed
+             (``save_session_states``), restored into a new service and
+             stepped twice against the undisturbed run, and
+             ``run_resumable(loop=streamed_ea_simple)`` preempted at
+             generation 2 and resumed against its undisturbed run;
+56. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12, 15, 35
@@ -464,6 +491,9 @@ fitness in the xla body (``FLAG_RTOL``, 1e-5: ``torch.cos`` and the sum
 in each device's order); bbob's CMA-ES on its first generation only.
 Phase 54: every leg bit for bit (tolerance 0) against the resident step
 on the card, or (e) the CPU.
+Phase 55: every leg bit for bit (tolerance 0): against the port's own
+calls on the card, the session served alone, the CPU (the demo's
+rastrigin in XLA's float32 form), or the undisturbed run.
 Any failed phase exits non-zero without the result line.  No JAX, and
 nothing of the JAX package, is imported.
 """
@@ -6553,6 +6583,513 @@ def out_of_core_phases(kernels, card_line, dev) -> dict:
     return seconds
 
 
+# the serving slice (phase 55): the flagship's width through the service
+SERVE_STEPS = 3                    # (a) / (b): steps before the ask / tell
+SERVE_PACK_POPS = (40_000, 50_000, 60_000, 65_536)   # (c): one bucket
+SERVE_PACK_STEPS = 2
+SERVE_DEMO = dict(sessions=6, pops=(100, 180), dims=(16, 32), ngen=4)
+SERVE_OOC_POP = 262_144            # (e): the streamed session
+
+
+def serve_flagship_toolbox():
+    """``bench.py``'s megakernel toolbox (the flagship tournament
+    select): rastrigin, ``cx_two_point``, ``mut_gaussian(MU, SIGMA,
+    INDPB)``, rank tournaments of 3, ``generation_engine =
+    "megakernel"``."""
+    from deap_tpu_torch import base, benchmarks
+    from deap_tpu_torch.ops import crossover, mutation, selection
+    tb = base.Toolbox()
+    tb.register("evaluate", benchmarks.rastrigin)
+    tb.register("mate", crossover.cx_two_point)
+    tb.register("mutate", mutation.mut_gaussian, mu=MU, sigma=SIGMA,
+                indpb=INDPB)
+    tb.register("select", selection.sel_tournament, tournsize=3,
+                tie_break="rank")
+    tb.generation_engine = "megakernel"
+    return tb
+
+
+def _unpad(pop, n: int):
+    from deap_tpu_torch import base
+    return base.Population(pop.genome[:n], base.Fitness(
+        values=pop.fitness.values[:n], valid=pop.fitness.valid[:n],
+        weights=pop.fitness.weights))
+
+
+def _padded_population(genome, rows: int):
+    """The service's padded state as a population: genome rows appended
+    as zeros, all fitness invalid (zero values)."""
+    import torch
+    from deap_tpu_torch import base
+    n = genome.shape[0]
+    g = torch.zeros((rows,) + tuple(genome.shape[1:]), dtype=genome.dtype,
+                    device=genome.device)
+    g[:n] = genome
+    return base.Population(g, base.Fitness.empty(rows, (-1.0,),
+                                                 device=genome.device))
+
+
+def served_vary_check(kernels, state, key, tb, cx, mut, live_n: int, st):
+    """K1 against its plain version on the parents a served megakernel
+    step gives it: ``fused_generation(live_n=...)``'s winners over the
+    padded ``state`` (the bucket's rows), remapped into the live prefix,
+    gathered as the step gathers them.  Returns :func:`vary_check`'s
+    tuple and the bound (ms, by)."""
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.base import lex_sort_indices
+    from deap_tpu_torch.ops import generation as G
+    from deap_tpu_torch.ops.selection import tournament_positions
+    params = G.megakernel_params(tb)
+    rows, dim = state.genome.shape
+    _, k_sel, k_var = random.split(key, 3)
+    order = lex_sort_indices(state.fitness.masked_wvalues().to(
+        torch.float32), descending=True).to(torch.int32)
+    pos = tournament_positions(k_sel, rows, rows, params["tournsize"])
+    widx = order[pos.long()]
+    widx = torch.where(widx < live_n, widx, widx % live_n)
+    parents = state.genome[widx.long()].contiguous()
+    seed = G._seed_from_key(k_var)
+    knobs = G._knobs((cx, mut, params["mut_mu"], params["mut_sigma"],
+                      params["indpb"]), state.genome.device)
+    got = vary_check(kernels, G, parents, seed, knobs, dim, st)
+    counts = tile_counts(seed, knobs, rows, dim)
+    bound = bound_ms(2 * rows * dim * parents.element_size() + 4 + 20,
+                     *tile_ops(counts, rows, dim, st.dtype))
+    return got, bound
+
+
+def _demo_nan_evaluate():
+    """The demo's rastrigin (``serve.cli.demo_rastrigin``: XLA's float32
+    form, the same bits on the card and the CPU), NaN on every row whose
+    first gene is above 4: what the demo's ``Quarantine("penalize")`` is
+    for."""
+    import torch
+    from deap_tpu_torch.ops._dispatch import batched_op
+    from deap_tpu_torch.serve.cli import demo_rastrigin
+
+    def nan_rastrigin(x):
+        (v,) = demo_rastrigin(x)
+        return torch.where(x[:, 0] > 4.0, torch.full_like(v, float("nan")),
+                           v),
+    batched_op(nan_rastrigin, nan_rastrigin)
+    return nan_rastrigin
+
+
+def serving_demo_run(device: str) -> dict:
+    """Leg (d): the CLI's demo toolbox (``Quarantine("penalize")``) with
+    the NaN evaluator, a mixed-shape fleet over the wire on ``device``,
+    then an ``evaluate`` probe twice (the second from the fitness
+    cache).  Returns the populations (host) and the counters."""
+    import torch
+    from deap_tpu_torch.serve import EvolutionService
+    from deap_tpu_torch.serve.cli import _build_toolbox, demo_population
+    from deap_tpu_torch.serve.net import NetServer, RemoteService
+    cfg = SERVE_DEMO
+    tb = _build_toolbox()
+    tb.register("evaluate", _demo_nan_evaluate())
+    out = {"pops": [], "probe": []}
+    with EvolutionService(max_batch=4, device=device) as svc, \
+            NetServer(svc, {"demo": tb}) as srv, \
+            RemoteService(srv.url, timeout=600) as cli:
+        fleet = []
+        for i in range(cfg["sessions"]):
+            n = cfg["pops"][i % len(cfg["pops"])]
+            d = cfg["dims"][i % len(cfg["dims"])]
+            key, pop = demo_population(i, n, d)
+            fleet.append(cli.open_session(key, pop, "demo", cxpb=0.7,
+                                          mutpb=0.3, name=f"demo-{i}"))
+        # after the initial evaluation: the NaN rows carry the sentinel
+        out["initial"] = [s.population() for s in fleet]
+        futs = [s.step(cfg["ngen"]) for s in fleet]
+        for fs in futs:
+            for f in fs:
+                f.result(timeout=600)
+        for s in fleet:
+            out["pops"].append(s.population())
+        probe = out["pops"][0].genome[:32].clone()
+        probe[0, 0] = 5.0                       # one NaN row in the probe
+        for _ in range(2):
+            out["probe"].append(fleet[0].evaluate(probe).result(600))
+        rec = cli.stats()
+        with svc.cache._lock:
+            cached = list(svc.cache._entries.values())
+        out["cache_all_finite"] = all(bool(torch.isfinite(
+            torch.as_tensor(v)).all()) for v in cached)
+        out["cache_entries"] = len(cached)
+        out["counters"] = {k: rec.counters[k] for k in (
+            "cache_hits", "cache_misses", "cache_nan_skipped", "compiles",
+            "compiles_step", "steps", "failed")}
+    return out
+
+
+def serving_phases(kernels, card_line, dev) -> dict:
+    """Phase 55: the serving layer on ``dev`` (the card; module
+    docstring, legs (a)-(e)); returns K1's launches by serving path."""
+    import numpy as np
+    import torch
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.algorithms import ea_ask, ea_step, ea_tell
+    from deap_tpu_torch.algorithms import evaluate_rows
+    from deap_tpu_torch.ops import generation as G
+    from deap_tpu_torch.serve import EvolutionService
+    from deap_tpu_torch.serve.net import NetServer, RemoteService
+    t_phase = time.perf_counter()
+    tb = serve_flagship_toolbox()
+    key = random.fold_in(random.PRNGKey(55, device=dev), 0)
+    k_init, k_sess, k_pack, k_ooc = random.split(key, 4)
+    genome = random.uniform(k_init, (POP, DIM), minval=-5.12, maxval=5.12)
+    rows = 1 << (POP - 1).bit_length()
+    cx = float(np.float32(CXPB))
+    mut = float(np.float32(MUTPB))
+    launches = {}
+    live = torch.arange(rows, device=dev) < POP
+    # one untimed step first: the allocator's first 10^6-row blocks and
+    # the first launches are not charged to either timed side
+    p = _padded_population(genome, rows)
+    p, _ = ea_tell(tb, p, live=live)
+    ea_step(k_sess, p, tb, cx, mut, live=live)
+    del p
+    torch.cuda.synchronize()
+
+    # (a) the flagship's width, in process, against the direct calls
+    with EvolutionService(max_batch=4, device=dev) as svc:
+        t = time.perf_counter()
+        s = svc.open_session(k_sess, base.Population(
+            genome, base.Fitness.empty(POP, (-1.0,), device=dev)), tb,
+            cxpb=CXPB, mutpb=MUTPB, name="flagship")
+        open_s = time.perf_counter() - t
+        if s.bucket.rows != rows:
+            fail(f"serving: the flagship session's bucket is "
+                 f"{s.bucket.rows} rows, not {rows}")
+        kernels.reset_launches()
+        t = time.perf_counter()
+        for f in s.step(SERVE_STEPS):
+            f.result(timeout=600)
+        step_s = (time.perf_counter() - t) / SERVE_STEPS
+        launches["step"] = kernels.LAUNCHES["megakernel_vary"]
+        after_steps = s.population()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        off = s.ask().result(timeout=600)
+        ask_s = time.perf_counter() - t
+        launches["ask"] = kernels.LAUNCHES["megakernel_vary"]
+        values = evaluate_rows(tb.evaluate, off.to(dev))
+        t = time.perf_counter()
+        s.tell(values).result(timeout=600)
+        tell_s = time.perf_counter() - t
+        served = s.population()
+        gauges = svc.stats().gauges
+        # the worker's execute wall (program, per-slot reads, sync; for
+        # the ask the offspring's copy to the host too), the profiler's
+        execute = {}
+        for prof in svc.profiler.profiles().values():
+            if prof["kind"] in ("step", "ask"):
+                execute[prof["kind"]] = (prof["device_total_s"]
+                                         / prof["calls"])
+    # the same padded state through the port's own calls, on the card
+    p = _padded_population(genome, rows)
+    p, _ = ea_tell(tb, p, live=live)
+    state0 = p
+    k = k_sess
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(SERVE_STEPS):
+        k, p, _ = ea_step(k, p, tb, cx, mut, live=live)
+    torch.cuda.synchronize()
+    direct_step_s = (time.perf_counter() - t) / SERVE_STEPS
+    same_steps = same_population(_unpad(p, POP), after_steps)
+    k, off_d = ea_ask(k, p, tb, cx, mut, live=live)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    off_host = off_d.genome[:POP].cpu()
+    copy_s = time.perf_counter() - t
+    same_ask = torch.equal(off_host.view(torch.int32), off.view(torch.int32))
+    del off_host
+    vals = torch.zeros((rows, 1), dtype=torch.float32, device=dev)
+    vals[:POP] = values
+    p, _ = ea_tell(tb, off_d, vals, live=live)
+    same_tell = same_population(_unpad(p, POP), served)
+    # K1 at the shape the served step gives it: the bucket's rows
+    st = G.GenomeStorage("float32")
+    k1_check = {}
+    (gap, err, ms, plain, dev_ms), (b, by) = served_vary_check(
+        kernels, state0, k_sess, tb, cx, mut, POP, st)
+    k1_check[f"{rows} x {DIM} float32 (served bucket, live {POP})"] = (
+        gap, err, ms, plain, dev_ms, b, by)
+    phase("serving (a): megakernel session at the flagship's width",
+          card_line, pop=POP, dim=DIM, bucket_rows=rows, steps=SERVE_STEPS,
+          open_s=open_s, s_per_step_served=step_s,
+          s_per_step_direct=direct_step_s,
+          s_per_step_execute=execute.get("step"), ask_s=ask_s,
+          ask_execute_s=execute.get("ask"), ask_copy_s_direct=copy_s,
+          tell_s=tell_s,
+          execute_is=("the worker's wall from the slot program's start "
+                      "to its sync (the profiler's device_total_s / "
+                      "calls)"),
+          latency_p50_ms={k_: gauges.get(f"latency_{k_}_p50_ms")
+                          for k_ in ("init", "step", "ask", "tell")},
+          k1_launches=launches, bitwise_steps=same_steps,
+          bitwise_ask=same_ask, bitwise_tell=same_tell,
+          k1_bucket_ulp_gap=gap, k1_bucket_ulp_bound=ULP_BOUND,
+          k1_bucket_max_abs_err=err, k1_bucket_ms=ms,
+          k1_bucket_device_ms=dev_ms, k1_bucket_plain_ms=plain,
+          k1_bucket_bound_ms=b, k1_bucket_bound_by=by,
+          k1_bucket_shape=[rows, DIM])
+    if gap > ULP_BOUND:
+        fail(f"serving: K1 at the served bucket's {rows} rows is {gap} ulp "
+             f"from its plain version (bound {ULP_BOUND})")
+    if launches["step"] != SERVE_STEPS or launches["ask"] != 1:
+        fail(f"serving: K1 ran {launches} times (expected {SERVE_STEPS} "
+             "for the steps and 1 for the ask)")
+    if not (same_steps and same_ask and same_tell):
+        fail("serving: the served flagship session differs from ea_step / "
+             "ea_ask / ea_tell called on the same padded state")
+    del p, off_d, vals, off, values, served, state0
+    torch.cuda.empty_cache()
+
+    # (b) over the wire, at the flagship's width, no compression
+    host_genome = genome.cpu()
+    nbytes = host_genome.numel() * host_genome.element_size()
+    with EvolutionService(max_batch=4, device=dev) as svc, \
+            NetServer(svc, {"flagship": tb},
+                      compress_min_bytes=1 << 40) as srv, \
+            RemoteService(srv.url, timeout=900) as cli:
+        kernels.reset_launches()
+        t = time.perf_counter()
+        rs = cli.open_session(k_sess, base.Population(
+            host_genome, base.Fitness.empty(POP, (-1.0,), device="cpu")),
+            "flagship", cxpb=CXPB, mutpb=MUTPB, name="wire")
+        up_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for f in rs.step(SERVE_STEPS):
+            f.result(timeout=900)
+        wire_step_s = (time.perf_counter() - t) / SERVE_STEPS
+        t = time.perf_counter()
+        wired = rs.population()
+        down_s = time.perf_counter() - t
+        launches["wire step"] = kernels.LAUNCHES["megakernel_vary"]
+        counters = svc.stats().counters
+    same_wire = same_population(wired, after_steps)
+    phase("serving (b): the same session over the wire (loopback)",
+          card_line, frame_mb=nbytes / 1e6, open_s=up_s,
+          upload_mb_per_s=nbytes / 1e6 / up_s,
+          upload_includes="admission and the initial evaluation",
+          s_per_step=wire_step_s, population_read_s=down_s,
+          download_mb_per_s=nbytes / 1e6 / down_s,
+          net_bytes_in=counters.get("net_bytes_in"),
+          net_bytes_out=counters.get("net_bytes_out"),
+          frames_compressed=counters.get("net_frames_compressed"),
+          k1_launches=launches["wire step"], bitwise_to_a=same_wire)
+    if not same_wire:
+        fail("serving: the session stepped over the wire differs from (a)")
+    if launches["wire step"] != SERVE_STEPS:
+        fail(f"serving: K1 ran {launches['wire step']} times over the wire")
+    del wired, host_genome, after_steps, genome
+    torch.cuda.empty_cache()
+
+    # (c) slot packing: four sessions of one bucket, stepped together
+    def pack_pop(i, n):
+        g = random.uniform(random.fold_in(k_pack, i), (n, DIM),
+                           minval=-5.12, maxval=5.12)
+        return (random.fold_in(k_pack, 100 + i),
+                base.Population(g, base.Fitness.empty(n, (-1.0,),
+                                                      device=dev)))
+    inputs = [pack_pop(i, n) for i, n in enumerate(SERVE_PACK_POPS)]
+    with EvolutionService(max_batch=4, device=dev) as svc:
+        sess = [svc.open_session(k_, p_, tb, cxpb=CXPB, mutpb=MUTPB)
+                for k_, p_ in inputs]
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with svc.quiesce():
+            futs = [x.step(SERVE_PACK_STEPS) for x in sess]
+        for fs in futs:
+            for f in fs:
+                f.result(timeout=600)
+        pack_s = time.perf_counter() - t
+        launches["packed steps"] = kernels.LAUNCHES["megakernel_vary"]
+        packed = [x.population() for x in sess]
+        rec = svc.stats()
+        buckets = {x.bucket for x in sess}
+    alone = []
+    for k_, p_ in inputs:
+        with EvolutionService(max_batch=4, device=dev) as svc1:
+            x = svc1.open_session(k_, p_, tb, cxpb=CXPB, mutpb=MUTPB)
+            for f in x.step(SERVE_PACK_STEPS):
+                f.result(timeout=600)
+            alone.append(x.population())
+    same_pack = [same_population(a, b) for a, b in zip(packed, alone)]
+    # K1 at the packed bucket's rows, on the sparsest session's padded
+    # state (the most winners remapped into the live prefix)
+    b_rows = max(x.rows for x in buckets)
+    k_, p_ = inputs[0]
+    n_live = p_.size
+    state = _padded_population(p_.genome, b_rows)
+    state, _ = ea_tell(tb, state, live=torch.arange(b_rows, device=dev)
+                       < n_live)
+    (gap, err, ms, plain, dev_ms), (b, by) = served_vary_check(
+        kernels, state, k_, tb, cx, mut, n_live, st)
+    k1_check[f"{b_rows} x {DIM} float32 (packed bucket, live {n_live})"] = (
+        gap, err, ms, plain, dev_ms, b, by)
+    del state
+    phase("serving (c): slot packing, four sessions in one bucket",
+          card_line, pops=list(SERVE_PACK_POPS), dim=DIM,
+          buckets=len(buckets), bucket_rows=b_rows, steps=SERVE_PACK_STEPS,
+          compiles_step=rec.counters["compiles_step"],
+          batches=rec.counters["batches"],
+          slot_occupancy=rec.gauges.get("slot_occupancy"),
+          seconds=pack_s, k1_launches=launches["packed steps"],
+          bitwise_to_alone=same_pack, k1_bucket_ulp_gap=gap,
+          k1_bucket_ulp_bound=ULP_BOUND, k1_bucket_max_abs_err=err,
+          k1_bucket_ms=ms, k1_bucket_device_ms=dev_ms,
+          k1_bucket_plain_ms=plain, k1_bucket_bound_ms=b,
+          k1_bucket_bound_by=by, k1_bucket_shape=[b_rows, DIM])
+    if gap > ULP_BOUND:
+        fail(f"serving: K1 at the packed bucket's {b_rows} rows is {gap} "
+             f"ulp from its plain version (bound {ULP_BOUND})")
+    if not all(same_pack):
+        fail("serving: a slot-packed session differs from itself alone")
+    if rec.counters["compiles_step"] != len(buckets):
+        fail(f"serving: {rec.counters['compiles_step']} step programs for "
+             f"{len(buckets)} bucket(s)")
+    if launches["packed steps"] != len(sess) * SERVE_PACK_STEPS:
+        fail(f"serving: K1 ran {launches['packed steps']} times for "
+             f"{len(sess)} x {SERVE_PACK_STEPS} packed steps")
+    del inputs, packed, alone
+    torch.cuda.empty_cache()
+
+    # (d) the demo as --smoke runs it, card and CPU, NaN rows quarantined
+    t = time.perf_counter()
+    card = serving_demo_run(str(dev))
+    card_s = time.perf_counter() - t
+    cpu = serving_demo_run("cpu")
+    same_demo = (all(same_population(a, b) for a, b in zip(
+                     card["initial"] + card["pops"],
+                     cpu["initial"] + cpu["pops"]))
+                 and all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                         for a, b in zip(card["probe"], cpu["probe"])))
+    sentinel = float(np.float32(np.finfo(np.float32).max) / np.float32(16))
+    quarantined = sum(int((pp.fitness.values == sentinel).sum())
+                      for pp in card["initial"])
+    nan_rows = sum(int((pp.genome[:, 0] > 4.0).sum())
+                   for pp in card["initial"])
+    probe_nan = bool(torch.isnan(card["probe"][0][0]).all())
+    phase("serving (d): the demo fleet over the wire, quarantine",
+          card_line, **{k_: v for k_, v in SERVE_DEMO.items()},
+          card_s=card_s, counters_card=card["counters"],
+          counters_cpu=cpu["counters"], nan_rows_initial=nan_rows,
+          quarantined_rows_initial=quarantined,
+          cache_entries=card["cache_entries"],
+          cache_all_finite=card["cache_all_finite"],
+          probe_nan_row=probe_nan, card_equals_cpu=same_demo)
+    if not same_demo:
+        fail("serving: the demo fleet differs card vs CPU")
+    if quarantined == 0 or quarantined != nan_rows:
+        fail(f"serving: {quarantined} rows carry the sentinel for "
+             f"{nan_rows} NaN rows of the initial evaluation")
+    if card["counters"]["cache_hits"] == 0 or not card["cache_all_finite"] \
+            or card["counters"]["cache_nan_skipped"] == 0 or not probe_nan:
+        fail(f"serving: fitness cache {card['counters']}, all finite "
+             f"{card['cache_all_finite']}, NaN probe row {probe_nan}")
+
+    # (e) streamed and checkpointed sessions, run_resumable streamed
+    ooc = serving_streamed_phase(card_line, k_ooc, dev)
+    phase("serving: total", card_line,
+          seconds=time.perf_counter() - t_phase, k1_launches=launches)
+    return {"launches": launches, "ooc": ooc, "k1_check": k1_check}
+
+
+def _records(logbook) -> list:
+    return [{k: float(v) for k, v in r.items()} for r in logbook]
+
+
+def serving_streamed_phase(card_line, key, dev) -> dict:
+    """Leg (e): a streamed session against a resident one, their
+    checkpoint restored into a new service, and ``run_resumable`` over
+    ``streamed_ea_simple`` preempted and resumed."""
+    import tempfile
+    import torch
+    from deap_tpu_torch import random
+    from deap_tpu_torch.bigpop import streamed_ea_simple
+    from deap_tpu_torch.resilience import (FaultInjector, FaultPlan,
+                                           Preempted, run_resumable)
+    from deap_tpu_torch.serve import EvolutionService
+    n = SERVE_OOC_POP
+    tb_r = ooc_toolbox()
+    tb_s = ooc_toolbox()
+    tb_s.generation_engine = "streamed"
+    k_pop, k_s, k_run = random.split(key, 3)
+    g = random.uniform(k_pop, (n, DIM), minval=-5.12, maxval=5.12)
+    from deap_tpu_torch import base
+    pop0 = base.Population(g, base.Fitness.empty(n, (-1.0,), device=dev))
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        ck = os.path.join(tmp, "sessions.pkl")
+        with EvolutionService(max_batch=4, device=dev) as svc:
+            ss = svc.open_session(k_s, pop0, tb_s, cxpb=CXPB, mutpb=MUTPB,
+                                  name="streamed")
+            sr = svc.open_session(k_s, pop0, tb_r, cxpb=CXPB, mutpb=MUTPB,
+                                  name="resident")
+            t = time.perf_counter()
+            ss.step(1)[0].result(timeout=600)
+            out["streamed_step_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            sr.step(1)[0].result(timeout=600)
+            out["resident_step_s"] = time.perf_counter() - t
+            same_streamed = same_population(ss.population(), sr.population())
+            steps_streamed = svc.stats().counters["steps_streamed"]
+            svc.checkpoint(ck)
+            for x in (ss, sr):
+                for f in x.step(2):
+                    f.result(timeout=600)
+            undisturbed = {x.name: x.population() for x in (ss, sr)}
+        with EvolutionService(max_batch=4, device=dev) as svc2:
+            restored = svc2.restore_sessions(
+                ck, {"streamed": tb_s, "resident": tb_r})
+            for x in restored.values():
+                for f in x.step(2):
+                    f.result(timeout=600)
+            same_restore = all(same_population(x.population(),
+                                               undisturbed[name])
+                               for name, x in restored.items())
+        kw = dict(checkpoint_every=1, loop=streamed_ea_simple,
+                  loop_kwargs=dict(cxpb=CXPB, mutpb=MUTPB))
+        t = time.perf_counter()
+        ref, log_ref = run_resumable(k_run, pop0, tb_s, 3,
+                                     ckpt_path=os.path.join(tmp, "u.pkl"),
+                                     **kw)
+        out["run_resumable_s"] = time.perf_counter() - t
+        preempted_at = None
+        try:
+            run_resumable(k_run, pop0, tb_s, 3,
+                          ckpt_path=os.path.join(tmp, "p.pkl"),
+                          faults=FaultInjector(FaultPlan(preempt_at_gen=2)),
+                          **kw)
+        except Preempted as e:
+            preempted_at = e.gen
+        got, log_got = run_resumable(k_run, pop0, tb_s, 3,
+                                     ckpt_path=os.path.join(tmp, "p.pkl"),
+                                     **kw)
+    same_resume = (preempted_at == 2 and same_population(ref, got)
+                   and _records(log_ref) == _records(log_got))
+    phase("serving (e): streamed session, checkpoint, run_resumable",
+          card_line, pop=n, dim=DIM, steps_streamed=steps_streamed,
+          streamed_equals_resident=same_streamed,
+          restored_equals_undisturbed=same_restore,
+          preempted_at=preempted_at, resumed_equals_undisturbed=same_resume,
+          **out)
+    if not same_streamed:
+        fail("serving: the streamed session differs from the resident one")
+    if steps_streamed != 1:
+        fail(f"serving: steps_streamed = {steps_streamed}, expected 1")
+    if not same_restore:
+        fail("serving: sessions restored from their checkpoint diverge")
+    if not same_resume:
+        fail("serving: run_resumable(loop=streamed_ea_simple) resumed "
+             "differs from the undisturbed run")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-side"]:
         return _cpu_side_main(sys.argv[2])
@@ -6906,7 +7443,10 @@ def main() -> int:
     # ---- 51.-53. distribution: R = 1 (nccl), R = 2 (gloo), R = 4 (nccl) -----
     dist_runs = distribution_phases(kernels, card_line)
 
-    # ---- 55. the kernels line and the result -------------------------------
+    # ---- 55. serving: the service, the wire, quarantine, checkpoints -------
+    serving = serving_phases(kernels, card_line, dev)
+
+    # ---- 56. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -6922,6 +7462,7 @@ def main() -> int:
         errs = [report[d][tag][0] for d in report]
         if tag == "K1":
             errs += [v[0] for v in k1_head.values()]
+            errs += [v[1] for v in serving["k1_check"].values()]
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -6944,20 +7485,36 @@ def main() -> int:
         **dist_launches_by_path(dist_runs, "megakernel_gather_vary")}
     rows[0]["launches_by_path"].update(
         dist_launches_by_path(dist_runs, "megakernel_vary"))
+    gaps = {v[0] for v in serving["k1_check"].values()}
+    rows[0]["launches_by_path"].update({
+        f"served megakernel session, {SERVE_STEPS} steps (bucket "
+        f"{1 << (POP - 1).bit_length()} rows; K1 there and at the packed "
+        f"bucket {max(gaps)} ulp from its plain version)": serving[
+            "launches"]["step"],
+        "served megakernel session, ask": serving["launches"]["ask"],
+        f"served over the wire, {SERVE_STEPS} steps": serving[
+            "launches"]["wire step"],
+        f"slot-packed sessions, {len(SERVE_PACK_POPS)} x "
+        f"{SERVE_PACK_STEPS} steps": serving["launches"]["packed steps"]})
     # K1 at the NSGA-II head's shape beside the flagship's: host-paced
     # ms, device ms with the launches queued, and the bound
     rows[0]["ms_by_shape"] = {
         **{f"{POP} x {DIM} {d}": report[d]["K1"][1] for d in report},
         **{f"{MO_POP} x {MO_DIM} {d} (NSGA-II head)": v[1]
-           for d, v in k1_head.items()}}
+           for d, v in k1_head.items()},
+        **{shape: v[2] for shape, v in serving["k1_check"].items()}}
     rows[0]["device_ms_by_shape"] = {
         **{f"{POP} x {DIM} {d}": report[d]["K1"][5] for d in report},
         **{f"{MO_POP} x {MO_DIM} {d} (NSGA-II head)": v[3]
-           for d, v in k1_head.items()}}
+           for d, v in k1_head.items()},
+        **{shape: v[4] for shape, v in serving["k1_check"].items()}}
     rows[0]["bound_ms_by_shape"] = {
         **{f"{POP} x {DIM} {d}": report[d]["K1"][3] for d in report},
         **{f"{MO_POP} x {MO_DIM} {d} (NSGA-II head)": v[4]
-           for d, v in k1_head.items()}}
+           for d, v in k1_head.items()},
+        **{shape: v[5] for shape, v in serving["k1_check"].items()}}
+    rows[0]["plain_ms_by_shape"] = {
+        shape: v[3] for shape, v in serving["k1_check"].items()}
     # K3 at the NSGA-II path's shape (1e5 x 12 float32), and both shapes
     # by type
     err, ms, plain, b, by, dev_ms = k3_mo["float32"]

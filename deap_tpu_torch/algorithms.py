@@ -48,7 +48,11 @@ trajectory equals the single-card one whatever the rank count.  The
 :func:`ea_simple` to its host loop, :func:`~deap_tpu_torch.bigpop.
 streamed_ea_simple`; the trajectory is the resident one, bit for bit.
 
-Not ported yet: telemetry and quarantine.
+A ``toolbox.quarantine`` (:class:`deap_tpu_torch.resilience.Quarantine`,
+or anything with an ``apply(population, newly=mask)`` method) is applied
+to the freshly assigned rows of every evaluation, as in the JAX package.
+
+Not ported yet: the loops' ``telemetry`` argument (with the tooling).
 """
 
 from __future__ import annotations
@@ -236,10 +240,12 @@ def _norm_eval(evaluate):
     return one
 
 
-def _no_quarantine(toolbox):
-    if getattr(toolbox, "quarantine", None) is not None:
-        raise NotImplementedError("toolbox.quarantine is not ported to "
-                                  "deap_tpu_torch yet")
+def _quarantined(toolbox, population: Population, newly) -> Population:
+    """``toolbox.quarantine`` applied to the rows just assigned."""
+    quarantine = getattr(toolbox, "quarantine", None)
+    if quarantine is None:
+        return population
+    return quarantine.apply(population, newly=newly)
 
 
 def _accepts_skip(fn) -> bool:
@@ -278,8 +284,9 @@ def evaluate_population(toolbox, population: Population):
     ``.batched`` form (:func:`~deap_tpu_torch.ops._dispatch.batched_op`:
     the same function over a leading row axis, such as ``ackley``, whose
     XLA-form transcendentals view float bits, which ``vmap`` cannot batch
-    on every torch release), else it is vmapped over the rows."""
-    _no_quarantine(toolbox)
+    on every torch release), else it is vmapped over the rows.
+
+    A ``toolbox.quarantine`` is applied to the freshly assigned rows."""
     invalid = ~population.fitness.valid
     genome = _widen_genome(_genome_storage(toolbox), population.genome)
     if hasattr(toolbox, "evaluate_population"):
@@ -293,7 +300,10 @@ def evaluate_population(toolbox, population: Population):
     else:
         values = evaluate_rows(toolbox.evaluate, genome)
     nevals = invalid.sum()
-    return population.evaluated(values, where=invalid), nevals
+    population = _quarantined(toolbox,
+                              population.evaluated(values, where=invalid),
+                              invalid)
+    return population, nevals
 
 
 def var_and(key, population: Population, toolbox, cxpb: float,
@@ -437,8 +447,10 @@ def ea_ask(key, population: Population, toolbox, cxpb: float, mutpb: float,
 
 def ea_tell(toolbox, population: Population, values=None, *, live=None):
     """Evaluation half: evaluate the invalid rows (``values=None``) or
-    assign external ``values`` to them.  Returns ``(population, nevals)``;
-    with ``live``, pad rows are skipped and come back invalid.  On a
+    assign external ``values`` to them — either way ``toolbox.quarantine``
+    is applied to the freshly assigned rows.  Returns ``(population,
+    nevals)``; with ``live``, pad rows are skipped (evaluation, assignment,
+    quarantine, ``nevals``) and come back invalid.  On a
     sharded population each rank evaluates its own rows and ``nevals``
     is the count over every rank."""
     if _sharded(population):
@@ -451,9 +463,10 @@ def ea_tell(toolbox, population: Population, values=None, *, live=None):
     if live is None:
         if values is None:
             return evaluate_population(toolbox, population)
-        _no_quarantine(toolbox)
         invalid = ~population.fitness.valid
-        return population.evaluated(values, where=invalid), invalid.sum()
+        population = _quarantined(
+            toolbox, population.evaluated(values, where=invalid), invalid)
+        return population, invalid.sum()
     live = live.to(torch.bool)
     fit = population.fitness
     guarded = Population(population.genome,

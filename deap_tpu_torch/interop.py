@@ -14,7 +14,10 @@ or an archive and the states of PSO and the EDAs, read field by field
 from any object that has the JAX package's field names (``CMAState``,
 ``OnePlusLambdaState``, ``_ArchiveState``, ``PSOState``,
 ``MultiswarmState``, ``EMNAState``, ``PBILState``), and the memory of ``SelNSGA3WithMemory`` (its
-``best_point`` and ``extreme_points``, host arrays in both packages).
+``best_point`` and ``extreme_points``, host arrays in both packages),
+and the host snapshot of a served session (``EvolutionService.
+snapshot_sessions()`` / ``drain()`` of either package: numpy arrays, the
+key as raw ``uint32`` words, Python scalars).
 
 Like every entry point that creates tensors, the ``*_to_torch``
 functions default to ``device="cuda"`` and raise
@@ -43,7 +46,8 @@ __all__ = ["key_to_torch", "key_to_numpy", "genome_to_torch",
            "one_plus_lambda_state_to_torch", "archive_state_to_torch",
            "nsga3_memory_to_torch", "pso_state_to_torch",
            "multiswarm_state_to_torch", "emna_state_to_torch",
-           "pbil_state_to_torch"]
+           "pbil_state_to_torch", "session_snapshot_to_torch",
+           "session_snapshot_to_numpy"]
 
 
 def key_to_torch(key, device=None) -> torch.Tensor:
@@ -194,3 +198,74 @@ def pbil_state_to_torch(state, device=None) -> PBILState:
         prob_vector=torch.from_numpy(np.array(state.prob_vector, np.float32,
                                               copy=True)).to(device),
         key=key_to_torch(state.key, device))
+
+
+_SNAPSHOT_ARRAYS = ("values", "valid")
+
+
+def session_snapshot_to_torch(snap: dict, device=None) -> dict:
+    """One session's snapshot (the JAX package's ``_snapshot_one`` dict:
+    ``gen``, ``phase``, ``n``, ``priority``, ``weights``, ``rows``,
+    ``key``, ``genome``, ``values``, ``valid``, ``cxpb``, ``mutpb`` and
+    maybe ``pending``) → the same dict with its key, genome and fitness
+    arrays as the port's tensors on ``device`` (the scalars as they
+    are).  :meth:`~deap_tpu_torch.serve.EvolutionService.adopt_sessions`
+    takes either form."""
+    device = resolve_device(device)
+    out = dict(snap)
+    out["key"] = key_to_torch(snap["key"], device)
+    out["genome"] = genome_to_torch(snap["genome"], device)
+    out["values"] = torch.tensor(np.asarray(snap["values"], np.float32),
+                                 device=device)
+    out["valid"] = torch.tensor(np.asarray(snap["valid"], bool),
+                                device=device)
+    if snap.get("pending") is not None:
+        pend = snap["pending"]
+        out["pending"] = {
+            "genome": genome_to_torch(pend["genome"], device),
+            "values": torch.tensor(np.asarray(pend["values"], np.float32),
+                                   device=device),
+            "valid": torch.tensor(np.asarray(pend["valid"], bool),
+                                  device=device)}
+    out["weights"] = tuple(float(w) for w in snap["weights"])
+    return out
+
+
+def _leaf_to_numpy(x):
+    if isinstance(x, torch.Tensor):
+        return genome_to_numpy(x)
+    return np.asarray(x)
+
+
+def session_snapshot_to_numpy(snap: dict) -> dict:
+    """A session snapshot (the port's ``snapshot_sessions()`` entry, or
+    :func:`session_snapshot_to_torch`'s) → numpy arrays and Python
+    scalars, the JAX package's host form (its ``adopt_sessions`` and
+    ``/v1/admin/restore`` take it; a bfloat16 genome comes back as its
+    ``uint16`` bit pattern: view it as ``ml_dtypes.bfloat16`` there).
+    The key is its raw ``uint32`` words."""
+    out = dict(snap)
+    key = snap["key"]
+    out["key"] = (key_to_numpy(key) if isinstance(key, torch.Tensor)
+                  else np.asarray(key).astype(np.uint32))
+    out["genome"] = _genome_to_numpy_any(snap["genome"])
+    for k in _SNAPSHOT_ARRAYS:
+        out[k] = _leaf_to_numpy(snap[k])
+    if snap.get("pending") is not None:
+        pend = snap["pending"]
+        out["pending"] = {"genome": _genome_to_numpy_any(pend["genome"]),
+                          **{k: _leaf_to_numpy(pend[k])
+                             for k in _SNAPSHOT_ARRAYS}}
+    out["cxpb"] = float(snap["cxpb"])
+    out["mutpb"] = float(snap["mutpb"])
+    return out
+
+
+def _genome_to_numpy_any(genome):
+    """:func:`genome_to_numpy` over a genome whose leaves may already be
+    numpy arrays."""
+    if isinstance(genome, dict):
+        return {k: _genome_to_numpy_any(v) for k, v in genome.items()}
+    if isinstance(genome, (tuple, list)):
+        return tuple(_genome_to_numpy_any(g) for g in genome)
+    return _leaf_to_numpy(genome)

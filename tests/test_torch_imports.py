@@ -30,7 +30,16 @@ DIST_MODULES = ("parallel", "parallel.mapper", "parallel.multihost",
 OOC_MODULES = ("bigpop", "bigpop.slicedprng", "bigpop.host", "bigpop.engine",
                "bigpop.runner", "resilience", "resilience.retry",
                "resilience.faultinject", "resilience.runner")
-PACKAGES = ("parallel", "bigpop", "resilience")
+SERVE_MODULES = ("serve", "serve.buckets", "serve.cache", "serve.dispatcher",
+                 "serve.metrics", "serve.rebucket", "serve.service",
+                 "serve.cli", "serve.net", "serve.net.protocol",
+                 "serve.net.httpcommon", "serve.net.server",
+                 "serve.net.client", "observability", "observability.events",
+                 "observability.sinks", "observability.fleettrace",
+                 "observability.profiling", "sanitize",
+                 "resilience.quarantine")
+PACKAGES = ("parallel", "bigpop", "resilience", "serve", "serve.net",
+            "observability", "sanitize")
 
 
 def _port_files():
@@ -84,7 +93,7 @@ def test_port_sources_exist():
                   for m in LIB_EXAMPLES),
                 *("deap_tpu_torch/" + m.replace(".", "/")
                   + ("/__init__.py" if m in PACKAGES else ".py")
-                  for m in DIST_MODULES + OOC_MODULES)):
+                  for m in DIST_MODULES + OOC_MODULES + SERVE_MODULES)):
         assert new in files
     for cu in ("megakernel.cu", "dominance.cu", "gp_interp.cu",
                "hypervolume.cu", "probes.cu", "device_math.cuh"):
@@ -146,7 +155,8 @@ def test_importing_the_port_loads_no_jax():
             "deap_tpu_torch.gp.routine, deap_tpu_torch.benchmarks.gp, "
             "deap_tpu_torch.ops.selection, "
             + ", ".join(f"deap_tpu_torch.{m}"
-                        for m in LIB_MODULES + DIST_MODULES + OOC_MODULES)
+                        for m in LIB_MODULES + DIST_MODULES + OOC_MODULES
+                        + SERVE_MODULES)
             + "; "
             "deap_tpu_torch.base.Toolbox().hypervolume; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -218,3 +228,79 @@ def test_out_of_core_packages_export_the_jax_names():
     assert set(_all_of(ROOT / "deap_tpu_torch" / "resilience"
                        / "__init__.py")) <= set(
         _all_of(ROOT / "deap_tpu" / "resilience" / "__init__.py"))
+
+
+#: the JAX modules of serving, resilience, observability and the
+#: sanitizer that the port does not have yet, and where they are queued
+#: (ROADMAP.md queue 1): item 11b, the serving fleet; item 12, the tooling
+DEFERRED_MODULES = {
+    **{f"serve/router/{m}.py": "11b" for m in (
+        "__init__", "backend", "cli", "core", "health", "placement",
+        "server", "tenants")},
+    **{f"serve/autoscale/{m}.py": "11b" for m in (
+        "__init__", "controller", "fabric", "migrate", "policy")},
+    "serve/net/faultwire.py": "11b", "serve/top.py": "11b",
+    "resilience/chaos.py": "11b", "resilience/chaosdrill.py": "11b",
+    "resilience/faultdrill.py": "11b",
+    "observability/cli.py": "12", "observability/metrics.py": "12",
+    "observability/telemetry.py": "12", "observability/tracing.py": "12",
+    "sanitize/guards.py": "12", "sanitize/runtime.py": "12",
+    "sanitize/pytest_plugin.py": "12"}
+#: names of a ported module's JAX ``__all__`` that come with a deferred
+#: module (re-exported there, the fleet's metric registries, or XLA's
+#: half of the profiler)
+DEFERRED_NAMES = {
+    "serve/metrics.py": {"ROUTER_COUNTERS", "ROUTER_GAUGES",
+                         "AUTOSCALE_COUNTERS", "AUTOSCALE_GAUGES",
+                         "prometheus_fleet_text"},
+    "resilience/__init__.py": {"ChaosLeg", "ChaosPlan", "ChaosFault",
+                               "ChaosInjector", "canonical_plan"},
+    "observability/__init__.py": {
+        "MetricBuffer", "buffer_init", "cross_host_sum", "psum_counters",
+        "Telemetry", "STANDARD_COUNTERS", "STANDARD_GAUGES", "Span", "span",
+        "PhaseTimes", "aot_phase_times", "capture_trace",
+        "device_memory_report", "aot_cost_summary", "phase_split"},
+    "observability/profiling.py": {"aot_cost_summary", "phase_split",
+                                   "NOMINAL_THROUGHPUT"},
+    "sanitize/__init__.py": {"ThreadSanitizer", "TsanLock", "TsanRLock",
+                             "TsanCondition", "TSAN_RULES", "runtime"}}
+SERVING_DIRS = ("serve", "resilience", "observability", "sanitize")
+
+
+def test_serving_modules_define_every_jax_name():
+    """Every JAX module of ``serve/``, ``resilience/``, ``observability/``
+    and ``sanitize/`` has its port counterpart or is listed deferred, and
+    the counterpart defines every name of the JAX module's ``__all__``
+    but the listed deferred ones (the port imported in a fresh
+    interpreter: no JAX)."""
+    jroot = ROOT / "deap_tpu"
+    pairs = {}
+    for d in SERVING_DIRS:
+        for path in sorted((jroot / d).rglob("*.py")):
+            rel = str(path.relative_to(jroot))
+            port = ROOT / "deap_tpu_torch" / rel
+            if rel in DEFERRED_MODULES:
+                assert not port.exists(), f"{rel} is ported: unlist it"
+                continue
+            assert port.exists(), f"{rel}: no port counterpart"
+            has_all = any(isinstance(n, ast.Assign) and getattr(
+                n.targets[0], "id", "") == "__all__"
+                for n in ast.parse(path.read_text()).body)
+            if has_all:
+                mod = "deap_tpu_torch." + rel[:-3].replace("/", ".") \
+                    .removesuffix(".__init__")
+                pairs[mod] = sorted(set(_all_of(path))
+                                    - DEFERRED_NAMES.get(rel, set()))
+    assert len(pairs) >= 18
+    code = ("import importlib, json, sys; pairs = json.loads(sys.argv[1]); "
+            "missing = {m: [n for n in names if not hasattr("
+            "importlib.import_module(m), n)] for m, names in pairs.items()}; "
+            "missing = {m: v for m, v in missing.items() if v}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deap_tpu')]; print(missing, bad); "
+            "sys.exit(1 if missing or bad else 0)")
+    import json
+    out = subprocess.run([sys.executable, "-c", code, json.dumps(pairs)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
