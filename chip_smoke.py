@@ -444,7 +444,27 @@
              stepped twice against the undisturbed run, and
              ``run_resumable(loop=streamed_ea_simple)`` preempted at
              generation 2 and resumed against its undisturbed run;
-56. the ``kernels`` line, the card's name and power limit, and the result
+56. the serving fleet (``deap_tpu_torch.serve.router``) on the card:
+             three ``EvolutionService(max_batch=4)`` instances behind
+             port ``NetServer``s with the flagship's megakernel toolbox,
+             a ``FleetRouter`` (tenant ``capped`` held to one session)
+             behind a ``RouterServer``, a ``RemoteService`` on the
+             router: (c)'s four sessions of 40,000-65,536 x 100 (one
+             65,536-row bucket) opened as one tenant and co-located by
+             affinity, stepped twice, failed over by hand (``POST
+             /v1/admin/fleet/failover``), stepped twice more through the
+             same client, each bit for bit against the same keys and
+             populations stepped 4 times in one undisturbed service; K1
+             launched 16 times on the fleet path; a direct client of
+             the drained instance follows its redirect; the capped
+             tenant's second session is a typed ``TenantQuotaExceeded``;
+             the router's counters (1 failover, 4 sessions moved, 1
+             quota rejection); one scrape of ``/v1/admin/fleet?format=
+             prometheus`` labels every live instance; ``serve.top
+             --once --json``'s fleet counters are its instances' sums;
+             seconds a step routed and alone, the failover's seconds and
+             the bytes the router relayed;
+57. the ``kernels`` line, the card's name and power limit, and the result
    line.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 5, 9, 12, 15, 35
@@ -7090,6 +7110,189 @@ def serving_streamed_phase(card_line, key, dev) -> dict:
     return out
 
 
+# the serving fleet (phase 56): phase 55 (c)'s sessions behind the router
+FLEET_STEPS = 2                    # before the failover, and after it
+
+
+def _http(address, method: str, path: str, body: bytes = b""):
+    """One plain HTTP request; ``(status, body bytes)``."""
+    import http.client
+    conn = http.client.HTTPConnection(*address, timeout=600)
+    try:
+        conn.request(method, path, body=body or None,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def fleet_phase(kernels, card_line, dev, pops=SERVE_PACK_POPS,
+                dim: int = DIM) -> dict:
+    """Phase 56: three card instances behind the port's router (module
+    docstring); returns K1's launches on the fleet path."""
+    import contextlib
+    import io
+    from deap_tpu_torch import base, random
+    from deap_tpu_torch.serve import EvolutionService, top
+    from deap_tpu_torch.serve.net import NetServer, RemoteService
+    from deap_tpu_torch.serve.router import (Backend, FleetRouter,
+                                             RouterServer, TenantQuota,
+                                             TenantQuotaExceeded)
+    t_phase = time.perf_counter()
+    tb = serve_flagship_toolbox()
+    key = random.fold_in(random.PRNGKey(56, device=dev), 0)
+    inputs = []
+    for i, n in enumerate(pops):
+        g = random.uniform(random.fold_in(key, i), (n, dim), minval=-5.12,
+                           maxval=5.12)
+        inputs.append((random.fold_in(key, 100 + i), g.cpu()))
+
+    def host_pop(g):
+        return base.Population(g, base.Fitness.empty(
+            g.shape[0], (-1.0,), device="cpu"))
+
+    def step_all(sessions, n):
+        t = time.perf_counter()
+        futs = [s.step(n) for s in sessions]
+        for fs in futs:
+            for f in fs:
+                f.result(timeout=600)
+        return (time.perf_counter() - t) / (len(sessions) * n)
+
+    # one untimed step first: the process's first steps at this bucket
+    # (the allocator's blocks, the first launches) are charged to neither
+    # side; each side's first steps then pay only a fresh service's
+    with EvolutionService(max_batch=4, device=dev) as svc:
+        k, g = inputs[-1]
+        svc.open_session(k, host_pop(g), tb, cxpb=CXPB,
+                         mutpb=MUTPB).step(1)[0].result(timeout=600)
+    # the reference: one undisturbed service on the card, the same keys
+    # and populations, 2 x FLEET_STEPS steps each
+    with EvolutionService(max_batch=4, device=dev) as svc:
+        ref = [svc.open_session(k, host_pop(g), tb, cxpb=CXPB, mutpb=MUTPB,
+                                name=f"fleet-{i}")
+               for i, (k, g) in enumerate(inputs)]
+        alone_s = [step_all(ref, FLEET_STEPS) for _ in range(2)]
+        want = [s.population() for s in ref]
+
+    svcs = [EvolutionService(max_batch=4, device=dev) for _ in range(3)]
+    srvs = [NetServer(s, {"flagship": tb}).start() for s in svcs]
+    router = FleetRouter([Backend(f"b{i}", s.url)
+                          for i, s in enumerate(srvs)],
+                         quotas={"capped": TenantQuota(max_sessions=1)})
+    front = RouterServer(router).start()
+    cli = RemoteService(front.url, timeout=900)
+    try:
+        kernels.reset_launches()
+        sess = [cli.open_session(k, host_pop(g), "flagship", cxpb=CXPB,
+                                 mutpb=MUTPB, name=f"fleet-{i}",
+                                 tenant="acme")
+                for i, (k, g) in enumerate(inputs)]
+        homes = {router.route_of(s.name).name for s in sess}
+        routed_s = [step_all(sess, FLEET_STEPS)]
+        home = min(homes) if len(homes) == 1 else None
+        t = time.perf_counter()
+        status, body = _http(front.address, "POST",
+                             "/v1/admin/fleet/failover",
+                             json.dumps({"backend": home}).encode())
+        failover_s = time.perf_counter() - t
+        new_homes = {router.route_of(s.name).name for s in sess}
+        routed_s.append(step_all(sess, FLEET_STEPS))
+        launches = kernels.LAUNCHES["megakernel_vary"]
+        got = [s.population() for s in sess]
+        victim = srvs[int(home[1:])] if home else srvs[0]
+        new_home = router.route_of(sess[0].name)
+        with RemoteService(victim.url, timeout=900) as stale:
+            stale_gen = stale.attach(sess[0].name).gen
+            followed = (stale.host, stale.port) == (new_home.host,
+                                                    new_home.port)
+        k_cap, g_cap = inputs[0][0], inputs[0][1][:1024]
+        cli.open_session(k_cap, host_pop(g_cap), "flagship", name="cap-0",
+                         tenant="capped", evaluate_initial=False)
+        try:
+            cli.open_session(k_cap, host_pop(g_cap), "flagship",
+                             name="cap-1", tenant="capped",
+                             evaluate_initial=False)
+            quota = "admitted"
+        except TenantQuotaExceeded:
+            quota = "TenantQuotaExceeded"
+        rec = router.stats()
+        _, prom = _http(front.address, "GET",
+                        "/v1/admin/fleet?format=prometheus")
+        prom = prom.decode()
+        live = [b for b in router.backends if not router.health.is_sick(b)]
+        labelled = {b: f'deap_tpu_serve_steps_total{{instance="{b}"}}' in prom
+                    for b in ["router"] + live}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            top_rc = top.main(["--router", front.url, "--once", "--json"])
+        doc = json.loads(buf.getvalue())
+        per = [r["counters"] for r in doc["instances"].values()
+               if r["error"] is None]
+        top_sums = all(v == sum(c.get(k, 0) for c in per)
+                       for k, v in doc["fleet"]["counters"].items())
+    finally:
+        cli.close()
+        front.close()
+        for s in srvs:
+            s.close()
+        for s in svcs:
+            s.close()
+    same = [same_population(a, b) for a, b in zip(got, want)]
+    counters = {k: rec.counters[k] for k in (
+        "router_failovers", "router_failover_sessions",
+        "router_quota_rejections", "router_sessions_placed",
+        "router_placements_warm", "router_sessions_lost")}
+    phase("serving fleet: three card instances behind the router",
+          card_line, pops=list(pops), dim=dim, steps=2 * FLEET_STEPS,
+          homes=sorted(homes), after_failover=sorted(new_homes),
+          s_per_step_routed=routed_s, s_per_step_alone=alone_s,
+          s_per_step_are=("a session's step, steps 1-2 and 3-4 (routed: "
+                          "before and after the failover; alone: the "
+                          "sessions' futures queued together)"),
+          failover_http_status=status, failover_s=failover_s,
+          router_failover_recovery_s=rec.gauges[
+              "router_failover_recovery_s"],
+          router_bytes_in=rec.counters["net_bytes_in"],
+          router_bytes_out=rec.counters["net_bytes_out"],
+          router_counters=counters, k1_launches=launches,
+          bitwise_to_alone=same, stale_client_gen=stale_gen,
+          stale_client_followed=followed, capped_second_session=quota,
+          prometheus_instance_labels=labelled, top_rc=top_rc,
+          top_fleet_is_instance_sum=top_sums,
+          top_fleet_steps=doc["fleet"]["counters"].get("steps"),
+          seconds=time.perf_counter() - t_phase)
+    if len(homes) != 1:
+        fail(f"fleet: affinity placed one bucket's sessions on {homes}")
+    if status != 200 or home in new_homes or len(new_homes) != 1:
+        fail(f"fleet: failover of {home} answered {status} {body[:200]!r} "
+             f"and left the sessions on {new_homes}")
+    if not all(same):
+        fail("fleet: sessions behind the router differ from the same "
+             "sessions stepped in one undisturbed service")
+    if launches != len(pops) * 2 * FLEET_STEPS:
+        fail(f"fleet: K1 ran {launches} times for {len(pops)} x "
+             f"{2 * FLEET_STEPS} routed steps")
+    if stale_gen != 2 * FLEET_STEPS or not followed:
+        fail(f"fleet: a direct client of the drained {home} read gen "
+             f"{stale_gen} (redirect followed: {followed})")
+    if quota != "TenantQuotaExceeded":
+        fail(f"fleet: the capped tenant's second session was {quota}")
+    if (counters["router_failovers"], counters["router_failover_sessions"],
+            counters["router_quota_rejections"]) != (1, len(pops), 1):
+        fail(f"fleet: router counters {counters}")
+    if not all(labelled.values()):
+        fail(f"fleet: one scrape's instance labels {labelled}")
+    if top_rc != 0 or not top_sums or \
+            doc["fleet"]["counters"].get("steps") != \
+            len(pops) * 2 * FLEET_STEPS:
+        fail(f"fleet: top --once --json rc {top_rc}, fleet counters the "
+             f"instance sum: {top_sums}, steps "
+             f"{doc['fleet']['counters'].get('steps')}")
+    return {"launches": launches}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-side"]:
         return _cpu_side_main(sys.argv[2])
@@ -7446,7 +7649,10 @@ def main() -> int:
     # ---- 55. serving: the service, the wire, quarantine, checkpoints -------
     serving = serving_phases(kernels, card_line, dev)
 
-    # ---- 56. the kernels line and the result -------------------------------
+    # ---- 56. the serving fleet: the router, failover, quotas, top ----------
+    fleet = fleet_phase(kernels, card_line, dev)
+
+    # ---- 57. the kernels line and the result -------------------------------
     # K1 and K2 at the GA flagship's shape (1e6 x 100 float32); K1's
     # launches are the live-mask path's, and per path beside them
     src = "deap_tpu_torch/kernels/megakernel.cu"
@@ -7495,7 +7701,8 @@ def main() -> int:
         f"served over the wire, {SERVE_STEPS} steps": serving[
             "launches"]["wire step"],
         f"slot-packed sessions, {len(SERVE_PACK_POPS)} x "
-        f"{SERVE_PACK_STEPS} steps": serving["launches"]["packed steps"]})
+        f"{SERVE_PACK_STEPS} steps": serving["launches"]["packed steps"],
+        "fleet steps": fleet["launches"]})
     # K1 at the NSGA-II head's shape beside the flagship's: host-paced
     # ms, device ms with the launches queued, and the bound
     rows[0]["ms_by_shape"] = {

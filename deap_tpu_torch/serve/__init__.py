@@ -25,12 +25,16 @@ the evolution step:
 * :mod:`~deap_tpu_torch.serve.net` — the network frontend (imported explicitly,
   not re-exported here): stdlib HTTP server, binary JSON+tensor wire
   protocol, ``RemoteService``/``RemoteSession`` client, and the
-  drain/restore surface behind cross-instance failover.
+  drain/restore surface behind cross-instance failover;
+* :mod:`~deap_tpu_torch.serve.router` — the fleet router in front of
+  several instances (placement, tenant quotas, health-driven failover),
+  ``python -m deap_tpu_torch.serve.router.cli``;
+* :mod:`~deap_tpu_torch.serve.top` — the fleet dashboard,
+  ``python -m deap_tpu_torch.serve.top``.
 
-Not ported yet (queue 1 item 11b of ROADMAP.md): the fleet router
-(``serve/router/``), autoscaling (``serve/autoscale/``), the
-fault-injecting wire (``net/faultwire.py``), ``deap-tpu-top``
-(``serve/top.py``) and pop-sharded sessions.
+Not ported yet (queue 1 item 11b (ii) of ROADMAP.md): autoscaling
+(``serve/autoscale/``), the fitness-cache fabric, the fault-injecting
+wire (``net/faultwire.py``) and pop-sharded sessions.
 """
 
 from .buckets import (BucketPolicy, BucketKey, BucketOverflow,  # noqa: F401

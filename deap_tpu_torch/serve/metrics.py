@@ -33,7 +33,9 @@ from .. import sanitize
 from ..observability.sinks import MetricRecord, emit_record
 
 __all__ = ["ServeMetrics", "SERVE_COUNTERS", "SERVE_GAUGES", "NET_COUNTERS",
-           "TENANT_COUNTERS", "prometheus_text"]
+           "ROUTER_COUNTERS", "ROUTER_GAUGES", "TENANT_COUNTERS",
+           "AUTOSCALE_COUNTERS", "AUTOSCALE_GAUGES",
+           "prometheus_text", "prometheus_fleet_text"]
 
 #: Counters the service maintains (cumulative over the service lifetime).
 SERVE_COUNTERS = (
@@ -54,6 +56,45 @@ NET_COUNTERS = (
     "net_requests", "net_errors", "net_streams",
     "net_bytes_in", "net_bytes_out", "net_bytes_saved",
     "net_frames_compressed",
+)
+
+#: Counters of the fleet router (deap_tpu_torch.serve.router) — the
+#: control plane ABOVE one instance; the router's ServeMetrics store is
+#: constructed with ``extra_counters=ROUTER_COUNTERS``.
+ROUTER_COUNTERS = (
+    "router_requests", "router_errors", "router_forwards",
+    "router_forward_retries", "router_sessions_placed",
+    "router_sessions_closed", "router_placements_warm",
+    "router_quota_rejections", "router_health_probes",
+    "router_backends_sick", "router_failovers", "router_failover_sessions",
+    "router_orphans_replaced", "router_sessions_lost",
+    "router_breaker_opens", "router_breaker_probes",
+    "router_breaker_rejections", "router_deadline_shed",
+)
+
+#: Gauges of the fleet router (last-value).
+ROUTER_GAUGES = (
+    "router_backends_alive", "router_sessions_routed",
+    "router_inflight", "router_failover_recovery_s",
+    "router_backends_degraded",
+)
+
+#: Counters of the elastic-fleet layer (the autoscaler, live migration
+#: and the fitness-cache fabric).  The router's store pre-registers them,
+#: so its record has the JAX router's key set; nothing in the port counts
+#: them yet (queue 1 item 11b (ii) of ROADMAP.md).
+AUTOSCALE_COUNTERS = (
+    "autoscale_scale_out_events", "autoscale_scale_in_events",
+    "autoscale_migrations", "autoscale_migration_failures",
+    "autoscale_errors", "autoscale_prewarms",
+    "cache_fabric_hits", "cache_fabric_exports", "cache_fabric_imports",
+    "cache_fabric_syncs",
+)
+
+#: Gauges of the elastic-fleet layer (last-value).
+AUTOSCALE_GAUGES = (
+    "autoscale_instances", "autoscale_migration_downtime_s",
+    "autoscale_last_decision_queue_depth",
 )
 
 #: Gauges (last-value).  ``profile_programs`` is the profiler's rollup
@@ -84,7 +125,12 @@ class ServeMetrics:
     ``max_tenants`` bounds the per-tenant table: when a fresh tenant
     would exceed it, the oldest tenant's row is evicted (the table is a
     live attribution view, not an accounting ledger — long-lived fleets
-    must not leak a row per dead session forever)."""
+    must not leak a row per dead session forever).
+
+    ``extra_counters`` / ``extra_gauges`` pre-register additional name
+    families in the snapshot (the router passes
+    :data:`ROUTER_COUNTERS`/:data:`ROUTER_GAUGES`) — backend snapshots
+    stay free of zero-valued router series."""
 
     #: lock-guarded shared state (``lock-discipline`` lint + runtime
     #: sanitizer): every counter/gauge/reservoir/tenant table access
@@ -92,11 +138,15 @@ class ServeMetrics:
     _GUARDED_BY = {"_lock": ("_counters", "_gauges", "_latency",
                              "_tenants")}
 
-    def __init__(self, latency_window: int = 2048, max_tenants: int = 4096):
+    def __init__(self, latency_window: int = 2048, max_tenants: int = 4096,
+                 extra_counters: Iterable[str] = (),
+                 extra_gauges: Iterable[str] = ()):
         self._lock = sanitize.lock()
         self._counters: Dict[str, int] = {
-            k: 0 for k in SERVE_COUNTERS + NET_COUNTERS}
-        self._gauges: Dict[str, float] = {k: 0.0 for k in SERVE_GAUGES}
+            k: 0 for k in SERVE_COUNTERS + NET_COUNTERS
+            + tuple(extra_counters)}
+        self._gauges: Dict[str, float] = {
+            k: 0.0 for k in SERVE_GAUGES + tuple(extra_gauges)}
         self._latency: Dict[str, collections.deque] = {}
         self._window = int(latency_window)
         self._tenants: "collections.OrderedDict[str, Dict[str, int]]" = \
@@ -239,7 +289,9 @@ def _label_str(labels: Dict[str, str]) -> str:
 def _families_of(record: MetricRecord,
                  instance: Optional[str] = None) -> "collections.OrderedDict":
     """``{metric name: (type, [(labels, formatted value), ...])}`` for
-    one record, which :func:`prometheus_text` renders."""
+    one record — the shared decomposition :func:`prometheus_text`
+    renders directly and :func:`prometheus_fleet_text` merges across
+    instances (so a fleet exposition declares each TYPE exactly once)."""
     base = {} if instance is None else {"instance": str(instance)}
     fams: "collections.OrderedDict[str, tuple]" = collections.OrderedDict()
 
@@ -317,3 +369,16 @@ def prometheus_text(record: MetricRecord,
     sample — the fleet exposition's disambiguator."""
     return _render_families(_families_of(record, instance))
 
+
+def prometheus_fleet_text(records: Dict[str, MetricRecord]) -> str:
+    """One exposition covering a whole fleet: ``{instance name:
+    record}`` merged so each metric family is declared once and every
+    sample carries its ``instance`` label — what the router serves at
+    ``GET /v1/admin/fleet?format=prometheus`` (one scrape, N
+    instances)."""
+    merged: "collections.OrderedDict[str, tuple]" = collections.OrderedDict()
+    for inst, rec in records.items():
+        for metric, (typ, samples) in _families_of(rec, inst).items():
+            fam = merged.setdefault(metric, (typ, []))
+            fam[1].extend(samples)
+    return _render_families(merged)

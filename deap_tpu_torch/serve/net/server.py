@@ -33,6 +33,11 @@ noted)::
     POST   /v1/admin/restore                failover step 2: adopt a
                                             drained snapshot
     POST   /v1/admin/rebucket               adaptive bucket-grid refit
+    POST   /v1/admin/redirect               failover step 3: record where
+                                            drained sessions now live (a
+                                            typed redirect for stale
+                                            clients; {"session": name}
+                                            scopes it to one session)
 
 Cross-instance failover is drain → ship the frame → restore: the snapshot
 carries each session's toolbox *name*, bucket rows and raw PRNG key, so
@@ -42,10 +47,11 @@ and keys travel as raw ``uint32`` words (2 for threefry, 4 for rbg), so a
 JAX ``RemoteService`` drives this server and a JAX instance's drained
 sessions restore here (``tests/test_torch_serve_net.py``).
 
-Not ported yet (queue 1 item 11b of ROADMAP.md): the fleet router in
-front of several servers, the autoscaler's live migration, the
-cross-instance cache fabric and the typed redirects they set, and the
-fault-injecting wire.
+Not ported yet (queue 1 item 11b (ii) of ROADMAP.md): the autoscaler's
+live migration (``/v1/admin/migrate``), the cross-instance cache fabric
+(``/v1/admin/cache/export|import``) and the fault-injecting wire.  The
+fleet router (:mod:`deap_tpu_torch.serve.router`) fronts this server
+and sets its redirects.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from ... import sanitize
 from ...base import Population, Fitness
 from ...observability import fleettrace
 from ...observability.sinks import emit_text
-from ..dispatcher import SessionUnknown
+from ..dispatcher import ServiceDraining, SessionUnknown
 from ..metrics import prometheus_text
 from . import protocol
 from .httpcommon import FleetHTTPServer, FrameHTTPHandler
@@ -92,8 +98,10 @@ class NetServer:
 
     #: lock-guarded shared state: the
     #: session→toolbox name map is written by concurrent HTTP handler
-    #: threads (create/close/restore) — writes only under ``self._lock``
-    _GUARDED_BY = {"_lock": ("_session_toolbox",)}
+    #: threads (create/close/restore), and the failover redirect targets
+    #: by the admin endpoint — writes only under ``self._lock``
+    _GUARDED_BY = {"_lock": ("_session_toolbox", "_redirect",
+                             "_session_redirects")}
 
     def __init__(self, service, toolboxes: Dict[str, Any], *,
                  host: str = "127.0.0.1", port: int = 0,
@@ -110,6 +118,15 @@ class NetServer:
         self.compress_min_bytes = int(compress_min_bytes)
         self.verbose = bool(verbose)
         self._session_toolbox: Dict[str, str] = {}
+        #: where this instance's sessions went after a drain (set by
+        #: POST /v1/admin/redirect, typically by the fleet router once
+        #: restore succeeded elsewhere): attached to ServiceDraining /
+        #: SessionUnknown error envelopes so direct clients follow the
+        #: failover transparently
+        self._redirect: Optional[str] = None
+        #: per-session redirects (one session moved; its neighbors keep
+        #: serving here, so the instance-wide target must stay unset)
+        self._session_redirects: Dict[str, str] = {}
         self._lock = sanitize.lock()
         net = self
 
@@ -207,12 +224,21 @@ class NetServer:
             timeout=self.result_timeout)
         with self._lock:
             self._session_toolbox[session.name] = tb_name
+            # a re-created name supersedes any redirect leftover: the
+            # session lives HERE now, a stale redirect would bounce it
+            self._session_redirects.pop(session.name, None)
         return {"name": session.name, "gen": session.gen,
                 "pop": session.pop_size, "rows": session.bucket.rows,
                 "sharded": session.sharded}
 
     def h_get_session(self, name: str) -> dict:
         s = self._session(name)
+        if s.closed and self.redirect_for(name) is not None:
+            # drained here and live elsewhere: the state this instance
+            # still holds is stale, so a read redirects as a step would
+            # (the JAX package's server answers the stale state)
+            raise ServiceDraining(f"session {name!r} was drained from "
+                                  "this instance")
         p = s.population()          # CPU tensors, read by the worker
         return {"name": s.name, "gen": s.gen, "phase": s.phase,
                 "pop": s.pop_size, "rows": s.bucket.rows,
@@ -305,6 +331,7 @@ class NetServer:
         with self._lock:
             for name in restored:
                 self._session_toolbox[name] = snaps[name].get("toolbox")
+                self._session_redirects.pop(name, None)
         if self.verbose:
             emit_text(f"[serve.net] restored {sorted(restored)} "
                       f"skipped {sorted(skipped)}", self.sinks)
@@ -327,6 +354,39 @@ class NetServer:
             warm=tuple(body.get("warm", ("step",))),
             sizes=None if sizes is None else [int(r) for r in sizes])
 
+    def h_redirect(self, body: dict) -> dict:
+        """Failover step 3 (optional): record where the drained sessions
+        now live, so clients still pointed HERE get a typed redirect in
+        the error envelope instead of a dead end.  ``{"url": null}``
+        clears it.  With ``"session"`` in the body the redirect applies
+        to that ONE session; it shadows the instance-wide target for
+        that session's paths."""
+        url = body.get("url")
+        session = body.get("session")
+        with self._lock:
+            if session is None:
+                self._redirect = None if url is None else str(url)
+            elif url is None:
+                self._session_redirects.pop(str(session), None)
+            else:
+                self._session_redirects[str(session)] = str(url)
+        return {"location": url, "session": session}
+
+    @property
+    def redirect_location(self) -> Optional[str]:
+        with self._lock:
+            return self._redirect
+
+    def redirect_for(self, session: Optional[str]) -> Optional[str]:
+        """The redirect a stale client of ``session`` should follow: the
+        session's own target when one is recorded, else the
+        instance-wide drain target."""
+        with self._lock:
+            if session is not None:
+                url = self._session_redirects.get(session)
+                if url is not None:
+                    return url
+            return self._redirect
 
 
 def _as_host(tree):
@@ -442,7 +502,14 @@ class _Handler(FrameHTTPHandler):
     def _send_error_obj(self, exc: BaseException) -> None:
         net = self.server_ctx
         net.service.metrics.inc("net_errors")
-        self._send_error_envelope(exc)
+        # a drained instance that knows its replacement attaches the
+        # typed redirect (draining rejections AND post-drain lookup
+        # misses — the two shapes a stale client sees after failover);
+        # a session's OWN redirect wins over the instance-wide one
+        location = (net.redirect_for(getattr(self, "_session_name", None))
+                    if isinstance(exc, (ServiceDraining, SessionUnknown))
+                    else None)
+        self._send_error_envelope(exc, location=location)
         if protocol.status_of(exc) == 500:
             # 500 = an UNMAPPED exception — a service bug, not a protocol
             # outcome (draining/deadline envelopes stay quiet) — dump the
@@ -507,7 +574,8 @@ class _Handler(FrameHTTPHandler):
                         return self._send_obj(fn(name, self._body()))
             if method == "POST" and rest[:1] == ["admin"] and len(rest) == 2:
                 fn = {"drain": net.h_drain, "restore": net.h_restore,
-                      "rebucket": net.h_rebucket}.get(rest[1])
+                      "rebucket": net.h_rebucket,
+                      "redirect": net.h_redirect}.get(rest[1])
                 if fn is not None:
                     return self._send_obj(fn(self._body()))
             raise SessionUnknown(f"unknown path {url.path!r}")

@@ -37,9 +37,13 @@ SERVE_MODULES = ("serve", "serve.buckets", "serve.cache", "serve.dispatcher",
                  "serve.net.client", "observability", "observability.events",
                  "observability.sinks", "observability.fleettrace",
                  "observability.profiling", "sanitize",
-                 "resilience.quarantine")
+                 "resilience.quarantine", "serve.top", "serve.router",
+                 "serve.router.backend", "serve.router.cli",
+                 "serve.router.core", "serve.router.health",
+                 "serve.router.placement", "serve.router.server",
+                 "serve.router.tenants")
 PACKAGES = ("parallel", "bigpop", "resilience", "serve", "serve.net",
-            "observability", "sanitize")
+            "serve.router", "observability", "sanitize")
 
 
 def _port_files():
@@ -234,12 +238,9 @@ def test_out_of_core_packages_export_the_jax_names():
 #: sanitizer that the port does not have yet, and where they are queued
 #: (ROADMAP.md queue 1): item 11b, the serving fleet; item 12, the tooling
 DEFERRED_MODULES = {
-    **{f"serve/router/{m}.py": "11b" for m in (
-        "__init__", "backend", "cli", "core", "health", "placement",
-        "server", "tenants")},
     **{f"serve/autoscale/{m}.py": "11b" for m in (
         "__init__", "controller", "fabric", "migrate", "policy")},
-    "serve/net/faultwire.py": "11b", "serve/top.py": "11b",
+    "serve/net/faultwire.py": "11b",
     "resilience/chaos.py": "11b", "resilience/chaosdrill.py": "11b",
     "resilience/faultdrill.py": "11b",
     "observability/cli.py": "12", "observability/metrics.py": "12",
@@ -247,12 +248,8 @@ DEFERRED_MODULES = {
     "sanitize/guards.py": "12", "sanitize/runtime.py": "12",
     "sanitize/pytest_plugin.py": "12"}
 #: names of a ported module's JAX ``__all__`` that come with a deferred
-#: module (re-exported there, the fleet's metric registries, or XLA's
-#: half of the profiler)
+#: module (re-exported there, or XLA's half of the profiler)
 DEFERRED_NAMES = {
-    "serve/metrics.py": {"ROUTER_COUNTERS", "ROUTER_GAUGES",
-                         "AUTOSCALE_COUNTERS", "AUTOSCALE_GAUGES",
-                         "prometheus_fleet_text"},
     "resilience/__init__.py": {"ChaosLeg", "ChaosPlan", "ChaosFault",
                                "ChaosInjector", "canonical_plan"},
     "observability/__init__.py": {
